@@ -8,17 +8,27 @@ outside a checkout.  Phases, one JSON line each:
 
 1. build   - compile csrc/*.cu for sm_90a (all sources in parallel)
 2. check   - hold each kernel (K1 edge_spmm, K2 edge_spmm_nb, K3 gram2k,
-             K4 panel_mix) against its plain PyTorch twin on the card at
-             the main path's shapes, and time kernel, twin and one
-             PyTorch library call that computes the same function
+             K4 panel_mix, K5 poly_step, K6 dense_matvec_panel) against
+             its plain PyTorch twin on the card at the main path's shapes,
+             and time kernel, twin and one PyTorch library call that
+             computes the same function
 3. small   - spectral_cluster on a 160-node clique graph (600 mu-EG steps,
              degree-251 limit_neg_exp): agreement with the planted labels
 4. full    - spectral_cluster on a 2^20-node sparse SBM (E ~ 8.9 M, k = 10,
              degree 251, 10 solver steps), then 3 solver steps of the kernel
              path against backend="segment" at n = 8192 (node-blocked)
-5. kernels - per kernel: launches on the main path (phases 3 and 4, counts
-             reset just before and read just after each), error, times and
-             the bound of this run's inputs
+5. dense   - limit_series_apply (251 K5 steps) on the dense L of a
+             16384-node sparse SBM against the plain series, beside the
+             unfused baseline (251 K6 products plus the AXPY)
+6. auto_small - spectral_cluster(transform="auto") on the clique graph of
+             phase 3: the SLQ probe (K1), the plan, the planned solve
+7. auto_full - spectral_cluster(transform="auto") on phase 4's 2^20-node
+             graph: probe on K1, planned solve on K2-K4, 10 solver steps;
+             K1 held to its twin on the (2^20, 4) probe panel, and the SLQ
+             probe on K1 to the one on backend="segment" from that panel
+8. kernels - per kernel: launches on the main path (phases 3, 4, 5, 6 and
+             7, counts reset just before and read just after each), error,
+             times and the bound of this run's inputs
 
 The card's name and power limit are printed as nvidia-smi gives them, and
 the last line is {"ok": true, "device": {...}}.  Numbers are fp32 with
@@ -46,6 +56,20 @@ REL_TOL = 1e-5
 # 3 solver steps of the kernel path vs backend="segment" (n = 8192):
 # panels of unit columns, 3 x 251 fused steps and 3 mu-EG steps of fp32
 STEPS_TOL = 1e-4
+# 251 K5 steps vs the plain series (cuBLAS fp32 matmuls): each step rounds
+# at ~1e-7 of the panel's scale, 251 of them stay below 1e-4 of it
+DENSE_TOL = 1e-4
+# the probe's lambda_max vs the largest weighted degree, a lower bound on
+# lambda_max (a diagonal entry of L is a Rayleigh quotient): 24 Lanczos
+# steps leave the top edge a few percent unconverged at most
+LMAX_SLACK = 0.05
+# the 2^20-node SLQ probe run on K1 vs on backend="segment" from the same
+# (n, 4) panel: lambda_max and trace relative to the segment run.  The
+# trace is n * mean(v^T L v) and moves with one matvec's rounding (~1e-7);
+# lambda_max adds a residual correction read off the top Ritz vectors,
+# which the dense top of the spectrum leaves less well conditioned, so it
+# gets the card test's 1e-3 (a wrong K1 scatter is off by far more)
+SLQ_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -81,6 +105,7 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
+    from repro_torch import spectral
     from repro_torch.core import (ClusteringConfig, SolverConfig, backend,
                                   graphs, limit_neg_exp, operators, solvers,
                                   spectral_cluster)
@@ -91,6 +116,8 @@ def main() -> int:
     from repro_torch.kernels.edge_spmm import ref as es_ref
     from repro_torch.kernels.eg_update import ops as eg_ops
     from repro_torch.kernels.eg_update import ref as eg_ref
+    from repro_torch.kernels.laplacian_poly import ops as lp_ops
+    from repro_torch.kernels.laplacian_poly import ref as lp_ref
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
@@ -233,6 +260,32 @@ def main() -> int:
           source="src/repro_torch/csrc/eg_update.cu")
     del x, av, v, nb
 
+    # K5, K6 at n = 16384, k = 10 on a dense L of 1 GiB (20x the L2)
+    nd = 16384
+    gd, _ = graphs.sparse_sbm_graph(nd, 8, avg_degree_in=16, avg_degree_out=1,
+                                    seed=0, device=dev)
+    ld = lap.laplacian_dense(gd)
+    rho_d = float(lap.spectral_radius_upper_bound(gd))
+    cd = 8.0 / rho_d / 251
+    vd = panel(nd, k, 4)
+    check("poly_step",
+          lambda: lp_ops.poly_step(ld, vd, cd),
+          lambda: lp_ref.poly_step(ld, vd, cd),
+          lambda: torch.addmm(vd, ld, vd, alpha=-cd),
+          nbytes=nd * nd * 4 + 3 * nd * k * 4, flops=2 * nd * nd * k + 2 * nd * k,
+          reps=50, replaces="src/repro/kernels/laplacian_poly/kernel.py:44",
+          source="src/repro_torch/csrc/laplacian_poly.cu",
+          matvec_pair=(lambda: lp_ops.dense_matvec_panel(ld, vd),
+                       lambda: lp_ref.dense_matvec_panel(ld, vd)))
+    check("dense_matvec_panel",
+          lambda: lp_ops.dense_matvec_panel(ld, vd),
+          lambda: lp_ref.dense_matvec_panel(ld, vd),
+          lambda: ld @ vd,
+          nbytes=nd * nd * 4 + 2 * nd * k * 4, flops=2 * nd * nd * k,
+          reps=50, replaces="src/repro/kernels/laplacian_poly/kernel.py:80",
+          source="src/repro_torch/csrc/laplacian_poly.cu")
+    del ld  # rebuilt in phase 5; phase 4's peak memory leaves it out
+
     # ---- 3. small end-to-end (K1 path) -----------------------------------
     gs, truth_s = graphs.clique_graph(160, 4, seed=3, device=dev)
     cfg_s = ClusteringConfig(
@@ -271,8 +324,9 @@ def main() -> int:
     if not col_norm_err <= 1e-4:
         raise AssertionError(f"eigvec columns off unit norm by {col_norm_err}")
     # the pieces of one solver step, timed on the same graph
+    nb = backend.blocking_for(g)  # reused by phase 7
     s = limit_neg_exp(251, scale=8.0 / rho)
-    op = operators.edge_series_operator(g, s, backend="kernel")
+    op = operators.edge_series_operator(g, s, backend="kernel", blocking=nb)
     st = solvers.init_from_panel(eig)
     op_ms = cuda_ms(lambda: op(st.v), 3)
     step_fn = solvers.make_step_fn("mu_eg", "kernel", dev)
@@ -307,9 +361,158 @@ def main() -> int:
         raise AssertionError(f"3 kernel-path steps differ from segment by "
                              f"{steps_err} > {STEPS_TOL}")
 
-    # ---- 5. kernel list --------------------------------------------------
+    # ---- 5. dense limit series (K5 path, K6 baseline) ---------------------
+    ld = lap.laplacian_dense(gd)
+    s_d = limit_neg_exp(251, scale=8.0 / rho_d)
+
+    def unfused():
+        u = vd
+        for _ in range(251):
+            u = u - cd * lp_ops.dense_matvec_panel(ld, u)
+        return -u
+
+    reset_launch_counts()
+    (fused_out, unfused_out), dense_s = host_s(lambda: (
+        lp_ops.limit_series_apply(ld, vd, degree=251, scale=8.0 / rho_d),
+        unfused()))
+    counts_dense = launch_counts()
+    want_d = s_d.apply(operators.dense_matvec(ld), vd)
+    dense_tol = DENSE_TOL * float(want_d.abs().max())
+    dense_err = float((fused_out - want_d).abs().max())
+    unfused_err = float((unfused_out - want_d).abs().max())
+    fused_ms = cuda_ms(lambda: lp_ops.limit_series_apply(
+        ld, vd, degree=251, scale=8.0 / rho_d), 3)
+    unfused_ms = cuda_ms(unfused, 3)
+    plain_series_ms = cuda_ms(
+        lambda: s_d.apply(operators.dense_matvec(ld), vd), 3)
+    emit({"phase": "dense", "n": nd, "k": k, "degree": 251,
+          "seconds": dense_s, "max_abs_err": dense_err,
+          "unfused_max_abs_err": unfused_err, "tolerance": dense_tol,
+          "fused_series_ms": fused_ms, "unfused_series_ms": unfused_ms,
+          "plain_series_ms": plain_series_ms, "launches": counts_dense})
+    if not (dense_err <= dense_tol and unfused_err <= dense_tol):
+        raise AssertionError(f"dense series off the plain one by "
+                             f"{dense_err} / {unfused_err} > {dense_tol}")
+    for name in ("poly_step", "dense_matvec_panel"):
+        if counts_dense[name] != 251:
+            raise AssertionError(f"dense run launched {name} "
+                                 f"{counts_dense[name]} times, not 251")
+    del ld, fused_out, unfused_out, want_d
+
+    # ---- 6. auto-tuned path, small (K1 probe + K1 solve) -----------------
+    lam_s = torch.linalg.eigvalsh(lap.laplacian_dense(gs).double())
+    probe_a, plan_a = spectral.probe_and_plan(
+        gs, k=6, generator=torch.Generator(device=dev).manual_seed(3),
+        budget=251)
+    cfg_as = ClusteringConfig(
+        num_clusters=4, transform="auto", degree=251,
+        solver=SolverConfig(method="mu_eg", lr=0.4, steps=600, eval_every=100),
+        seed=0)
+    reset_launch_counts()
+    (labels_as, info_as), auto_small_s = host_s(
+        lambda: spectral_cluster(gs, cfg_as))
+    counts_auto_small = launch_counts()
+    agreement_as = float(km.cluster_agreement(labels_as, truth_s, 4))
+    lam_ratio = float(probe_a.lambda_max) / float(lam_s[-1])
+    plan_as = info_as["plan"]
+    emit({"phase": "auto_small", "n": 160, "seconds": auto_small_s,
+          "agreement": agreement_as, "probe_lambda_max":
+          float(probe_a.lambda_max), "eigh_lambda_max": float(lam_s[-1]),
+          "plan": {"family": plan_as.family, "degree": plan_as.degree,
+                   "tau": plan_as.tau, "rho": plan_as.rho},
+          "launches": counts_auto_small})
+    if not agreement_as > 0.95:
+        raise AssertionError(f"auto clique agreement {agreement_as} <= 0.95")
+    if not 0.9 <= lam_ratio <= 1.1:
+        raise AssertionError(f"probe lambda_max / eigh = {lam_ratio}")
+    if (plan_as.family, plan_as.degree, plan_as.tau) != (
+            plan_a.family, plan_a.degree, plan_a.tau):
+        raise AssertionError(f"auto plan {plan_as} != probe_and_plan's {plan_a}")
+    for name in ("edge_spmm", "gram2k", "panel_mix"):
+        if counts_auto_small[name] <= 0:
+            raise AssertionError(f"auto small run launched no {name}")
+
+    # ---- 7. auto-tuned path at full size (K1 probe, K2-K4 solve) ---------
+    reset_launch_counts()
+    (probe_f, _), probe_s = host_s(lambda: spectral.probe_and_plan(
+        g, k=k, generator=torch.Generator(device=dev).manual_seed(3),
+        budget=251))
+    probe_launches = launch_counts()["edge_spmm"]
+    _, plan_host_s = host_s(lambda: spectral.plan_dilation(
+        probe_f, k=k, budget=251, rho_fallback=rho))
+    cfg_af = ClusteringConfig(num_clusters=8, transform="auto", degree=251,
+                              solver=SolverConfig(steps=10, eval_every=10),
+                              seed=0)
+    reset_launch_counts()
+    (labels_af, info_af), auto_full_s = host_s(
+        lambda: spectral_cluster(g, cfg_af))
+    counts_auto_full = launch_counts()
+    plan_af = info_af["plan"]
+    for name in ("edge_spmm", "edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_auto_full[name] <= 0:
+            raise AssertionError(f"auto full-size run launched no {name}")
+    if not (labels_af.shape == (n,) and int(labels_af.min()) >= 0
+            and int(labels_af.max()) < 8
+            and bool(torch.isfinite(info_af["eigvecs"]).all())):
+        raise AssertionError("auto full-size run gave malformed output")
+    # the probe at the main path's shape: K1 held to its twin on the
+    # (2^20, 4) probe panel (the draw slq_probe makes from seed 3), and the
+    # whole SLQ from that panel on K1 and on segment
+    pv = torch.randn((n, 4), generator=torch.Generator(device=dev).manual_seed(3),
+                     dtype=torch.float32, device=dev)
+    probe_err, probe_tol = compare(
+        "edge_spmm (probe panel)",
+        lambda: es_ops.edge_spmm(g.src, g.dst, g.weight, pv),
+        lambda: es_ref.edge_spmm(g.src, g.dst, g.weight, pv))
+    kernels["edge_spmm"].update(probe_panel_max_abs_err=probe_err,
+                                probe_panel_tolerance=probe_tol)
+    slq = {b: spectral.slq_probe(
+        backend.edge_arrays_matvec_fn(g.src, g.dst, g.weight, b), n,
+        n_real=n, v0=pv) for b in ("kernel", "segment")}
+    slq_err = {key: abs(float(getattr(slq["kernel"], key))
+                        - float(getattr(slq["segment"], key)))
+               / float(getattr(slq["segment"], key))
+               for key in ("lambda_max", "trace")}
+    if not all(e <= SLQ_TOL for e in slq_err.values()):
+        raise AssertionError(f"K1 probe vs segment probe: relative errors "
+                             f"{slq_err} > {SLQ_TOL}")
+    rho_ub_f = info_af["rho_ub"]
+    d_max = float(lap.degrees(g).max())
+    if not plan_af.rho <= 1.01 * rho_ub_f:
+        raise AssertionError(f"plan rho {plan_af.rho} > 1.01 x {rho_ub_f}")
+    if not float(probe_f.lambda_max) >= (1 - LMAX_SLACK) * d_max:
+        raise AssertionError(f"probe lambda_max {float(probe_f.lambda_max)} "
+                             f"below the largest degree {d_max}")
+    op_af = operators.edge_series_operator(
+        g, spectral.series_from_plan(plan_af), backend="kernel", blocking=nb)
+    st_af = solvers.init_from_panel(info_af["eigvecs"])
+    lr_af = plan_af.suggested_lr(cfg_af.solver.lr)
+    op_af_ms = cuda_ms(lambda: op_af(st_af.v), 3)
+    step_af_ms = cuda_ms(lambda: step_fn(st_af, op_af(st_af.v), lr_af), 3)
+    kmeans_af_ms = cuda_ms(lambda: km.kmeans(
+        torch.Generator(device=dev).manual_seed(1), info_af["embedding"], 8), 1)
+    emit({"phase": "auto_full", "n": n, "k": k, "budget": 251,
+          "probe_s": probe_s, "probe_k1_launches": probe_launches,
+          "plan_host_s": plan_host_s,
+          "probe_lambda_max": float(probe_f.lambda_max), "max_degree": d_max,
+          "probe_panel_k1_max_abs_err": probe_err,
+          "probe_panel_k1_tolerance": probe_tol,
+          "slq_k1_vs_segment_rel_err": slq_err, "slq_tolerance": SLQ_TOL,
+          "plan": {"family": plan_af.family, "degree": plan_af.degree,
+                   "tau": plan_af.tau, "rho": plan_af.rho,
+                   "gamma": plan_af.gamma, "lam_k": plan_af.lam_k,
+                   "lam_k1": plan_af.lam_k1},
+          "rho_ub": rho_ub_f, "spectral_cluster_s": auto_full_s,
+          "operator_ms": op_af_ms, "solver_step_ms": step_af_ms,
+          "kmeans_ms": kmeans_af_ms,
+          "agreement": float(km.cluster_agreement(labels_af, truth, 8)),
+          "launches": counts_auto_full})
+
+    # ---- 8. kernel list --------------------------------------------------
+    main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
+                 counts_auto_full)
     for name, row in kernels.items():
-        row["launches"] = counts_small[name] + counts_full[name]
+        row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
     emit({"kernels": list(kernels.values())})

@@ -17,6 +17,7 @@ from repro_torch.core.laplacian import EdgeList
 from repro_torch.core.solvers import SolverConfig, SolverState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.edge_spmm import ops as es_ops
+from repro_torch.spectral.probes import ProbeResult
 
 _BACKEND_NAMES = {"pallas": "kernel"}
 
@@ -62,6 +63,20 @@ def node_blocking_from_numpy(u_local, other, weight, chunk_block, deg,
         num_chunks=int(num_chunks), num_nodes=int(num_nodes),
         block_chunks=_tensor(es_ops.block_chunk_offsets(live, block_e),
                              np.int32, dev))
+
+
+def probe_result_from_numpy(ritz, weights, lambda_max, trace, n,
+                            num_matvecs, device=None) -> ProbeResult:
+    """A ProbeResult from the fields of the JAX package's (``np.asarray``
+    of each), so the port's planner can read the JAX probe."""
+    dev = resolve_device(device)
+    return ProbeResult(
+        ritz=_tensor(ritz, np.float32, dev),
+        weights=_tensor(weights, np.float32, dev),
+        lambda_max=_tensor(lambda_max, np.float32, dev),
+        trace=_tensor(trace, np.float32, dev),
+        n=_tensor(n, np.float32, dev),
+        num_matvecs=_tensor(num_matvecs, np.int32, dev))
 
 
 def solver_state_from_numpy(v, step, device=None) -> SolverState:

@@ -102,10 +102,14 @@ def laplacian_matvec_fn(g: lap.EdgeList, backend: str = "auto",
 
 
 def edge_arrays_matvec_fn(src: torch.Tensor, dst: torch.Tensor,
-                          weight: torch.Tensor,
-                          backend: str = "auto") -> MatVec:
-    """Raw-array matvec factory: the kernel path runs K1, which has no
-    node limit on the card."""
+                          weight: torch.Tensor, backend: str = "auto"
+                          ) -> MatVec:
+    """Raw-array matvec factory (spectral probes, per-draw matvecs).
+
+    The kernel path runs K1 at any n: K1 has no node limit on the card, so
+    there is no ``num_nodes`` switch to segment past
+    ``ONE_HOT_NODE_LIMIT`` as in the JAX package.
+    """
     if resolve_backend(backend, src.device) == "segment":
         return functools.partial(lap.edge_matvec_arrays, src, dst, weight)
     return lambda v: es_ops.edge_spmm(src, dst, weight, v)

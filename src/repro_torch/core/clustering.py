@@ -3,9 +3,11 @@
 Pipeline: edges -> L -> [spectrum transform + Eq. 8 reversal] -> top-k
 solver (mu-EG / Oja) -> bottom-k eigenvector embedding -> k-means.
 
-The port runs the ``exact_edges`` estimation with a fixed transform;
-``transform="auto"`` and the ``minibatch`` and ``walks`` estimators come
-with later slices of the port and raise here.
+The port runs the ``exact_edges`` estimation with a fixed transform or
+with ``transform="auto"`` (probe the spectrum and let
+:func:`repro_torch.spectral.plan_dilation` pick family, degree and
+scale); the ``minibatch`` and ``walks`` estimators come with a later
+slice of the port and raise here.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from repro_torch.core import metrics, operators, series, solvers
 class ClusteringConfig:
     num_clusters: int = 4
     extra_eigvecs: int = 1  # compute k + extra for a stable embedding
-    transform: str = "limit_neg_exp"  # a series name, or 'identity'
+    # a series name, 'identity', or 'auto' (probe the spectrum and let
+    # repro_torch.spectral.plan_dilation pick family + degree + scale)
+    transform: str = "limit_neg_exp"
     degree: int = 251
     auto_scale: bool = True  # pre-scale L to a target radius (Fig. 4 fix)
     # effective decay strength tau: with auto_scale the transform acts like
@@ -57,10 +61,6 @@ def build_series(cfg: ClusteringConfig, rho_ub: float) -> series.SpectralSeries:
         return series.cheb_neg_exp(cfg.degree, rho=rho_ub, tau=tau)
     if cfg.transform == "cheb_log":
         return series.cheb_log(cfg.degree, rho=rho_ub)
-    if cfg.transform == "auto":
-        raise NotImplementedError(
-            "transform='auto' (probe and plan) arrives with ROADMAP slice 3, "
-            "the auto-tuned path")
     raise ValueError(f"unknown transform {cfg.transform!r}")
 
 
@@ -76,7 +76,22 @@ def spectral_cluster(g: lap.EdgeList, cfg: ClusteringConfig,
         raise ValueError(cfg.estimation)
     rho_ub = float(lap.spectral_radius_upper_bound(g))
     k = cfg.num_clusters + cfg.extra_eigvecs + (1 if cfg.drop_trivial else 0)
-    s = build_series(cfg, rho_ub)
+    plan = None
+    if cfg.transform == "auto":
+        from repro_torch import spectral  # deferred: spectral builds on core
+
+        gen = torch.Generator(device=g.device).manual_seed(cfg.seed + 3)
+        _, plan = spectral.probe_and_plan(g, k=k, generator=gen,
+                                          budget=cfg.degree,
+                                          backend=cfg.backend)
+        s = spectral.series_from_plan(plan)
+        # solver steps are not scale-invariant: renormalize the user's lr
+        # (tuned for a unit-scale series) to the planned operator's scale
+        cfg = dataclasses.replace(
+            cfg, solver=dataclasses.replace(
+                cfg.solver, lr=plan.suggested_lr(cfg.solver.lr)))
+    else:
+        s = build_series(cfg, rho_ub)
     scfg = dataclasses.replace(cfg.solver, k=k, seed=cfg.seed,
                                backend=cfg.backend)
     op = operators.edge_series_operator(g, s, backend=cfg.backend)
@@ -101,7 +116,7 @@ def spectral_cluster(g: lap.EdgeList, cfg: ClusteringConfig,
         "rho_ub": rho_ub,
         "eigvecs": state.v,
         "embedding": embedding,
-        "plan": None,
+        "plan": plan,
     }
     return result.labels, info
 

@@ -57,3 +57,47 @@ def exact_operator(series: SpectralSeries, l_mat: torch.Tensor) -> MatVec:
     f_lam = series.reversed_scalar(lam)
     a = (vecs * f_lam[None, :]) @ vecs.T
     return lambda v: a @ v
+
+
+def scaled_series_for_graph(g: lap.EdgeList, series_fn, degree: int,
+                            target_radius: float = 1.0,
+                            rho: float | None = None) -> SpectralSeries:
+    """Pre-scale L by target_radius / rho so a fixed-degree series stays
+    accurate whatever the graph's max degree (the paper's Fig. 4 failure
+    mode).  ``rho`` takes a probed spectral-radius estimate; the
+    Gershgorin bound ``spectral_radius_upper_bound`` is the default."""
+    if rho is None:
+        rho = float(lap.spectral_radius_upper_bound(g))
+    scale = target_radius / max(rho, 1e-30)
+    return series_fn(degree, scale=scale) if "scale" in series_fn.__code__.co_varnames \
+        else series_fn(degree)
+
+
+def planned_operator(g: lap.EdgeList, k: int,
+                     generator: torch.Generator | None = None,
+                     budget: int = 96, estimation: str = "exact_edges",
+                     num_probes: int = 4, num_steps: int = 24,
+                     backend: str = "auto"):
+    """Probe the graph's spectrum and build an auto-tuned solver operator.
+
+    SLQ-probes lambda_max and the bottom-edge eigengap, plans the
+    transform family, degree and strength (:mod:`repro_torch.spectral`)
+    and wires the tuned series into the exact-edges operator.  Returns
+    (operator, DilationPlan).  ``budget`` caps the series degree;
+    ``backend`` selects the kernels of both the probe and the solve.
+    The minibatch estimation (and its ``batch_edges``) comes with ROADMAP
+    slice 4.
+    """
+    if estimation == "minibatch":
+        raise NotImplementedError(
+            "estimation='minibatch' arrives with ROADMAP slice 4, the "
+            "stochastic estimators")
+    if estimation != "exact_edges":
+        raise ValueError(f"unknown estimation mode {estimation!r}")
+    from repro_torch import spectral  # deferred: spectral builds on core
+
+    _, plan = spectral.probe_and_plan(
+        g, k=k, generator=generator, budget=budget,
+        num_probes=num_probes, num_steps=num_steps, backend=backend)
+    s = spectral.series_from_plan(plan)
+    return edge_series_operator(g, s, backend=backend), plan

@@ -7,12 +7,15 @@ from __future__ import annotations
 
 from repro_torch.kernels.edge_spmm import kernel as _es
 from repro_torch.kernels.eg_update import kernel as _eg
+from repro_torch.kernels.laplacian_poly import kernel as _lp
 
 KERNELS = {
     "edge_spmm": _es.edge_spmm,
     "edge_spmm_nb": _es.edge_spmm_nb,
     "gram2k": _eg.gram2k,
     "panel_mix": _eg.panel_mix,
+    "poly_step": _lp.poly_step,
+    "dense_matvec_panel": _lp.dense_matvec_panel,
 }
 
 

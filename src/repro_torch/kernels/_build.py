@@ -49,6 +49,10 @@ SIGNATURES = {
     "gram2k_launch": [P, P, P, P, I, I, I, P],
     # v, av, m1, m2, colscale, out, n, k, stream
     "panel_mix_launch": [P, P, P, P, P, P, I, I, P],
+    # l, u, out, c, n, k, stream
+    "poly_step_launch": [P, P, P, F, I, I, P],
+    # l, u, out, n, k, stream
+    "dense_matvec_panel_launch": [P, P, P, I, I, P],
 }
 
 

@@ -8,6 +8,7 @@ cluster agreement with the planted labels.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,10 +16,14 @@ import torch
 
 from repro.core import ClusteringConfig as JClusteringConfig
 from repro.core import build_series as jbuild_series
+from repro import spectral as jspectral
+from repro.core import graphs as jgraphs
 from repro.core import kmeans as jkm
+from repro.core import operators as joperators
 from repro_torch.core import (ClusteringConfig, SolverConfig, build_series,
-                              exact_cluster_reference, graphs,
+                              exact_cluster_reference, graphs, operators,
                               spectral_cluster)
+from repro_torch import spectral
 from repro_torch.core import kmeans as km
 
 CPU = "cpu"
@@ -101,7 +106,6 @@ def test_exact_reference_pipeline():
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    (dict(transform="auto"), "slice 3"),
     (dict(estimation="minibatch"), "slice 4"),
     (dict(estimation="walks"), "slice 4"),
 ])
@@ -110,3 +114,67 @@ def test_later_slices_raise(change, slice_name):
     cfg = dataclasses.replace(ClusteringConfig(num_clusters=3), **change)
     with pytest.raises(NotImplementedError, match=slice_name):
         spectral_cluster(g, cfg)
+
+
+def test_auto_transform_recovers_cliques_with_the_jax_plan():
+    """transform="auto": probe (seed + 3), plan with budget=degree, rescale
+    lr, solve.  The probe draws differ from jax.random's, but the planner
+    snaps onto a grid, so family, degree and tau must equal the plan the
+    JAX pipeline makes on the same graph."""
+    g, truth = graphs.clique_graph(160, 4, seed=3, device=CPU)
+    cfg = ClusteringConfig(
+        num_clusters=4, transform="auto", degree=251,
+        solver=SolverConfig(method="mu_eg", lr=0.4, steps=200, eval_every=100),
+        seed=0)
+    labels, info = spectral_cluster(g, cfg)
+    assert float(km.cluster_agreement(labels, truth, 4)) > 0.95
+    gj, _ = jgraphs.clique_graph(160, 4, seed=3)
+    _, want = jspectral.probe_and_plan(gj, k=6, key=jax.random.PRNGKey(3),
+                                       budget=251)
+    plan = info["plan"]
+    assert (plan.family, plan.degree, plan.tau) == (
+        want.family, want.degree, want.tau)
+    assert info["series"] == spectral.series_from_plan(plan).name
+    assert info["rho_ub"] >= plan.rho
+
+
+def test_planned_operator_matches_jax_given_the_same_plan():
+    """Both planners pick the same family, degree and tau on the ring of
+    cliques; the port's planned operator then equals the JAX operator of
+    the port's plan to 1e-5, the TOL of tests/test_backend.py."""
+    gj, _ = jgraphs.ring_of_cliques(4, 8)
+    g, _ = graphs.ring_of_cliques(4, 8, device=CPU)
+    op, plan = operators.planned_operator(
+        g, k=4, generator=torch.Generator().manual_seed(0), backend="segment")
+    _, jplan = joperators.planned_operator(gj, k=4, key=jax.random.PRNGKey(0),
+                                           backend="segment")
+    assert (plan.family, plan.degree, plan.tau) == (
+        jplan.family, jplan.degree, jplan.tau)
+    same = type(jplan)(**dataclasses.asdict(plan))
+    jop = joperators.edge_series_operator(
+        gj, jspectral.series_from_plan(same), backend="segment")
+    v = np.random.default_rng(5).normal(size=(g.num_nodes, 4)).astype(np.float32)
+    got = op(torch.from_numpy(v)).numpy()
+    assert float(np.max(np.abs(got - np.asarray(jop(jnp.asarray(v)))))) <= 1e-5
+
+
+def test_planned_operator_minibatch_is_a_later_slice():
+    g, _ = graphs.ring_of_cliques(3, 6, device=CPU)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        operators.planned_operator(g, k=3, estimation="minibatch")
+    with pytest.raises(ValueError, match="estimation"):
+        operators.planned_operator(g, k=3, estimation="dense")
+
+
+def test_scaled_series_for_graph_matches_jax():
+    from repro.core import series as jseries
+    from repro_torch.core import series as tseries
+    gj, _ = jgraphs.ring_of_cliques(4, 8)
+    g, _ = graphs.ring_of_cliques(4, 8, device=CPU)
+    for name in ("limit_neg_exp", "taylor_neg_exp"):
+        for rho in (None, 9.5):
+            sj = joperators.scaled_series_for_graph(
+                gj, getattr(jseries, name), 9, target_radius=4.0, rho=rho)
+            st = operators.scaled_series_for_graph(
+                g, getattr(tseries, name), 9, target_radius=4.0, rho=rho)
+            assert (st.name, st.degree) == (sj.name, sj.degree)

@@ -25,6 +25,8 @@ from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.kernels.edge_spmm import ref as es_ref
 from repro_torch.kernels.eg_update import ops as eg_ops
 from repro_torch.kernels.eg_update import ref as eg_ref
+from repro_torch.kernels.laplacian_poly import ops as lp_ops
+from repro_torch.kernels.laplacian_poly import ref as lp_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +181,88 @@ def test_spectral_cluster_small_runs_kernels(dev):
     assert counts["edge_spmm"] == 200 * 251  # every series step on K1
     assert counts["gram2k"] == counts["panel_mix"] == 200
     assert float(cluster_agreement(labels, truth, 4)) > 0.95
+
+
+def _sym(seed: int, n: int, dev) -> torch.Tensor:
+    a = _panel(seed, n, n, dev)
+    return (a + a.T) / (2.0 * n ** 0.5)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (300, 4), (301, 10), (517, 12),
+                                 (1029, 16), (640, 37)])
+def test_k5_k6_match_plain(dev, n, k):
+    """Ragged n (301, 517, 1029 take the scalar-load variant), one strip
+    short of full, and k past 16 (column groups)."""
+    l_mat = _sym(30, n, dev)
+    u = _panel(31, n, k, dev)
+    reset_launch_counts()
+    got = lp_ops.poly_step(l_mat, u, 0.03)
+    assert _rel_err(got, lp_ref.poly_step(l_mat, u, 0.03)) <= REL
+    got6 = lp_ops.dense_matvec_panel(l_mat, u)
+    assert _rel_err(got6, lp_ref.dense_matvec_panel(l_mat, u)) <= REL
+    counts = launch_counts()
+    assert counts["poly_step"] == 1 and counts["dense_matvec_panel"] == 1
+
+
+def test_k5_takes_bf16_and_unaligned_views(dev):
+    l_mat = _sym(32, 256, dev)
+    u = _panel(33, 256, 4, dev)
+    got = lp_ops.poly_step(l_mat.bfloat16(), u, 0.1)
+    want = lp_ref.poly_step(l_mat.bfloat16().float(), u, 0.1)
+    assert _rel_err(got, want) <= REL
+    # an L that starts 4 bytes past alignment takes the scalar loads
+    flat = torch.empty(256 * 256 + 1, device=dev)
+    shifted = flat[1:].view(256, 256)
+    shifted.copy_(l_mat)
+    assert shifted.data_ptr() % 16 != 0
+    got = lp_ops.poly_step(shifted, u, 0.1)
+    assert _rel_err(got, lp_ref.poly_step(l_mat, u, 0.1)) <= REL
+
+
+def test_limit_series_apply_matches_series(dev):
+    l_mat = _sym(34, 1000, dev) / 10
+    v = _panel(35, 1000, 6, dev)
+    reset_launch_counts()
+    got = lp_ops.limit_series_apply(l_mat, v, degree=31, scale=2.0)
+    assert launch_counts()["poly_step"] == 31
+    want = limit_neg_exp(31, scale=2.0).apply(operators.dense_matvec(l_mat), v)
+    assert _rel_err(got, want) <= 1e-4  # 31 steps of fp32 rounding
+
+
+def test_k5_refuses_cpu_tensors():
+    from repro_torch.kernels.laplacian_poly import kernel as lp_kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        lp_kernel.poly_step(torch.eye(4), torch.ones(4, 2), 0.1)
+
+
+def test_probe_runs_one_k1_launch_per_lanczos_step(dev):
+    from repro_torch import spectral
+    g = _graph(6, 9216, 40000, dev)  # past the one-hot limit: K1 all the same
+    reset_launch_counts()
+    # the default backend ("auto") of a card graph is the kernel path
+    probe = spectral.probe_graph(g, torch.Generator(device=dev).manual_seed(0))
+    assert launch_counts()["edge_spmm"] == 24
+    seg = spectral.probe_graph(g, torch.Generator(device=dev).manual_seed(0),
+                               backend="segment")
+    lam = float(seg.lambda_max)
+    assert abs(float(probe.lambda_max) - lam) <= 1e-3 * lam
+
+
+def test_auto_spectral_cluster_on_the_card(dev):
+    from repro_torch import spectral
+    g, truth = graphs.clique_graph(160, 4, seed=3, device=dev)
+    cfg = ClusteringConfig(
+        num_clusters=4, transform="auto", degree=251,
+        solver=SolverConfig(method="mu_eg", lr=0.4, steps=200, eval_every=100))
+    reset_launch_counts()
+    labels, info = spectral_cluster(g, cfg)
+    counts = launch_counts()
+    plan = info["plan"]
+    # 24 probe steps, then degree K1 calls per solver step
+    assert counts["edge_spmm"] == 24 + 200 * plan.degree
+    assert counts["gram2k"] == counts["panel_mix"] == 200
+    assert float(cluster_agreement(labels, truth, 4)) > 0.95
+    lam = torch.linalg.eigvalsh(lap.laplacian_dense(g).double())
+    probe = spectral.probe_graph(g, torch.Generator(device=dev).manual_seed(3),
+                                 backend="kernel")
+    assert 0.9 <= float(probe.lambda_max) / float(lam[-1]) <= 1.1
