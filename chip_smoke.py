@@ -11,7 +11,12 @@ outside a checkout.  Phases, one JSON line each:
              K4 panel_mix, K5 poly_step, K6 dense_matvec_panel) against
              its plain PyTorch twin on the card at the main path's shapes,
              and time kernel, twin and one PyTorch library call that
-             computes the same function
+             computes the same function; for K1 and K2 also 200 calls
+             captured in one CUDA graph and replayed (kernel and library
+             call), whether two calls are bitwise equal, and (K1) the raw
+             per-call entry that builds its row CSR each time
+   hub     - K2 on power_law_graph(2^20, 8, 2.5, seed=0), whose longest
+             rows go to the kernel's hub blocks: error, time, bound
 3. small   - spectral_cluster on a 160-node clique graph (600 mu-EG steps,
              degree-251 limit_neg_exp): agreement with the planted labels
 4. full    - spectral_cluster on a 2^20-node sparse SBM (E ~ 8.9 M, k = 10,
@@ -48,11 +53,14 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 
-# K1/K2/K4 are held to 1e-5 of the plain twin's largest magnitude: fp32
-# atomics (K1, K2) add in a run-dependent order and K4 sums its k terms
-# in another order than the plain matmuls.  K3 sums 2^20 products per
-# entry in row slices, the plain gram in cuBLAS's order: 1e-5 of max|S|.
+# K1/K2/K4 are held to 1e-5 of the plain twin's largest magnitude: K1 and
+# K2 sum each row in registers in another order than the twins'
+# index_add_, and K4 sums its k terms in another order than the plain
+# matmuls.  K3 sums 2^20 products per entry in row slices, the plain gram
+# in cuBLAS's order: 1e-5 of max|S|.
 REL_TOL = 1e-5
+# kernel calls captured in one CUDA graph for graph_ms
+GRAPH_CALLS = 200
 # 3 solver steps of the kernel path vs backend="segment" (n = 8192):
 # panels of unit columns, 3 x 251 fused steps and 3 mu-EG steps of fp32
 STEPS_TOL = 1e-4
@@ -141,6 +149,33 @@ def main() -> int:
         sync()
         return out, time.perf_counter() - t0
 
+    def graph_ms(fn, calls: int = GRAPH_CALLS, reps: int = 5) -> float:
+        """ms per call of ``calls`` calls captured in one CUDA graph."""
+        fn()
+        sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        sync()
+        del graph
+        return start.elapsed_time(end) / (reps * calls)
+
+    def library_graph_ms(fn) -> tuple[float | None, str | None]:
+        try:
+            return graph_ms(fn), None
+        except Exception as exc:  # the library call refused capture
+            sync()
+            return None, f"{type(exc).__name__}: {exc}"[:300]
+
     # ---- 1. build --------------------------------------------------------
     gpu = gpu_line()
     _, build_s = host_s(_build.library)
@@ -161,13 +196,17 @@ def main() -> int:
         return err, tol
 
     def check(name, kernel_fn, plain_fn, library_fn, nbytes, flops, reps,
-              replaces, source, matvec_pair=None):
+              replaces, source, matvec_pair=None, also=(), graphs=False):
         """Compare and time one kernel; ``matvec_pair`` also holds the
         SpMM kernels' plain matvec form (alpha=1, beta=0) to the twin, where
-        the L V term is not dwarfed by beta * V."""
+        the L V term is not dwarfed by beta * V; ``also`` holds the kernel
+        to further (label, plain_fn) references.  ``graphs`` adds the
+        CUDA-graph times and the run-to-run bitwise check."""
         err, tol = compare(name, kernel_fn, plain_fn)
         if matvec_pair is not None:
             compare(name + " (L V)", *matvec_pair)
+        for label, ref_fn in also:
+            compare(f"{name} ({label})", kernel_fn, ref_fn)
         b_ms, b_by = bound(nbytes, flops)
         kernels[name] = {
             "name": name, "route": "cuda", "source": source,
@@ -177,6 +216,14 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(library_fn, reps),
         }
+        if graphs:
+            kernels[name]["graph_ms"] = graph_ms(kernel_fn)
+            lib_ms, lib_reason = library_graph_ms(library_fn)
+            kernels[name].update(
+                library_graph_ms=lib_ms, library_graph_refused=lib_reason,
+                bitwise_repeatable=bool(torch.equal(kernel_fn(), kernel_fn())))
+            if not kernels[name]["bitwise_repeatable"]:
+                raise AssertionError(f"{name}: two calls differ")
         emit({"phase": "check", **kernels[name]})
 
     def csr_laplacian(g):
@@ -200,22 +247,39 @@ def main() -> int:
     c1 = 8.0 / float(lap.spectral_radius_upper_bound(g1)) / 251
     l1 = csr_laplacian(g1)
     e1 = g1.num_edges
+    # the row CSR the main path builds once per edge list
+    rows1 = es_ops.build_edge_rows(g1.src, g1.dst, g1.weight, 4096)
     check("edge_spmm",
-          lambda: es_ops.edge_spmm(g1.src, g1.dst, g1.weight, v1, -c1, 1.0),
-          lambda: es_ref.edge_spmm_affine(g1.src, g1.dst, g1.weight, v1, -c1, 1.0),
+          lambda: es_ops.edge_spmm_rows(rows1, v1, -c1, 1.0),
+          lambda: es_ref.edge_spmm_rows(rows1.row_ptr, rows1.other,
+                                        rows1.weight, v1, -c1, 1.0),
           lambda: torch.sparse.mm(l1, v1),
           nbytes=e1 * 12 + 2 * 4096 * k * 4, flops=e1 * k * 6 + 4096 * k,
           reps=200, replaces="src/repro/kernels/edge_spmm/kernel.py:94",
           source="src/repro_torch/csrc/edge_spmm.cu",
           matvec_pair=(
-              lambda: es_ops.edge_spmm(g1.src, g1.dst, g1.weight, v1),
-              lambda: es_ref.edge_spmm(g1.src, g1.dst, g1.weight, v1)))
+              lambda: es_ops.edge_spmm_rows(rows1, v1),
+              lambda: es_ref.edge_spmm(g1.src, g1.dst, g1.weight, v1)),
+          also=[("edge-list twin", lambda: es_ref.edge_spmm_affine(
+              g1.src, g1.dst, g1.weight, v1, -c1, 1.0))], graphs=True)
+    kernels["edge_spmm"].update(
+        raw_call_ms=cuda_ms(lambda: es_ops.edge_spmm(
+            g1.src, g1.dst, g1.weight, v1, -c1, 1.0), 200),
+        row_csr_build_ms=cuda_ms(lambda: es_ops.build_edge_rows(
+            g1.src, g1.dst, g1.weight, 4096), 200),
+        longest_row=int((rows1.row_ptr[1:] - rows1.row_ptr[:-1]).max()),
+        hub_slots=int(rows1.hub_rows.shape[0]))
     del l1
 
     # K2, K3, K4 at n = 2^20, k = 10 on the full-size sparse SBM
     n = 1 << 20
     (g, truth), graph_s = host_s(lambda: graphs.sparse_sbm_graph(
         n, 8, avg_degree_in=16, avg_degree_out=1, seed=0, device=dev))
+    # the row CSR the main path builds on the card; the JAX-equal chunk
+    # layout, built on the host, only for the chunk-layout twin
+    rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, n)
+    rows_ms = cuda_ms(lambda: es_ops.build_edge_rows(g.src, g.dst, g.weight,
+                                                     n), 3)
     nb, blocking_s = host_s(lambda: backend.blocking_for(g))
     rho = float(lap.spectral_radius_upper_bound(g))
     c = 8.0 / rho / 251
@@ -223,24 +287,77 @@ def main() -> int:
     real_chunks, num_chunks = int(nb.block_chunks[-1]), nb.num_chunks
     slots = real_chunks * nb.block_e
     lfull = csr_laplacian(g)
+
+    def k2_bytes(graph):
+        # the edge list (src, dst, w), V and out once each: the work of the
+        # graph, whatever layout a kernel reads
+        return graph.num_edges * 12 + 2 * graph.num_nodes * k * 4
+
     check("edge_spmm_nb",
-          lambda: es_ops.edge_spmm_blocked(nb, v, -c, 1.0),
-          lambda: es_ref.edge_spmm_blocked(
-              nb.u_local, nb.other, nb.weight, nb.block_chunks, nb.deg, v,
-              -c, 1.0, block_n=nb.block_n, block_e=nb.block_e),
+          lambda: es_ops.edge_spmm_rows_nb(rows, v, -c, 1.0),
+          lambda: es_ref.edge_spmm_rows(rows.row_ptr, rows.other,
+                                        rows.weight, v, -c, 1.0),
           lambda: torch.sparse.mm(lfull, v),
-          nbytes=slots * 12 + (nb.num_blocks + 1) * 4 + nb.padded_nodes * 4
-          + 2 * n * k * 4,
+          nbytes=k2_bytes(g),
           flops=2 * g.num_edges * k * 2 + 4 * n * k, reps=20,
           replaces="src/repro/kernels/edge_spmm/kernel.py:151",
           source="src/repro_torch/csrc/edge_spmm.cu",
           matvec_pair=(
-              lambda: es_ops.edge_spmm_blocked(nb, v),
+              lambda: es_ops.edge_spmm_rows_nb(rows, v),
               lambda: es_ref.edge_spmm_blocked(
                   nb.u_local, nb.other, nb.weight, nb.block_chunks, nb.deg, v,
-                  1.0, 0.0, block_n=nb.block_n, block_e=nb.block_e)))
-    del lfull
-    av = es_ops.edge_spmm_blocked(nb, v, -c, 1.0)
+                  1.0, 0.0, block_n=nb.block_n, block_e=nb.block_e)),
+          also=[("chunk-layout twin", lambda: es_ref.edge_spmm_blocked(
+              nb.u_local, nb.other, nb.weight, nb.block_chunks, nb.deg, v,
+              -c, 1.0, block_n=nb.block_n, block_e=nb.block_e))],
+          graphs=True)
+    # the bound the earlier count gave: the real chunk slots of the chunk
+    # layout K2 no longer reads
+    kernels["edge_spmm_nb"].update(
+        chunk_layout_bound_ms=bound(
+            slots * 12 + (nb.num_blocks + 1) * 4 + nb.padded_nodes * 4
+            + 2 * n * k * 4, 0)[0],
+        row_csr_build_ms=rows_ms)
+    del lfull, nb
+
+    # K2 on a power-law graph whose longest rows take the hub blocks
+    (gp, _), hub_graph_s = host_s(lambda: (graphs.power_law_graph(
+        n, avg_degree=8, alpha=2.5, seed=0, device=dev), None))
+    rows_p = es_ops.build_edge_rows(gp.src, gp.dst, gp.weight, n)
+    hub_rows_ms = cuda_ms(lambda: es_ops.build_edge_rows(
+        gp.src, gp.dst, gp.weight, n), 3)
+    vp = panel(n, k, 5)
+    cp = 8.0 / float(lap.spectral_radius_upper_bound(gp)) / 251
+    hub_err, hub_tol = compare(
+        "edge_spmm_nb (hub graph)",
+        lambda: es_ops.edge_spmm_rows_nb(rows_p, vp, -cp, 1.0),
+        lambda: es_ref.edge_spmm_rows(rows_p.row_ptr, rows_p.other,
+                                      rows_p.weight, vp, -cp, 1.0))
+    hub_edge_err, _ = compare(
+        "edge_spmm_nb (hub graph, edge-list twin)",
+        lambda: es_ops.edge_spmm_rows_nb(rows_p, vp, -cp, 1.0),
+        lambda: es_ref.edge_spmm_affine(gp.src, gp.dst, gp.weight, vp, -cp,
+                                        1.0))
+    hub_bound, _ = bound(k2_bytes(gp), 2 * gp.num_edges * k * 2 + 4 * n * k)
+    hub = {"n": n, "num_edges": gp.num_edges, "max_abs_err": hub_err,
+           "edge_list_twin_max_abs_err": hub_edge_err, "tolerance": hub_tol,
+           "ms": cuda_ms(lambda: es_ops.edge_spmm_rows_nb(rows_p, vp, -cp, 1.0),
+                         20),
+           "bound_ms": hub_bound,
+           "longest_row": int((rows_p.row_ptr[1:]
+                               - rows_p.row_ptr[:-1]).max()),
+           "hub_rows": int((rows_p.hub_rows < n).sum()),
+           "hub_threshold": es_ops.HUB_THRESHOLD,
+           "bitwise_repeatable": bool(torch.equal(
+               es_ops.edge_spmm_rows_nb(rows_p, vp, -cp, 1.0),
+               es_ops.edge_spmm_rows_nb(rows_p, vp, -cp, 1.0))),
+           "graph_host_s": hub_graph_s, "row_csr_build_ms": hub_rows_ms}
+    emit({"phase": "hub", **hub})
+    if not hub["bitwise_repeatable"]:
+        raise AssertionError("edge_spmm_nb on the hub graph: two calls differ")
+    kernels["edge_spmm_nb"]["hub_graph"] = hub
+    del gp, rows_p, vp
+    av = es_ops.edge_spmm_rows_nb(rows, v, -c, 1.0)
     x = torch.cat([v, av], dim=1)
     check("gram2k",
           lambda: eg_ops.gram2k(v, av), lambda: eg_ref.gram2k(v, av),
@@ -258,7 +375,7 @@ def main() -> int:
           flops=n * k * (4 * k + 1), reps=50,
           replaces="src/repro/kernels/eg_update/kernel.py:64",
           source="src/repro_torch/csrc/eg_update.cu")
-    del x, av, v, nb
+    del x, av, v, rows
 
     # K5, K6 at n = 16384, k = 10 on a dense L of 1 GiB (20x the L2)
     nd = 16384
@@ -293,11 +410,21 @@ def main() -> int:
         solver=SolverConfig(method="mu_eg", lr=0.4, steps=600, eval_every=100),
         seed=0)
     reset_launch_counts()
-    (labels_s, _), small_s = host_s(lambda: spectral_cluster(gs, cfg_s))
+    (labels_s, info_s), small_s = host_s(lambda: spectral_cluster(gs, cfg_s))
     counts_small = launch_counts()
     agreement = float(km.cluster_agreement(labels_s, truth_s, 4))
+    # one operator call (251 K1 steps) replayed as a graph vs run eagerly
+    s_small = limit_neg_exp(251, scale=8.0 / float(
+        lap.spectral_radius_upper_bound(gs)))
+    op_s = operators.edge_series_operator(gs, s_small, backend="kernel")
+    fused_s = backend.fused_step_fn(gs, "kernel")
+    vs = info_s["eigvecs"]
     emit({"phase": "small", "n": 160, "seconds": small_s,
-          "agreement": agreement, "launches": counts_small})
+          "agreement": agreement, "launches": counts_small,
+          "us_per_fused_step": small_s / counts_small["edge_spmm"] * 1e6,
+          "operator_ms": cuda_ms(lambda: op_s(vs), 20),
+          "eager_operator_ms": cuda_ms(
+              lambda: s_small.apply_reversed_fused(fused_s, vs), 20)})
     if not agreement > 0.95:
         raise AssertionError(f"small clique agreement {agreement} <= 0.95")
     for name in ("edge_spmm", "gram2k", "panel_mix"):
@@ -324,11 +451,16 @@ def main() -> int:
     if not col_norm_err <= 1e-4:
         raise AssertionError(f"eigvec columns off unit norm by {col_norm_err}")
     # the pieces of one solver step, timed on the same graph
-    nb = backend.blocking_for(g)  # reused by phase 7
     s = limit_neg_exp(251, scale=8.0 / rho)
-    op = operators.edge_series_operator(g, s, backend="kernel", blocking=nb)
+    op = operators.edge_series_operator(g, s, backend="kernel")
     st = solvers.init_from_panel(eig)
     op_ms = cuda_ms(lambda: op(st.v), 3)
+    fused_full = backend.fused_step_fn(g, "kernel")
+    eager_op_ms = cuda_ms(lambda: s.apply_reversed_fused(fused_full, st.v), 3)
+    # a fresh operator's first call: the eager side-stream run + capture
+    op_fresh = operators.edge_series_operator(g, s, backend="kernel")
+    _, op_first_s = host_s(lambda: op_fresh(st.v))
+    del op_fresh
     step_fn = solvers.make_step_fn("mu_eg", "kernel", dev)
     step_ms = cuda_ms(lambda: step_fn(st, op(st.v), 1e-3), 3)
     emb = info["embedding"]
@@ -348,10 +480,13 @@ def main() -> int:
     steps_err = float((out8["segment"] - out8["kernel"]).abs().max())
     emit({"phase": "full", "n": n, "num_edges": g.num_edges, "k": k,
           "degree": 251, "solver_steps": 10, "graph_host_s": graph_s,
-          "blocking_host_s": blocking_s, "real_chunks": real_chunks,
+          "row_csr_build_ms": rows_ms,
+          "chunk_layout_host_s": blocking_s, "real_chunks": real_chunks,
           "num_chunks": num_chunks,
           "spectral_cluster_s": full_s,
           "fused_series_step_ms": op_ms / 251, "operator_ms": op_ms,
+          "eager_operator_ms": eager_op_ms,
+          "operator_first_call_s": op_first_s,
           "solver_step_ms": step_ms, "kmeans_ms": kmeans_ms,
           "max_memory_allocated": peak_bytes, "agreement": agreement_full,
           "launches": counts_full,
@@ -438,6 +573,8 @@ def main() -> int:
         g, k=k, generator=torch.Generator(device=dev).manual_seed(3),
         budget=251))
     probe_launches = launch_counts()["edge_spmm"]
+    probe_rows_ms = cuda_ms(lambda: es_ops.build_edge_rows(
+        g.src, g.dst, g.weight, n), 3)
     _, plan_host_s = host_s(lambda: spectral.plan_dilation(
         probe_f, k=k, budget=251, rho_fallback=rho))
     cfg_af = ClusteringConfig(num_clusters=8, transform="auto", degree=251,
@@ -484,7 +621,7 @@ def main() -> int:
         raise AssertionError(f"probe lambda_max {float(probe_f.lambda_max)} "
                              f"below the largest degree {d_max}")
     op_af = operators.edge_series_operator(
-        g, spectral.series_from_plan(plan_af), backend="kernel", blocking=nb)
+        g, spectral.series_from_plan(plan_af), backend="kernel")
     st_af = solvers.init_from_panel(info_af["eigvecs"])
     lr_af = plan_af.suggested_lr(cfg_af.solver.lr)
     op_af_ms = cuda_ms(lambda: op_af(st_af.v), 3)
@@ -493,6 +630,7 @@ def main() -> int:
         torch.Generator(device=dev).manual_seed(1), info_af["embedding"], 8), 1)
     emit({"phase": "auto_full", "n": n, "k": k, "budget": 251,
           "probe_s": probe_s, "probe_k1_launches": probe_launches,
+          "probe_row_csr_build_ms": probe_rows_ms,
           "plan_host_s": plan_host_s,
           "probe_lambda_max": float(probe_f.lambda_max), "max_degree": d_max,
           "probe_panel_k1_max_abs_err": probe_err,

@@ -45,7 +45,8 @@ def node_blocking_from_numpy(u_local, other, weight, chunk_block, deg,
 
     The real chunk offsets are recovered from the layout itself: block b's
     live half-edges fill the start of its chunk run, so its real chunk
-    count is ceil(live_b / block_e), at least 1.
+    count is ceil(live_b / block_e), at least 1.  The kernels' row CSR is
+    built from the result on its device (``es_ops.blocking_rows``).
     """
     dev = resolve_device(device)
     weight = np.asarray(weight, np.float32)

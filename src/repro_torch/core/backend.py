@@ -4,9 +4,9 @@
     :mod:`repro_torch.core.laplacian`, on whatever device the graph is.
     Series then run their classic recurrences.
   * ``backend="kernel"`` - the hand-written CUDA kernels, with each series
-    step fused into the SpMM epilogue.  Up to ``ONE_HOT_NODE_LIMIT`` nodes
-    the edge-scatter kernel (K1) runs; past it the node-blocked kernel (K2)
-    over a host-built :class:`NodeBlocking`.  A CPU graph raises.
+    step fused into the SpMM epilogue, over a row CSR built once per edge
+    list on the card: K1 up to ``ONE_HOT_NODE_LIMIT`` nodes, K2 past it.
+    A CPU graph raises.
   * ``backend="auto"`` - ``kernel`` for a graph on the card, ``segment``
     for a graph on the CPU.
 
@@ -34,11 +34,11 @@ FusedStep = Callable[[torch.Tensor, float, float], torch.Tensor]
 BACKENDS = ("auto", "segment", "kernel")
 
 # The JAX package's node limit of its one-hot kernel; the port keeps the
-# same n-based choice of K1 (n <= limit) or K2 (n > limit).
+# same n-based choice of K1 (n <= limit) or K2 (n > limit).  Both launch
+# the same body over the same layout, so the choice only names the launch.
 ONE_HOT_NODE_LIMIT = 4096
 
-# Default node-block size of auto-built blockings: K2 holds a
-# (block_n, k) fp32 accumulator in shared memory (20 kB at k = 10).
+# Default node-block size of blockings built here (the JAX package's).
 DEFAULT_BLOCK_N = 512
 
 
@@ -59,43 +59,34 @@ def resolve_backend(backend: str, device) -> str:
 
 def blocking_for(g: lap.EdgeList, *, block_n: int | None = None,
                  block_e: int = 128) -> NodeBlocking:
-    """Host-side node-blocked layout of an EdgeList, on the graph's device."""
+    """The JAX package's node-blocked layout of an EdgeList (built on the
+    host), on the graph's device.  The kernel path does not read it."""
     return build_node_blocking(
         g.src, g.dst, g.weight, g.num_nodes,
         block_n=block_n or DEFAULT_BLOCK_N, block_e=block_e, device=g.device)
 
 
-def _needs_blocking(num_nodes: int) -> bool:
-    return num_nodes > ONE_HOT_NODE_LIMIT
-
-
-def fused_step_fn(g: lap.EdgeList, backend: str = "auto",
-                  blocking: NodeBlocking | None = None) -> FusedStep | None:
+def fused_step_fn(g: lap.EdgeList, backend: str = "auto") -> FusedStep | None:
     """fused_step(u, alpha, beta) = alpha * L u + beta * u, or None.
 
-    The kernel path picks K1 for small n and K2 otherwise (building and
-    capturing the blocking when none is supplied).  Segment returns None:
-    callers then use the plain matvec recurrences.
+    The kernel path builds the row CSR here once, on the card, and
+    launches K1 for n <= ``ONE_HOT_NODE_LIMIT``, K2 past it.  Segment
+    returns None: callers then use the plain matvec recurrences.
     """
     if resolve_backend(backend, g.device) == "segment":
         return None
-    if blocking is None and _needs_blocking(g.num_nodes):
-        blocking = blocking_for(g)
-    if blocking is not None:
-        def fused(u, alpha, beta):
-            return es_ops.edge_spmm_blocked(blocking, u, alpha=alpha, beta=beta)
-        return fused
+    rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, g.num_nodes)
+    spmm = (es_ops.edge_spmm_rows if g.num_nodes <= ONE_HOT_NODE_LIMIT
+            else es_ops.edge_spmm_rows_nb)
 
     def fused(u, alpha, beta):
-        return es_ops.edge_spmm(g.src, g.dst, g.weight, u,
-                                alpha=alpha, beta=beta)
+        return spmm(rows, u, alpha=alpha, beta=beta)
     return fused
 
 
-def laplacian_matvec_fn(g: lap.EdgeList, backend: str = "auto",
-                        blocking: NodeBlocking | None = None) -> MatVec:
+def laplacian_matvec_fn(g: lap.EdgeList, backend: str = "auto") -> MatVec:
     """V -> L @ V on the resolved backend (V may be (n,) or (n, k))."""
-    fused = fused_step_fn(g, backend, blocking)
+    fused = fused_step_fn(g, backend)
     if fused is None:
         return functools.partial(lap.laplacian_matvec, g)
     return lambda v: fused(v, 1.0, 0.0)
@@ -106,10 +97,18 @@ def edge_arrays_matvec_fn(src: torch.Tensor, dst: torch.Tensor,
                           ) -> MatVec:
     """Raw-array matvec factory (spectral probes, per-draw matvecs).
 
-    The kernel path runs K1 at any n: K1 has no node limit on the card, so
-    there is no ``num_nodes`` switch to segment past
+    The kernel path runs K1 at any n, over a row CSR built at the first
+    call (the panel gives n) and reused: K1 has no node limit on the
+    card, so there is no ``num_nodes`` switch to segment past
     ``ONE_HOT_NODE_LIMIT`` as in the JAX package.
     """
     if resolve_backend(backend, src.device) == "segment":
         return functools.partial(lap.edge_matvec_arrays, src, dst, weight)
-    return lambda v: es_ops.edge_spmm(src, dst, weight, v)
+    built: dict[int, es_ops.EdgeRows] = {}
+
+    def matvec(v):
+        n = v.shape[0]
+        if n not in built:
+            built[n] = es_ops.build_edge_rows(src, dst, weight, n)
+        return es_ops.edge_spmm_rows(built[n], v)
+    return matvec

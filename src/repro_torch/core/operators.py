@@ -4,7 +4,10 @@ An operator is a function V -> A @ V where A = lambda* I - S(L) is the
 transformed and reversed Laplacian (Eq. 8, Table 2).  This module wires
 the Laplacian matvec and a spectral series into the matvec the solvers
 consume.  Every constructor takes ``backend`` (see
-:mod:`repro_torch.core.backend`).
+:mod:`repro_torch.core.backend`).  On the kernel backend the exact-edges
+operator is a :class:`CapturedOperator`: its ``degree`` kernel launches
+are captured once as a CUDA graph and replayed, the port's counterpart of
+the JAX package's jitted series.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import laplacian as lap
 from repro_torch.core.series import SpectralSeries
@@ -19,14 +23,68 @@ from repro_torch.core.series import SpectralSeries
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
 
+class CapturedOperator:
+    """A CUDA operator V -> fn(V) replayed from a CUDA graph.
+
+    The first call for a (panel shape, dtype, device) runs ``fn`` eagerly
+    on a side stream (that builds and loads the kernel library and gives
+    the call's result), then captures one ``fn`` on a static input panel;
+    later calls copy V in, replay, and return a copy of the static output.
+    Allocations freed during the capture are reused within it from the
+    graph's private pool, so the graph holds a few panels, not one per
+    step.  A replay adds the kernel launches the graph holds to the
+    launch counts, so they read as the eager loop's would; the capture
+    itself launches nothing and counts nothing.  A call that cannot be
+    captured raises: there is no eager fallback.
+    """
+
+    def __init__(self, fn: MatVec):
+        self.fn = fn
+        self.graphs: dict[tuple, tuple] = {}
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        if v.device.type != "cuda":
+            raise ValueError(f"CapturedOperator runs CUDA panels, got {v.device}")
+        key = (tuple(v.shape), v.dtype, v.device)
+        if key not in self.graphs:
+            return self._capture(key, v)
+        graph, static_in, static_out, held = self.graphs[key]
+        static_in.copy_(v)
+        graph.replay()
+        kernels.add_launch_counts(held)
+        return static_out.clone()
+
+    def _capture(self, key: tuple, v: torch.Tensor) -> torch.Tensor:
+        main = torch.cuda.current_stream(v.device)
+        side = torch.cuda.Stream(device=v.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.fn(v)
+        main.wait_stream(side)
+        out.record_stream(main)
+        static_in = v.clone(memory_format=torch.contiguous_format)
+        graph = torch.cuda.CUDAGraph()
+        before = kernels.launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                static_out = self.fn(static_in)
+            held = {name: c - before[name]
+                    for name, c in kernels.launch_counts().items()}
+        finally:  # the wrappers counted launches the capture only recorded
+            kernels.add_launch_counts(
+                {name: before[name] - c
+                 for name, c in kernels.launch_counts().items()})
+        self.graphs[key] = (graph, static_in, static_out, held)
+        return out
+
+
 def dense_matvec(l_mat: torch.Tensor) -> MatVec:
     return lambda v: l_mat @ v
 
 
-def edge_matvec(g: lap.EdgeList, backend: str = "auto",
-                blocking: backend_mod.NodeBlocking | None = None) -> MatVec:
+def edge_matvec(g: lap.EdgeList, backend: str = "auto") -> MatVec:
     """V -> L @ V on the selected backend."""
-    return backend_mod.laplacian_matvec_fn(g, backend, blocking)
+    return backend_mod.laplacian_matvec_fn(g, backend)
 
 
 def series_operator(series: SpectralSeries, matvec: MatVec | None,
@@ -39,15 +97,17 @@ def series_operator(series: SpectralSeries, matvec: MatVec | None,
 
 
 def edge_series_operator(g: lap.EdgeList, series: SpectralSeries,
-                         backend: str = "auto",
-                         blocking: backend_mod.NodeBlocking | None = None
-                         ) -> MatVec:
+                         backend: str = "auto") -> MatVec:
     """The exact_edges operator: series over the edge-list matvec on the
-    selected backend (fused series steps on the kernel path)."""
-    fused = backend_mod.fused_step_fn(g, backend, blocking)
-    if fused is not None:
-        return series_operator(series, None, fused_step=fused)
-    return series_operator(series, edge_matvec(g, backend="segment"))
+    selected backend.  On the kernel path the fused series steps are
+    replayed as a CUDA graph (:class:`CapturedOperator`) when there is
+    more than one: a one-step graph saves no dispatch and its capture
+    costs a tenth of a second or more."""
+    fused = backend_mod.fused_step_fn(g, backend)
+    if fused is None:
+        return series_operator(series, edge_matvec(g, backend="segment"))
+    op = series_operator(series, None, fused_step=fused)
+    return CapturedOperator(op) if series.degree > 1 else op
 
 
 def exact_operator(series: SpectralSeries, l_mat: torch.Tensor) -> MatVec:

@@ -1,172 +1,256 @@
 // Incidence SpMM kernels of the dilated Laplacian matvec, fp32, sm_90a.
 //
-// Both compute the fused series step  out = alpha * (L V) + beta * V  with
-// L = X^T W X of an edge list and V an (n, k) row-major panel.
+// One row-gather body computes the fused series step
+//     out[i, :] = alpha * (deg_i * V[i, :] - sum_j w_ij V[j, :]) + beta * V[i, :]
+// with L = X^T W X of an edge list and V an (n, k) row-major panel, over a
+// destination-sorted half-edge CSR (row_ptr (n+1,), other, weight): row i
+// lists every live half-edge (i <- j, w_ij) of the edge list, so deg_i is
+// the sum of the row's own weights.  Both kernels launch it:
 //
 // K1  edge_spmm  replaces repro/kernels/edge_spmm/kernel.py:94 `edge_spmm`
-//     (body `_edge_spmm_kernel`, pallas_call at :106).  The TPU version
-//     builds one-hot incidence blocks and rides the MXU because the TPU has
-//     no fast scatter; Hopper has fp32 atomics in L2, so the one-hot form is
-//     not carried over.  A first elementwise pass writes out = beta * V; then
-//     one thread per (edge, column) adds +-alpha * w (V[s,j] - V[t,j]) to
-//     out[s,j] and out[t,j] with atomicAdd.  Bound: bytes (indices, weights,
-//     V and out once each); the atomics make the summation order change from
-//     run to run, so results agree with the plain version to a tolerance,
-//     not bitwise.
-//
+//     (pallas_call at :106), the one-hot incidence SpMM of small graphs and
+//     of the probes; its CSR is built once per edge list on the card.
 // K2  edge_spmm_nb  replaces repro/kernels/edge_spmm/kernel.py:151
-//     `edge_spmm_nb` (body :122, pallas_call at :188).  The TPU version walks
-//     a 1-D grid over all NC pow2-snapped chunks of the CSR half-edge layout
-//     and reads a pre-gathered (NC*BE, k) copy of V[other] made by XLA.  Here
-//     one thread block owns one node-block b: it walks only b's REAL chunks
-//     [block_chunks[b], block_chunks[b+1]) -- never the pow2 padding, which
-//     the layout appends to the last block's run and which would otherwise
-//     run on one SM after every other block has finished -- and gathers
-//     V[other] itself, so the gathered copy (1.34 GB at n = 2^20, k = 10) is
-//     never written.  The block's accumulator acc[block_n * k] lives in
-//     shared memory, starts at deg[b] * V[b], takes -w * V[other, :] by
-//     shared-memory atomicAdd at acc[u_local, :], and the epilogue writes
-//     alpha * acc + beta * V[b].  Bound: bytes (indices and weights of the
-//     real slots, V, deg and out once each; V fits the 50 MB L2 at the main
-//     path's size, so the random row gathers mostly hit L2).  In practice a
-//     (slot, column) item is a chain of dependent loads (weight, source
-//     index, V row) ending in an atomic, so the kernel is latency-bound;
-//     each thread keeps kUnroll items in flight to hide it.  A hub block
-//     runs serially on one SM; splitting hub runs is left to a later kernel.
+//     `edge_spmm_nb` (pallas_call at :188), the node-blocked SpMM of large
+//     graphs (n > 4096 on the kernel path); its CSR is built the same way.
+//
+// Bound: bytes.  The work is 2E gathered V rows, two FLOP per gathered
+// element; at k = 10 that is ~0.5 FLOP per byte moved, far below the
+// fp32 ridge.  The streamed index and weight arrays (8 B per half-edge)
+// are read once with the evict-first hint (`__ldcs`), so the 42 MB panel
+// of the main path (n = 2^20, k = 10) keeps the 50 MB L2 for its random
+// row gathers; out is stored with the default policy, since the next
+// series step reads it as its V.
+//
+// Design.  Every output row is written once, by the threads that summed
+// it, in registers: no init pass, no atomics (shared or global), no
+// division per item, and a summation order fixed by the layout, so two
+// calls give the same bits.
+//   * Column split.  A row of V is cw <= 16 floats of one column group
+//     (gridDim.y groups of 16 columns cover wider panels).  A group of
+//     LPR = cw / VW lanes owns one row; lane s holds columns
+//     [s*VW, s*VW + VW) as one float4 / float2 / float load (VW = 4 when k
+//     is a multiple of 4, 2 when even, 1 otherwise).  At k = 10 that is
+//     five float2 lanes per row and six rows per warp (30 of 32 lanes
+//     busy).  The lanes of a group walk the whole neighbour list together:
+//     the index and weight loads of a group hit one address, and each
+//     gathered V row is one contiguous 40-byte read.  Each lane keeps
+//     kUnroll neighbours' loads in flight.  No shuffles are needed: a lane
+//     already holds the full sums of its own columns.
+//   * Hub rows.  A row longer than hub_threshold would serialize its group
+//     (a power-law hub has ~10^4 neighbours), so the light path skips it
+//     and a hub block takes it: the block's kThreads / LPR groups each sum
+//     every NG-th neighbour of the row, write their partials to shared
+//     memory, and a fixed tree over the groups reduces them; the hub
+//     blocks come first in the grid, so they start first, and each walks
+//     the list hub_rows (ascending, padded with n) built with the CSR.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // K2 items in flight per thread
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCols = 16;  // panel columns per column group
+constexpr int kUnroll = 4;    // neighbours in flight per lane
+constexpr int kMaxHubBlocks = 1024;
 
-__global__ void scale_kernel(const float* __restrict__ v, float* __restrict__ out,
-                             float beta, long long nk) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nk;
-       i += stride) {
-    out[i] = beta * v[i];
+template <int VW>
+__device__ __forceinline__ void load_row(const float* p, float (&x)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+    x[2] = t.z;
+    x[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+    x[0] = __ldg(p);
   }
 }
 
-__global__ void edge_scatter_kernel(const int* __restrict__ src,
-                                    const int* __restrict__ dst,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ v,
-                                    float* __restrict__ out, float alpha,
-                                    long long ek, int k) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < ek;
-       i += stride) {
-    long long e = i / k;
-    int j = (int)(i - e * k);
-    float we = w[e];
-    if (we == 0.f) continue;  // padding slots are inert
-    long long s = src[e], t = dst[e];
-    float d = alpha * (we * (v[s * k + j] - v[t * k + j]));
-    atomicAdd(out + s * k + j, d);
-    atomicAdd(out + t * k + j, -d);
+template <int VW>
+__device__ __forceinline__ void store_row(float* p, const float (&x)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    p[0] = x[0];
   }
 }
 
-__global__ void edge_spmm_nb_kernel(const int* __restrict__ u_local,
-                                    const int* __restrict__ other,
-                                    const float* __restrict__ w,
-                                    const int* __restrict__ block_chunks,
-                                    const float* __restrict__ deg,
-                                    const float* __restrict__ v,
-                                    float* __restrict__ out, float alpha,
-                                    float beta, int n, int k, int block_n,
-                                    int block_e) {
-  extern __shared__ float acc[];
-  const int b = blockIdx.x;
-  const long long row0 = (long long)b * block_n;
-  const int tile = block_n * k;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    int r = i / k;
-    long long g = row0 + r;
-    acc[i] = g < n ? deg[g] * v[g * k + (i - r * k)] : 0.f;
-  }
-  __syncthreads();
-  const long long s0 = (long long)block_chunks[b] * block_e;
-  const int work = (block_chunks[b + 1] - block_chunks[b]) * block_e * k;
-  // kUnroll independent (slot, column) items per thread: their loads are
-  // all issued before the first atomic, so the dependent chain weight ->
-  // index -> V row is in flight kUnroll times over
-  for (int base = threadIdx.x; base < work; base += kUnroll * blockDim.x) {
-    float val[kUnroll];
-    int dst[kUnroll];
+// acc += sum of w_p * V[other_p, col:col+VW] and dsum += sum of w_p over
+// the entries p = p0, p0 + step, ... < p1, in that order
+template <int VW>
+__device__ __forceinline__ void gather(const int* __restrict__ other,
+                                       const float* __restrict__ weight,
+                                       const float* __restrict__ v, int k,
+                                       int col, int p0, int p1, int step,
+                                       float (&acc)[VW], float& dsum) {
+  int p = p0;
+  for (; p + (kUnroll - 1) * step < p1; p += kUnroll * step) {
+    int j[kUnroll];
+    float w[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + u * blockDim.x;
-      dst[u] = -1;
-      if (t < work) {
-        const int q = t / k;
-        const int j = t - q * k;
-        const long long s = s0 + q;
-        const float ws = __ldg(w + s);
-        const long long o = __ldg(other + s);
-        val[u] = -ws * __ldg(v + o * k + j);
-        // unfilled slots of a chunk carry zero weight: no atomic
-        if (ws != 0.f) dst[u] = __ldg(u_local + s) * k + j;
+      j[u] = __ldcs(other + p + u * step);
+      w[u] = __ldcs(weight + p + u * step);
+    }
+    float x[kUnroll][VW];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      load_row<VW>(v + (long long)j[u] * k + col, x[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      dsum += w[u];
+#pragma unroll
+      for (int q = 0; q < VW; ++q) acc[q] = fmaf(w[u], x[u][q], acc[q]);
+    }
+  }
+  for (; p < p1; p += step) {
+    const int j = __ldcs(other + p);
+    const float w = __ldcs(weight + p);
+    float x[VW];
+    load_row<VW>(v + (long long)j * k + col, x);
+    dsum += w;
+#pragma unroll
+    for (int q = 0; q < VW; ++q) acc[q] = fmaf(w, x[q], acc[q]);
+  }
+}
+
+// out[r, col:col+VW] = alpha * (dsum * V[r] - acc) + beta * V[r]
+template <int VW>
+__device__ __forceinline__ void epilogue(const float* __restrict__ v,
+                                         float* __restrict__ out, long long o,
+                                         const float (&acc)[VW], float dsum,
+                                         float alpha, float beta) {
+  float vi[VW], y[VW];
+  load_row<VW>(v + o, vi);
+#pragma unroll
+  for (int q = 0; q < VW; ++q) {
+    y[q] = alpha * (dsum * vi[q] - acc[q]) + beta * vi[q];
+  }
+  store_row<VW>(out + o, y);
+}
+
+template <int VW>
+__global__ void __launch_bounds__(kThreads)
+    row_gather_kernel(const int* __restrict__ row_ptr,
+                      const int* __restrict__ other,
+                      const float* __restrict__ weight,
+                      const int* __restrict__ hub_rows,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float alpha, float beta, int n, int k, int hub_slots,
+                      int hub_threshold, int hub_blocks) {
+  // per-group partials of a hub row: kMaxCols sums, then the weight sum
+  __shared__ float part[kThreads][kMaxCols + 1];
+  const int c0 = blockIdx.y * kMaxCols;
+  const int cw = min(kMaxCols, k - c0);
+  const int lpr = cw / VW;  // lanes per row
+  if ((int)blockIdx.x < hub_blocks) {
+    const int ng = kThreads / lpr;
+    const int g = threadIdx.x / lpr;
+    const int col = c0 + (threadIdx.x - g * lpr) * VW;
+    for (int h = blockIdx.x; h < hub_slots; h += hub_blocks) {
+      const int r = hub_rows[h];
+      if (r >= n) break;  // the list is padded with n past its last hub
+      if (g < ng) {
+        float acc[VW] = {};
+        float dsum = 0.f;
+        gather<VW>(other, weight, v, k, col, row_ptr[r] + g, row_ptr[r + 1],
+                   ng, acc, dsum);
+#pragma unroll
+        for (int q = 0; q < VW; ++q) part[g][col - c0 + q] = acc[q];
+        part[g][kMaxCols] = dsum;
       }
+      __syncthreads();
+      // fixed tree over the groups: s runs over powers of two below ng
+      int s = 1;
+      while (2 * s < ng) s *= 2;
+      for (; s > 0; s /= 2) {
+        for (int i = threadIdx.x; i < s * (kMaxCols + 1); i += kThreads) {
+          const int gg = i / (kMaxCols + 1);
+          const int cc = i - gg * (kMaxCols + 1);
+          if (gg + s < ng && (cc < cw || cc == kMaxCols)) {
+            part[gg][cc] += part[gg + s][cc];
+          }
+        }
+        __syncthreads();
+      }
+      if ((int)threadIdx.x < cw) {
+        const long long o = (long long)r * k + c0 + threadIdx.x;
+        const float vi = v[o];
+        out[o] = alpha * (part[0][kMaxCols] * vi - part[0][threadIdx.x]) +
+                 beta * vi;
+      }
+      __syncthreads();  // part is rewritten for the next hub row
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (dst[u] >= 0) atomicAdd(&acc[dst[u]], val[u]);
-    }
+    return;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    int r = i / k;
-    long long g = row0 + r;
-    if (g < n) {
-      long long o = g * k + (i - r * k);
-      out[o] = alpha * acc[i] + beta * v[o];
-    }
-  }
+  const int lane = threadIdx.x % 32;
+  const int rpw = 32 / lpr;  // rows per warp
+  const int gi = lane / lpr;
+  if (gi >= rpw) return;  // the lanes a row width leaves over
+  const long long row =
+      ((long long)(blockIdx.x - hub_blocks) * kWarps + threadIdx.x / 32) *
+          rpw + gi;
+  if (row >= n) return;
+  const int p0 = row_ptr[row];
+  const int p1 = row_ptr[row + 1];
+  if (p1 - p0 > hub_threshold) return;  // a hub block writes this row
+  const int col = c0 + (lane - gi * lpr) * VW;
+  float acc[VW] = {};
+  float dsum = 0.f;
+  gather<VW>(other, weight, v, k, col, p0, p1, 1, acc, dsum);
+  epilogue<VW>(v, out, row * k + col, acc, dsum, alpha, beta);
 }
 
-int grid_for(long long items) {
-  long long blocks = (items + kThreads - 1) / kThreads;
-  return (int)(blocks < 65536 ? (blocks > 0 ? blocks : 1) : 65536);
+template <int VW>
+cudaError_t launch(const int* row_ptr, const int* other, const float* weight,
+                   const int* hub_rows, const float* v, float* out,
+                   float alpha, float beta, int n, int k, int hub_slots,
+                   int hub_threshold, cudaStream_t s) {
+  const int lpr = min(kMaxCols, k) / VW;
+  const long long rows_per_block = (long long)kWarps * (32 / lpr);
+  const long long light = (n + rows_per_block - 1) / rows_per_block;
+  const int hub_blocks = min(hub_slots - 1, kMaxHubBlocks);
+  const long long blocks = light + (hub_blocks > 0 ? hub_blocks : 0);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (k + kMaxCols - 1) / kMaxCols);
+  row_gather_kernel<VW><<<grid, kThreads, 0, s>>>(
+      row_ptr, other, weight, hub_rows, v, out, alpha, beta, n, k, hub_slots,
+      hub_threshold, hub_blocks > 0 ? hub_blocks : 0);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int edge_spmm_launch(const int* src, const int* dst, const float* w,
-                                const float* v, float* out, float alpha,
-                                float beta, int num_edges, int n, int k,
-                                void* stream) {
+// The one entry of both K1 and K2: hub_slots is the length of hub_rows
+// (at least 1: the list ends with n).  An empty panel launches nothing.
+extern "C" int edge_spmm_rows_launch(const int* row_ptr, const int* other,
+                                     const float* weight, const int* hub_rows,
+                                     const float* v, float* out, float alpha,
+                                     float beta, int n, int k, int hub_slots,
+                                     int hub_threshold, void* stream) {
+  if (n <= 0 || k <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  long long nk = (long long)n * k;
-  if (nk > 0) {
-    scale_kernel<<<grid_for(nk), kThreads, 0, s>>>(v, out, beta, nk);
+  const unsigned long long align =
+      reinterpret_cast<unsigned long long>(v) |
+      reinterpret_cast<unsigned long long>(out);
+  // a column group's first column is a multiple of 16, so with k a
+  // multiple of VW every row slice a lane reads is VW-aligned
+  if (k % 4 == 0 && align % 16 == 0) {
+    return (int)launch<4>(row_ptr, other, weight, hub_rows, v, out, alpha,
+                          beta, n, k, hub_slots, hub_threshold, s);
   }
-  long long ek = (long long)num_edges * k;
-  if (ek > 0) {  // an edgeless graph leaves out = beta * V, no empty grid
-    edge_scatter_kernel<<<grid_for(ek), kThreads, 0, s>>>(src, dst, w, v, out,
-                                                          alpha, ek, k);
+  if (k % 2 == 0 && align % 8 == 0) {
+    return (int)launch<2>(row_ptr, other, weight, hub_rows, v, out, alpha,
+                          beta, n, k, hub_slots, hub_threshold, s);
   }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int edge_spmm_nb_launch(const int* u_local, const int* other,
-                                   const float* w, const int* block_chunks,
-                                   const float* deg, const float* v, float* out,
-                                   float alpha, float beta, int n, int k,
-                                   int num_blocks, int block_n, int block_e,
-                                   void* stream) {
-  size_t smem = (size_t)block_n * k * sizeof(float);
-  if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        edge_spmm_nb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  edge_spmm_nb_kernel<<<num_blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      u_local, other, w, block_chunks, deg, v, out, alpha, beta, n, k, block_n,
-      block_e);
-  return (int)cudaGetLastError();
+  return (int)launch<1>(row_ptr, other, weight, hub_rows, v, out, alpha, beta,
+                        n, k, hub_slots, hub_threshold, s);
 }

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch twins.
 
 ``KERNELS`` lists each kernel wrapper by name; a wrapper's ``launches``
-attribute counts the calls that launched its kernel on the card.
+attribute counts the calls that launched its kernel on the card, and a
+replayed CUDA graph adds the launches it holds.
 """
 from __future__ import annotations
 
@@ -26,3 +27,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add per-kernel counts: a CUDA graph's replay adds the launches the
+    graph holds (``core.operators.CapturedOperator``)."""
+    for name, c in counts.items():
+        KERNELS[name].launches += c

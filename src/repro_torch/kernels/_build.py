@@ -40,11 +40,9 @@ F = ctypes.c_float
 
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # src, dst, w, v, out, alpha, beta, num_edges, n, k, stream
-    "edge_spmm_launch": [P, P, P, P, P, F, F, I, I, I, P],
-    # u_local, other, w, block_chunks, deg, v, out, alpha, beta,
-    # n, k, num_blocks, block_n, block_e, stream
-    "edge_spmm_nb_launch": [P, P, P, P, P, P, P, F, F, I, I, I, I, I, P],
+    # row_ptr, other, weight, hub_rows, v, out, alpha, beta, n, k,
+    # hub_slots, hub_threshold, stream (K1 and K2)
+    "edge_spmm_rows_launch": [P, P, P, P, P, P, F, F, I, I, I, I, P],
     # v, av, partial, out, n, k, num_parts, stream
     "gram2k_launch": [P, P, P, P, I, I, I, P],
     # v, av, m1, m2, colscale, out, n, k, stream

@@ -1,14 +1,15 @@
 """ctypes wrappers of the incidence SpMM kernels (``csrc/edge_spmm.cu``).
 
 K1 ``edge_spmm`` replaces ``repro/kernels/edge_spmm/kernel.py:94`` (the
-one-hot MXU SpMM) with an fp32-atomic edge scatter; K2 ``edge_spmm_nb``
-replaces ``repro/kernels/edge_spmm/kernel.py:151`` (the node-blocked
-SpMM) with one thread block per node-block that walks only that block's
-real chunks and gathers ``V[other]`` itself.  The source file says what
-bounds each and how the design answers it.
+one-hot MXU SpMM) and K2 ``edge_spmm_nb`` replaces
+``repro/kernels/edge_spmm/kernel.py:151`` (the node-blocked SpMM).  Both
+launch the same row-gather body over a destination-sorted half-edge CSR
+(``ops.EdgeRows``) built on the card; the kernel path names the launch K1
+for n <= 4096 and K2 past it, as the JAX package picks its kernel.  The
+source file says what bounds it and how the design answers it.
 
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
-contiguity, allocates the output with ``torch.empty``, launches on
+contiguity, allocates the output with ``torch.empty``, launches once on
 ``torch.cuda.current_stream()`` and raises if the launch failed.  Its
 ``launches`` attribute counts the calls that launched the kernel.
 """
@@ -17,77 +18,59 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import MAX_SMEM, check_tensor
+from repro_torch.kernels._build import check_tensor
 
 
-def edge_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-              v: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
-    """K1: alpha * (sum_e w_e x_e x_e^T V) + beta * V on the card."""
+def _row_gather(name: str, row_ptr: torch.Tensor, other: torch.Tensor,
+                weight: torch.Tensor, hub_rows: torch.Tensor, v: torch.Tensor,
+                alpha: float, beta: float, hub_threshold: int) -> torch.Tensor:
     if v.device.type != "cuda":
-        raise ValueError("kernel.edge_spmm needs CUDA tensors")
+        raise ValueError(f"kernel.{name} needs CUDA tensors")
+    if v.dim() != 2:
+        raise ValueError(f"{name}: v must be an (n, k) panel, got {tuple(v.shape)}")
     n, k = v.shape
-    e = src.shape[0]
-    for name, t, dt, shp in (("src", src, torch.int32, (e,)),
-                             ("dst", dst, torch.int32, (e,)),
-                             ("w", w, torch.float32, (e,)),
-                             ("v", v, torch.float32, (n, k))):
-        check_tensor(t, name, dt, shp, v.device)
-    if e * k >= 2 ** 62 or n * k >= 2 ** 62:
-        raise ValueError("edge_spmm: problem too large")
+    slots = other.shape[0]
+    for arg, t, dt, shp in (("row_ptr", row_ptr, torch.int32, (n + 1,)),
+                            ("other", other, torch.int32, (slots,)),
+                            ("weight", weight, torch.float32, (slots,)),
+                            ("hub_rows", hub_rows, torch.int32,
+                             (hub_rows.shape[0],)),
+                            ("v", v, torch.float32, (n, k))):
+        check_tensor(t, arg, dt, shp, v.device)
+    if hub_rows.shape[0] < 1:
+        raise ValueError(f"{name}: hub_rows must end with the sentinel n")
+    if slots >= 2 ** 31 or n * k >= 2 ** 62:
+        raise ValueError(f"{name}: layout too large for 32-bit entry indices")
     out = torch.empty_like(v)
-    lib = _build.library()
-    _build.check(lib.edge_spmm_launch(
-        src.data_ptr(), dst.data_ptr(), w.data_ptr(), v.data_ptr(),
-        out.data_ptr(), float(alpha), float(beta), e, n, k, _build.stream()),
-        "edge_spmm")
-    edge_spmm.launches += 1
+    _build.check(_build.library().edge_spmm_rows_launch(
+        row_ptr.data_ptr(), other.data_ptr(), weight.data_ptr(),
+        hub_rows.data_ptr(), v.data_ptr(), out.data_ptr(), float(alpha),
+        float(beta), n, k, hub_rows.shape[0], int(hub_threshold),
+        _build.stream()), name)
+    return out
+
+
+def edge_spmm(row_ptr: torch.Tensor, other: torch.Tensor,
+              weight: torch.Tensor, hub_rows: torch.Tensor, v: torch.Tensor,
+              alpha: float, beta: float, *, hub_threshold: int) -> torch.Tensor:
+    """K1: alpha * (L V) + beta * V over an edge list's row CSR."""
+    out = _row_gather("edge_spmm", row_ptr, other, weight, hub_rows, v,
+                      alpha, beta, hub_threshold)
+    edge_spmm.launches += v.numel() > 0  # an empty panel launches nothing
     return out
 
 
 edge_spmm.launches = 0
 
 
-def edge_spmm_nb(u_local: torch.Tensor, other: torch.Tensor, w: torch.Tensor,
-                 block_chunks: torch.Tensor, deg: torch.Tensor,
+def edge_spmm_nb(row_ptr: torch.Tensor, other: torch.Tensor,
+                 weight: torch.Tensor, hub_rows: torch.Tensor,
                  v: torch.Tensor, alpha: float, beta: float,
-                 *, block_n: int, block_e: int) -> torch.Tensor:
-    """K2: node-blocked alpha * (L V) + beta * V over the CSR chunk layout.
-
-    ``block_chunks`` is the (NB+1,) block -> first-chunk offset array;
-    block b walks chunks ``[block_chunks[b], block_chunks[b+1])`` only.
-    ``v`` is the unpadded (n, k) panel; ``deg`` is row-padded to NB*block_n.
-    """
-    if v.device.type != "cuda":
-        raise ValueError("kernel.edge_spmm_nb needs CUDA tensors")
-    n, k = v.shape
-    slots = u_local.shape[0]
-    nb = block_chunks.shape[0] - 1
-    for name, t, dt, shp in (("u_local", u_local, torch.int32, (slots,)),
-                             ("other", other, torch.int32, (slots,)),
-                             ("w", w, torch.float32, (slots,)),
-                             ("block_chunks", block_chunks, torch.int32, (nb + 1,)),
-                             ("deg", deg, torch.float32, (nb * block_n,)),
-                             ("v", v, torch.float32, (n, k))):
-        check_tensor(t, name, dt, shp, v.device)
-    if nb < 1 or n > nb * block_n or slots % block_e:
-        raise ValueError(
-            f"edge_spmm_nb: layout of {nb} blocks x {block_n} rows and "
-            f"{slots} slots does not fit a panel of {n} rows")
-    if block_n * k * 4 > MAX_SMEM:
-        raise ValueError(
-            f"edge_spmm_nb: a ({block_n}, {k}) fp32 accumulator needs "
-            f"{block_n * k * 4} B of shared memory, more than {MAX_SMEM}")
-    if slots * k >= 2 ** 31 or n * k >= 2 ** 62:
-        raise ValueError("edge_spmm_nb: layout too large for 32-bit work "
-                         "indices")
-    out = torch.empty_like(v)
-    lib = _build.library()
-    _build.check(lib.edge_spmm_nb_launch(
-        u_local.data_ptr(), other.data_ptr(), w.data_ptr(),
-        block_chunks.data_ptr(), deg.data_ptr(), v.data_ptr(),
-        out.data_ptr(), float(alpha), float(beta), n, k, nb, block_n,
-        block_e, _build.stream()), "edge_spmm_nb")
-    edge_spmm_nb.launches += 1
+                 *, hub_threshold: int) -> torch.Tensor:
+    """K2: alpha * (L V) + beta * V over a NodeBlocking's row CSR."""
+    out = _row_gather("edge_spmm_nb", row_ptr, other, weight, hub_rows, v,
+                      alpha, beta, hub_threshold)
+    edge_spmm_nb.launches += v.numel() > 0
     return out
 
 

@@ -4,15 +4,28 @@ The tensor's device picks the path: a CUDA tensor goes through the
 hand-written kernel (``kernel.py``) or the call raises; a CPU tensor goes
 through the plain PyTorch twin (``ref.py``).
 
-``build_node_blocking`` is the host-side (numpy) layout of the JAX
-package, copied so that its arrays come out bitwise equal: edges become
-directed half-edges (u <- o, w) bucketed by the node-block of u into a
-CSR-style chunk list (block b owns ceil(bucket_b / BE) chunks, min 1),
-and only the TOTAL chunk count is pow2-snapped; the padding chunks
-extend the last block's run with zero weight.  The port adds one field,
-``block_chunks``: the (NB+1,) block -> first-chunk offsets of the REAL
-chunks, so the kernel's block b walks ``[block_chunks[b],
-block_chunks[b+1])`` and never the padding.
+Both kernels (K1, K2) read one layout, the destination-sorted half-edge
+CSR (:class:`EdgeRows`): every live edge (s, t, w) becomes the half-edges
+(s <- t, w) and (t <- s, w), sorted stably by destination, so row i lists
+its neighbours and weights and ``row_ptr`` (n+1,) bounds it.  Rows longer
+than ``HUB_THRESHOLD`` are listed in ``hub_rows`` (ascending, padded with
+n), and the kernel splits each of them over a whole thread block.
+
+* :func:`build_edge_rows` builds it from an edge list with torch ops on
+  the list's device, without a host sync (a stable sort, so the result
+  is deterministic); the kernel path builds it once per edge list
+  (``backend.fused_step_fn``, ``backend.edge_arrays_matvec_fn``) and the
+  raw :func:`edge_spmm` once per call.  :func:`blocking_rows` builds the
+  same CSR from a :class:`NodeBlocking`.
+* ``build_node_blocking`` is the host-side (numpy) layout of the JAX
+  package, copied so that its arrays come out bitwise equal: edges become
+  directed half-edges (u <- o, w) bucketed by the node-block of u into a
+  CSR-style chunk list (block b owns ceil(bucket_b / BE) chunks, min 1),
+  and only the TOTAL chunk count is pow2-snapped; the padding chunks
+  extend the last block's run with zero weight.  The port adds
+  ``block_chunks``, the (NB+1,) block -> first-real-chunk offsets.  No
+  kernel reads this layout: :func:`edge_spmm_blocked` runs K2 over its
+  :func:`blocking_rows`.
 """
 from __future__ import annotations
 
@@ -24,31 +37,100 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.edge_spmm import kernel, ref
 
+# Rows with more half-edges than this go to the kernel's hub blocks: below
+# it a row's lanes walk at most this many neighbours one after another,
+# and on a small graph the longest such walk is the kernel's time (at 128,
+# K1 took 14 us on the 4096-node power-law graph on an H100, PERF.md).
+# The builders read it when they list the hub rows and the wrappers pass
+# it to the kernel, which leaves those rows to its hub blocks.
+HUB_THRESHOLD = 32
+
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class EdgeRows(NamedTuple):
+    """Destination-sorted half-edge CSR, the layout K1 and K2 read."""
+
+    row_ptr: torch.Tensor  # (n+1,) int32 - row i is [row_ptr[i], row_ptr[i+1])
+    other: torch.Tensor  # (S,) int32 - neighbour per entry; S >= row_ptr[n]
+    weight: torch.Tensor  # (S,) float32 - entries past row_ptr[n] are dead
+    hub_rows: torch.Tensor  # (H+1,) int32 - rows > HUB_THRESHOLD, then n's
+
+
+def _sorted_rows(u: torch.Tensor, o: torch.Tensor, w: torch.Tensor,
+                 n: int) -> EdgeRows:
+    """The row CSR of half-edges (u <- o, w), stably sorted by u, with no
+    host sync: dead (zero-weight) half-edges sort past the last row, and
+    the hub list has room for every row the threshold can admit
+    (min(n, S // (threshold + 1)) of them, then one n)."""
+    dev = u.device
+    key, order = torch.sort(torch.where(w != 0, u.long(), n), stable=True)
+    row_ptr = torch.searchsorted(key, torch.arange(n + 1, device=dev))
+    hub = (row_ptr[1:] - row_ptr[:-1]) > HUB_THRESHOLD
+    cap = min(n, key.shape[0] // (HUB_THRESHOLD + 1))
+    hub_rows = torch.full((cap + 1,), n, dtype=torch.int32, device=dev)
+    # non-hub rows all write the sentinel n to the last slot
+    hub_rows.scatter_(0, torch.where(hub, torch.cumsum(hub, 0) - 1, cap),
+                      torch.where(hub, torch.arange(n, device=dev), n).int())
+    return EdgeRows(row_ptr=row_ptr.int(), other=o.int()[order],
+                    weight=w.float()[order], hub_rows=hub_rows)
+
+
+def build_edge_rows(src: torch.Tensor, dst: torch.Tensor,
+                    weight: torch.Tensor, num_nodes: int) -> EdgeRows:
+    """The row CSR of an edge list, on the list's device."""
+    return _sorted_rows(torch.cat([src, dst]), torch.cat([dst, src]),
+                        torch.cat([weight, weight]), int(num_nodes))
+
+
+def _row_spmm(launch, rows: EdgeRows, v: torch.Tensor, alpha,
+              beta) -> torch.Tensor:
+    """``launch`` (K1 or K2) on a CUDA panel, the plain twin on a CPU one;
+    (n,) panels round-trip through a column."""
+    squeeze = v.dim() == 1
+    if squeeze:
+        v = v[:, None]
+    if v.device.type == "cuda":
+        out = launch(rows.row_ptr, rows.other, rows.weight, rows.hub_rows,
+                     v.float().contiguous(), alpha, beta,
+                     hub_threshold=HUB_THRESHOLD)
+    else:
+        out = ref.edge_spmm_rows(rows.row_ptr, rows.other, rows.weight,
+                                 v.float(), alpha, beta)
+    return out[:, 0] if squeeze else out
+
+
+def edge_spmm_rows(rows: EdgeRows, v: torch.Tensor,
+                   alpha=1.0, beta=0.0) -> torch.Tensor:
+    """alpha * (L V) + beta * V over a row CSR: K1 on the card, the plain
+    twin on the CPU.  Accepts (n,) or (n, k) panels."""
+    return _row_spmm(kernel.edge_spmm, rows, v, alpha, beta)
+
+
+def edge_spmm_rows_nb(rows: EdgeRows, v: torch.Tensor,
+                      alpha=1.0, beta=0.0) -> torch.Tensor:
+    """:func:`edge_spmm_rows` launched as K2, the node-blocked SpMM's
+    counterpart (same body, its own launch count)."""
+    return _row_spmm(kernel.edge_spmm_nb, rows, v, alpha, beta)
 
 
 def edge_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
               v: torch.Tensor, alpha=1.0, beta=0.0) -> torch.Tensor:
     """alpha * (sum_e w_e x_e x_e^T V) + beta * V; default plain matvec.
 
-    Accepts (n,) or (n, k) panels (1-D round-trips through a column).  An
-    edgeless input returns beta * V on both paths.
+    The raw per-call entry: it builds the row CSR of ``(src, dst, w)``
+    (:func:`build_edge_rows`) and runs :func:`edge_spmm_rows` on it.
+    Callers that reuse an edge list build the CSR once instead.  Accepts
+    (n,) or (n, k) panels.  An edgeless input returns beta * V.
     """
-    squeeze = v.dim() == 1
-    if squeeze:
-        v = v[:, None]
-    if v.device.type == "cuda":
-        out = kernel.edge_spmm(src, dst, w.float(), v.float().contiguous(),
-                               alpha, beta)
-    else:
-        out = ref.edge_spmm_affine(src, dst, w.float(), v.float(), alpha, beta)
-    return out[:, 0] if squeeze else out
+    rows = build_edge_rows(src, dst, w, v.shape[0])
+    return edge_spmm_rows(rows, v, alpha, beta)
 
 
 class NodeBlocking(NamedTuple):
-    """Node-blocked half-edge layout for ``edge_spmm_blocked``.
+    """Node-blocked half-edge layout of the JAX package.
 
     The first nine fields are those of the JAX package's NodeBlocking and
     hold the same values; ``block_chunks`` is derived host-side from the
@@ -190,23 +272,27 @@ def build_node_blocking(src, dst, weight, num_nodes: int,
     )
 
 
+def blocking_rows(nb: NodeBlocking) -> EdgeRows:
+    """The row CSR of a blocking's live half-edges, on its device.  The
+    slots hold the edge list's half-edges in block order, and a stable
+    sort by destination undoes that order, so this equals
+    :func:`build_edge_rows` of the edge list on the live entries."""
+    slot_block = nb.chunk_block[:nb.num_chunks].long().repeat_interleave(
+        nb.block_e)
+    return _sorted_rows(slot_block * nb.block_n + nb.u_local, nb.other,
+                        nb.weight, nb.num_nodes)
+
+
 def edge_spmm_blocked(nb: NodeBlocking, v: torch.Tensor,
                       alpha=1.0, beta=0.0) -> torch.Tensor:
-    """alpha * (L V) + beta * V over the node-blocked layout.
+    """alpha * (L V) + beta * V over the blocking's row CSR
+    (:func:`blocking_rows`, built per call): K2 on the card, the plain row
+    twin on the CPU.  Callers that reuse a blocking build its rows once
+    and call :func:`edge_spmm_rows_nb`.
 
     Accepts (n,) or (n, k) with n == nb.num_nodes.
     """
-    squeeze = v.dim() == 1
-    if squeeze:
-        v = v[:, None]
     if v.shape[0] != nb.num_nodes:
         raise ValueError(
             f"panel rows {v.shape[0]} != blocking num_nodes {nb.num_nodes}")
-    args = (nb.u_local, nb.other, nb.weight, nb.block_chunks, nb.deg)
-    if v.device.type == "cuda":
-        out = kernel.edge_spmm_nb(*args, v.float().contiguous(), alpha, beta,
-                                  block_n=nb.block_n, block_e=nb.block_e)
-    else:
-        out = ref.edge_spmm_blocked(*args, v.float(), alpha, beta,
-                                    block_n=nb.block_n, block_e=nb.block_e)
-    return out[:, 0] if squeeze else out
+    return edge_spmm_rows_nb(blocking_rows(nb), v, alpha, beta)

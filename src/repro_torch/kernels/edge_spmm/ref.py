@@ -40,3 +40,22 @@ def edge_spmm_blocked(u_local: torch.Tensor, other: torch.Tensor,
     av.index_add_(0, dest, wt[:, None] * v[ot.long()])
     lv = deg[:n, None] * v - av[:n]
     return alpha * lv + beta * v
+
+
+def edge_spmm_rows(row_ptr: torch.Tensor, other: torch.Tensor,
+                   w: torch.Tensor, v: torch.Tensor, alpha,
+                   beta) -> torch.Tensor:
+    """Plain twin of the row-gather kernel over the SAME row CSR:
+    out = alpha * (deg * V - A V) + beta * V, where row i's entries
+    ``[row_ptr[i], row_ptr[i+1])`` give both A V (w * V[other] summed into
+    row i) and deg_i (their weights summed).  Entries past ``row_ptr[n]``
+    are never read."""
+    n = v.shape[0]
+    live = int(row_ptr[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(n, device=v.device), (row_ptr[1:] - row_ptr[:-1]).long(),
+        output_size=live)
+    wt = w[:live]
+    av = torch.zeros_like(v).index_add_(0, rows, wt[:, None] * v[other[:live].long()])
+    deg = torch.zeros((n,), dtype=v.dtype, device=v.device).index_add_(0, rows, wt)
+    return alpha * (deg[:, None] * v - av) + beta * v

@@ -49,11 +49,15 @@ def limit_series_apply_edges(blocking: es_ops.NodeBlocking, v: torch.Tensor,
                              *, degree: int,
                              scale: float = 1.0) -> torch.Tensor:
     """-(I - scale L / degree)^degree @ V, matrix-free, one fused
-    node-blocked step per degree."""
+    node-blocked step per degree, over the blocking's row CSR built once."""
+    if v.shape[0] != blocking.num_nodes:
+        raise ValueError(f"panel rows {v.shape[0]} != blocking num_nodes "
+                         f"{blocking.num_nodes}")
     c = scale / degree
+    rows = es_ops.blocking_rows(blocking)
     u = v
     for _ in range(degree):
-        u = poly_step_edges(blocking, u, c)
+        u = es_ops.edge_spmm_rows_nb(rows, u, alpha=-c, beta=1.0)
     return -u
 
 

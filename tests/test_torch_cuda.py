@@ -6,10 +6,10 @@ PyTorch it runs as
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: 1e-5 of the result's scale (max(|plain|, 1)).  K1 and K2 add
-with fp32 atomics in an order that changes from run to run, and K3/K4
-sum in another order than the plain matmuls, so they agree to rounding,
-not bitwise.
+Tolerance: 1e-5 of the result's scale (max(|plain|, 1)).  K1 and K2 sum
+each row in registers in an order the layout fixes, K3/K4 in another
+order than the plain matmuls, so they agree with their twins to
+rounding, not bitwise; K1, K2 and K3 are bitwise equal from run to run.
 """
 import numpy as np
 import pytest
@@ -105,10 +105,117 @@ def test_k2_matches_plain(dev, case, block_n, block_e):
 
 
 def test_k2_refuses_too_wide_panels(dev):
+    """K2 once refused panels whose (block_n, k) shared accumulator did not
+    fit; the row gather holds no accumulator in shared memory, so a
+    120-column panel runs as column groups and matches the twins."""
     g = _graph(0, 96, 300, dev)
     nb = backend.blocking_for(g, block_n=512)
-    with pytest.raises(ValueError, match="shared memory"):
-        es_ops.edge_spmm_blocked(nb, _panel(1, 96, 120, dev))
+    v = _panel(1, 96, 120, dev)
+    got = es_ops.edge_spmm_blocked(nb, v, alpha=-0.3, beta=1.0)
+    rows = es_ops.blocking_rows(nb)
+    assert _rel_err(got, es_ref.edge_spmm_rows(
+        rows.row_ptr, rows.other, rows.weight, v, -0.3, 1.0)) <= REL
+    assert _rel_err(got, -0.3 * lap.laplacian_matvec(g, v) + v) <= REL
+
+
+def _power_law(dev, n=4096):
+    return graphs.power_law_graph(n, avg_degree=8, alpha=2.5, seed=0,
+                                  device=dev)
+
+
+@pytest.mark.parametrize("k", [1, 4, 10, 37])
+@pytest.mark.parametrize("threshold", [0, 5, 128])
+def test_k1_k2_split_hub_rows_match_twins(dev, threshold, k, monkeypatch):
+    """The alpha = 2.5 power-law graph (rows up to 613 half-edges) with the
+    hub split forced down to every row (0) or most rows (5); k = 4, 10 and
+    37 take the float4, float2 and scalar loads, 37 three column groups.
+    K2 runs over the rows of the JAX-equal blocking."""
+    monkeypatch.setattr(es_ops, "HUB_THRESHOLD", threshold)
+    g = _power_law(dev)
+    v = _panel(40, g.num_nodes, k, dev)
+    rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, g.num_nodes)
+    assert int((rows.hub_rows < g.num_nodes).sum()) > 0  # the split runs
+    nb = backend.blocking_for(g)
+    want = es_ref.edge_spmm_affine(g.src, g.dst, g.weight, v, -0.05, 1.0)
+    reset_launch_counts()
+    k1 = es_ops.edge_spmm_rows(rows, v, alpha=-0.05, beta=1.0)
+    k2 = es_ops.edge_spmm_blocked(nb, v, alpha=-0.05, beta=1.0)
+    assert launch_counts()["edge_spmm"] == launch_counts()["edge_spmm_nb"] == 1
+    for got in (k1, k2):
+        assert _rel_err(got, want) <= REL
+        assert _rel_err(got, es_ref.edge_spmm_rows(
+            rows.row_ptr, rows.other, rows.weight, v, -0.05, 1.0)) <= REL
+    # the same layout, split or not, sums each row in the same order
+    # within a block; K1 and K2 read the same CSR
+    torch.testing.assert_close(k1, k2, atol=0, rtol=0)
+
+
+def test_k1_k2_are_bitwise_deterministic(dev, monkeypatch):
+    monkeypatch.setattr(es_ops, "HUB_THRESHOLD", 16)
+    g = _power_law(dev, 9216)
+    v = _panel(41, g.num_nodes, 10, dev)
+    rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, g.num_nodes)
+    nb = backend.blocking_for(g)
+    for fn in (lambda: es_ops.edge_spmm_rows(rows, v, -0.1, 1.0),
+               lambda: es_ops.edge_spmm_rows_nb(rows, v, -0.1, 1.0),
+               lambda: es_ops.edge_spmm_blocked(nb, v, -0.1, 1.0),
+               lambda: es_ops.edge_spmm(g.src, g.dst, g.weight, v, -0.1, 1.0)):
+        first = fn()
+        for _ in range(3):
+            torch.testing.assert_close(fn(), first, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("n", [96, 8192])
+def test_captured_series_operator_is_the_eager_loop(dev, n):
+    """The kernel-path operator replays a CUDA graph: bitwise the eager
+    fused loop, with the eager loop's launch counts on every call."""
+    g = _graph(7, n, 4 * n, dev)
+    s = limit_neg_exp(9, scale=0.4 / float(lap.spectral_radius_upper_bound(g)))
+    name = "edge_spmm" if n <= backend.ONE_HOT_NODE_LIMIT else "edge_spmm_nb"
+    fused = backend.fused_step_fn(g, "kernel")
+    op = operators.edge_series_operator(g, s, backend="kernel")
+    assert isinstance(op, operators.CapturedOperator)
+    for seed in (42, 43, 44):
+        v = _panel(seed, n, 6, dev)
+        reset_launch_counts()
+        eager = s.apply_reversed_fused(fused, v)
+        assert launch_counts()[name] == 9
+        reset_launch_counts()
+        got = op(v)
+        assert launch_counts() == {**{k: 0 for k in launch_counts()}, name: 9}
+        torch.testing.assert_close(got, eager, atol=0, rtol=0)
+    assert len(op.graphs) == 1
+    # a new panel shape is a new capture
+    op(_panel(45, n, 3, dev))
+    assert len(op.graphs) == 2
+
+
+def test_one_step_series_runs_eagerly(dev):
+    """A series of one fused step is not captured (the graph would hold
+    one launch); it launches the same kernel once per call."""
+    g = _graph(9, 96, 300, dev)
+    s = limit_neg_exp(1, scale=0.1)
+    op = operators.edge_series_operator(g, s, backend="kernel")
+    assert not isinstance(op, operators.CapturedOperator)
+    v = _panel(47, 96, 4, dev)
+    reset_launch_counts()
+    got = op(v)
+    assert launch_counts()["edge_spmm"] == 1
+    eager = s.apply_reversed_fused(backend.fused_step_fn(g, "kernel"), v)
+    torch.testing.assert_close(got, eager, atol=0, rtol=0)
+
+
+def test_captured_operator_raises_without_fallback(dev):
+    g = _graph(8, 96, 300, dev)
+    op = operators.edge_series_operator(g, limit_neg_exp(5, scale=0.1),
+                                        backend="kernel")
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="96"):
+        op(_panel(46, 95, 4, dev))  # the layout has 96 rows
+    with pytest.raises(ValueError, match="CUDA"):
+        op(torch.zeros(96, 4))
+    assert op.graphs == {}
+    assert sum(launch_counts().values()) == 0
 
 
 @pytest.mark.parametrize("n,k", [(1, 3), (300, 6), (5000, 10), (70000, 16)])

@@ -235,9 +235,12 @@ def test_node_blocking_from_numpy(name):
 def test_kernel_wrappers_refuse_cpu_tensors():
     _, gt, _, bt = _layouts("weighted_b32")
     v = torch.zeros(gt.num_nodes, 2)
+    rows = ops.build_edge_rows(gt.src, gt.dst, gt.weight, gt.num_nodes)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.edge_spmm(gt.src, gt.dst, gt.weight, v, 1.0, 0.0)
+        kernel.edge_spmm(rows.row_ptr, rows.other, rows.weight, rows.hub_rows,
+                         v, 1.0, 0.0, hub_threshold=ops.HUB_THRESHOLD)
+    rows = ops.blocking_rows(bt)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.edge_spmm_nb(bt.u_local, bt.other, bt.weight, bt.block_chunks,
-                            bt.deg, v, 1.0, 0.0, block_n=bt.block_n,
-                            block_e=bt.block_e)
+        kernel.edge_spmm_nb(rows.row_ptr, rows.other, rows.weight,
+                            rows.hub_rows, v, 1.0, 0.0,
+                            hub_threshold=ops.HUB_THRESHOLD)
