@@ -14,7 +14,10 @@ outside a checkout.  Phases, one JSON line each:
              computes the same function; for K1 and K2 also 200 calls
              captured in one CUDA graph and replayed (kernel and library
              call), whether two calls are bitwise equal, and (K1) the raw
-             per-call entry that builds its row CSR each time
+             per-call entry that builds its row CSR each time; K3 and K4
+             with the same graph times and bitwise check
+   ragged  - K3 and K4 at n = 1,000,003, k = 7 on panels 4 bytes past a
+             16-byte boundary: error and the bitwise check
    hub     - K2 on power_law_graph(2^20, 8, 2.5, seed=0), whose longest
              rows go to the kernel's hub blocks: error, time, bound
 3. small   - spectral_cluster on a 160-node clique graph (600 mu-EG steps,
@@ -364,7 +367,7 @@ def main() -> int:
           lambda: x.T @ x,
           nbytes=2 * n * k * 4 + 4 * k * k * 4, flops=n * (2 * k) ** 2 * 2,
           reps=50, replaces="src/repro/kernels/eg_update/kernel.py:40",
-          source="src/repro_torch/csrc/eg_update.cu")
+          source="src/repro_torch/csrc/eg_update.cu", graphs=True)
     m1, m2, cs = eg_ref.coefficient_matrices(eg_ref.gram2k(v, av), k, 0.4)
     m_cat = torch.cat([m1, m2], dim=0) * cs[None, :]
     check("panel_mix",
@@ -374,8 +377,29 @@ def main() -> int:
           nbytes=3 * n * k * 4 + (2 * k * k + k) * 4,
           flops=n * k * (4 * k + 1), reps=50,
           replaces="src/repro/kernels/eg_update/kernel.py:64",
-          source="src/repro_torch/csrc/eg_update.cu")
+          source="src/repro_torch/csrc/eg_update.cu", graphs=True)
     del x, av, v, rows
+
+    # K3 and K4 at a ragged shape: n a multiple of no tile, odd k, and
+    # panels that start 4 bytes past a 16-byte boundary (row slices)
+    nr, kr = 1_000_003, 7
+    vr, avr = panel(nr + 1, kr, 6)[1:], panel(nr + 1, kr, 7)[1:]
+    m1r, m2r, csr = eg_ref.coefficient_matrices(eg_ref.gram2k(vr, avr), kr,
+                                                0.4)
+    for name, kernel_fn, plain_fn in (
+            ("gram2k", lambda: eg_ops.gram2k(vr, avr),
+             lambda: eg_ref.gram2k(vr, avr)),
+            ("panel_mix", lambda: eg_ops.panel_mix(vr, avr, m1r, m2r, csr),
+             lambda: eg_ref.panel_mix(vr, avr, m1r, m2r, csr))):
+        err_r, tol_r = compare(f"{name} (ragged)", kernel_fn, plain_fn)
+        kernels[name]["ragged"] = {
+            "n": nr, "k": kr, "data_ptr_mod_16": vr.data_ptr() % 16,
+            "max_abs_err": err_r, "tolerance": tol_r,
+            "bitwise_repeatable": bool(torch.equal(kernel_fn(), kernel_fn()))}
+        emit({"phase": "ragged", "name": name, **kernels[name]["ragged"]})
+        if not kernels[name]["ragged"]["bitwise_repeatable"]:
+            raise AssertionError(f"{name} (ragged): two calls differ")
+    del vr, avr
 
     # K5, K6 at n = 16384, k = 10 on a dense L of 1 GiB (20x the L2)
     nd = 16384

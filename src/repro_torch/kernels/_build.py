@@ -29,11 +29,6 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-# shared memory a Hopper thread block may use (bytes), and the default
-# above which a kernel must opt in with cudaFuncSetAttribute
-MAX_SMEM = 232_448
-DEFAULT_SMEM = 48 * 1024
-
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
@@ -43,8 +38,8 @@ SIGNATURES = {
     # row_ptr, other, weight, hub_rows, v, out, alpha, beta, n, k,
     # hub_slots, hub_threshold, stream (K1 and K2)
     "edge_spmm_rows_launch": [P, P, P, P, P, P, F, F, I, I, I, I, P],
-    # v, av, partial, out, n, k, num_parts, stream
-    "gram2k_launch": [P, P, P, P, I, I, I, P],
+    # v, av, partial, out, n, k, num_parts, rows_per_part, tile_rows, stream
+    "gram2k_launch": [P, P, P, P, I, I, I, I, I, P],
     # v, av, m1, m2, colscale, out, n, k, stream
     "panel_mix_launch": [P, P, P, P, P, P, I, I, P],
     # l, u, out, c, n, k, stream

@@ -9,7 +9,7 @@ PyTorch it runs as
 Tolerance: 1e-5 of the result's scale (max(|plain|, 1)).  K1 and K2 sum
 each row in registers in an order the layout fixes, K3/K4 in another
 order than the plain matmuls, so they agree with their twins to
-rounding, not bitwise; K1, K2 and K3 are bitwise equal from run to run.
+rounding, not bitwise; all four are bitwise equal from run to run.
 """
 import numpy as np
 import pytest
@@ -218,10 +218,18 @@ def test_captured_operator_raises_without_fallback(dev):
     assert sum(launch_counts().values()) == 0
 
 
-@pytest.mark.parametrize("n,k", [(1, 3), (300, 6), (5000, 10), (70000, 16)])
-def test_k3_k4_match_plain(dev, n, k):
-    v = _panel(13, n, k, dev)
-    av = _panel(14, n, k, dev)
+# n = 1 and below one K3 tile (128 rows at k = 10), n a multiple of neither
+# 4 nor a tile, k from 1 to K3's widest; offset 1 takes the row slice
+# [1:] of a larger panel, whose rows start 4k bytes past the allocation,
+# off any 16-byte boundary unless 4 divides k
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,k", [(1, 3), (1, 10), (100, 10), (300, 6),
+                                 (1001, 1), (301, 3), (4097, 4), (5000, 10),
+                                 (5003, 7), (70000, 16), (70001, 10),
+                                 (3001, 64), (2000, 192)])
+def test_k3_k4_match_plain(dev, n, k, offset):
+    v = _panel(13, n + offset, k, dev)[offset:]
+    av = _panel(14, n + offset, k, dev)[offset:]
     reset_launch_counts()
     s = eg_ops.gram2k(v, av)
     assert _rel_err(s, eg_ref.gram2k(v, av)) <= REL
@@ -232,11 +240,52 @@ def test_k3_k4_match_plain(dev, n, k):
     assert launch_counts()["gram2k"] == 1 and launch_counts()["panel_mix"] == 1
 
 
+def test_k3_refuses_too_wide_panels(dev):
+    v = _panel(12, 10, 193, dev)
+    with pytest.raises(ValueError, match="gram2k"):
+        eg_ops.gram2k(v, v)
+
+
+def _mix_inputs(n: int, k: int, dev):
+    v, av = _panel(18, n, k, dev), _panel(19, n, k, dev)
+    m1, m2, cs = eg_ref.coefficient_matrices(eg_ref.gram2k(v, av), k, 0.4)
+    return v, av, m1, m2, cs
+
+
 def test_gram2k_is_deterministic(dev):
-    v = _panel(18, 100000, 10, dev)
-    av = _panel(19, 100000, 10, dev)
+    v, av = _mix_inputs(100000, 10, dev)[:2]
     torch.testing.assert_close(eg_ops.gram2k(v, av), eg_ops.gram2k(v, av),
                                atol=0, rtol=0)
+
+
+def test_panel_mix_is_deterministic(dev):
+    args = _mix_inputs(100003, 10, dev)
+    torch.testing.assert_close(eg_ops.panel_mix(*args), eg_ops.panel_mix(*args),
+                               atol=0, rtol=0)
+
+
+def test_k3_k4_replayed_in_a_graph_give_the_eager_bits(dev):
+    """A K3 and a K4 call captured in one CUDA graph and replayed twice
+    write the eager calls' bits: no scratch or counter carries over."""
+    args = _mix_inputs(100003, 10, dev)
+    want_s = eg_ops.gram2k(*args[:2])
+    want_out = eg_ops.panel_mix(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eg_ops.gram2k(*args[:2])
+        eg_ops.panel_mix(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got_s = eg_ops.gram2k(*args[:2])
+        got_out = eg_ops.panel_mix(*args)
+    for _ in range(2):
+        got_s.fill_(float("nan"))
+        got_out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got_s, want_s) and torch.equal(got_out, want_out)
 
 
 def test_fused_mu_eg_step_matches_segment(dev):

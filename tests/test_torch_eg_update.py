@@ -95,11 +95,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernel.panel_mix(v, av, torch.eye(2), torch.eye(2), torch.ones(2))
 
 
-def test_gram_row_slices_cover_the_panel():
-    """The first gram launch's row slices: at most 1024, at least one row
-    each, covering all n rows."""
-    for n in (1, 255, 256, 257, 5000, 1 << 20):
-        parts = kernel.gram2k_parts(n)
-        rows = -(-n // parts)
-        assert 1 <= parts <= kernel.GRAM_MAX_PARTS
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 5000, 1 << 20])
+def test_gram_row_slices_cover_the_panel(n):
+    """The first gram launch's row slices: at most GRAM_BLOCKS_PER_SM per
+    SM, whole tiles each, none empty, covering all n rows."""
+    for k, sms in ((1, 1), (7, 132), (10, 132), (64, 114), (192, 16)):
+        parts, rows = kernel.gram2k_parts(n, k, sms)
+        tile_rows = kernel.gram2k_tile_rows(k)
+        assert 1 <= parts <= kernel.GRAM_BLOCKS_PER_SM * sms
+        assert rows % tile_rows == 0
+        assert tile_rows * k <= kernel.GRAM_TILE_FLOATS
         assert (parts - 1) * rows < n <= parts * rows
