@@ -34,9 +34,20 @@ outside a checkout.  Phases, one JSON line each:
              graph: probe on K1, planned solve on K2-K4, 10 solver steps;
              K1 held to its twin on the (2^20, 4) probe panel, and the SLQ
              probe on K1 to the one on backend="segment" from that panel
-8. kernels - per kernel: launches on the main path (phases 3, 4, 5, 6 and
-             7, counts reset just before and read just after each), error,
-             times and the bound of this run's inputs
+8. minibatch_small - spectral_cluster(estimation="minibatch") on a
+             120-node clique graph (degree 51, 512 edges a factor, 1500
+             mu-EG steps): one K1 launch per drawn factor, agreement
+9. minibatch_full - the same estimator on phase 4's 2^20-node graph
+             (degree 251, 65,536 edges a factor, 10 solver steps): the
+             per-factor split in CUDA events (draw and gather, the batch's
+             row-CSR build, K1, the AXPY) at B = 65,536 and B = 1,024, the
+             solver step, K1 on one drawn batch against its twin
+10. walks_small - spectral_cluster(estimation="walks") on phase 3's
+             clique graph (degree min(251, 6), 4096 walkers, 600 steps):
+             the host incidence build, the solver step, agreement
+11. kernels - per kernel: launches on the main path (phases 3-10 but the
+             checks, counts reset just before and read just after each),
+             error, times and the bound of this run's inputs
 
 The card's name and power limit are printed as nvidia-smi gives them, and
 the last line is {"ok": true, "device": {...}}.  Numbers are fp32 with
@@ -64,6 +75,10 @@ PEAK_FP32_FLOPS = 67e12
 REL_TOL = 1e-5
 # kernel calls captured in one CUDA graph for graph_ms
 GRAPH_CALLS = 200
+# agreement with the planted labels of the stochastic estimators, the bar
+# of tests/test_clustering.py's minibatch test; the walks estimator meets
+# it on the 160-node clique graph too (tests/test_torch_walks.py)
+STOCHASTIC_AGREEMENT = 0.9
 # 3 solver steps of the kernel path vs backend="segment" (n = 8192):
 # panels of unit columns, 3 x 251 fused steps and 3 mu-EG steps of fp32
 STEPS_TOL = 1e-4
@@ -122,6 +137,7 @@ def main() -> int:
                                   spectral_cluster)
     from repro_torch.core import kmeans as km
     from repro_torch.core import laplacian as lap
+    from repro_torch.core import walks
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
     from repro_torch.kernels.edge_spmm import ops as es_ops
     from repro_torch.kernels.edge_spmm import ref as es_ref
@@ -670,9 +686,194 @@ def main() -> int:
           "agreement": float(km.cluster_agreement(labels_af, truth, 8)),
           "launches": counts_auto_full})
 
-    # ---- 8. kernel list --------------------------------------------------
+    # ---- 8. minibatch estimator, small (one K1 launch per drawn factor) ----
+    gm, truth_m = graphs.clique_graph(120, 3, seed=4, device=dev)
+    cfg_ms = ClusteringConfig(
+        num_clusters=3, transform="limit_neg_exp", degree=51,
+        estimation="minibatch", batch_edges=512,
+        solver=SolverConfig(method="mu_eg", lr=0.1, steps=1500, eval_every=250),
+        seed=0)
+    reset_launch_counts()
+    (labels_ms, _), mb_small_s = host_s(lambda: spectral_cluster(gm, cfg_ms))
+    counts_mb_small = launch_counts()
+    agreement_ms = float(km.cluster_agreement(labels_ms, truth_m, 3))
+    emit({"phase": "minibatch_small", "n": 120, "num_edges": gm.num_edges,
+          "batch_edges": 512, "degree": 51, "solver_steps": 1500,
+          "seconds": mb_small_s, "agreement": agreement_ms,
+          "us_per_factor": mb_small_s / counts_mb_small["edge_spmm"] * 1e6,
+          "launches": counts_mb_small})
+    if not agreement_ms > STOCHASTIC_AGREEMENT:
+        raise AssertionError(f"minibatch clique agreement {agreement_ms} <= "
+                             f"{STOCHASTIC_AGREEMENT}")
+    if counts_mb_small["edge_spmm"] != 1500 * 51:
+        raise AssertionError(f"minibatch run launched K1 "
+                             f"{counts_mb_small['edge_spmm']} times, not one per "
+                             f"drawn factor ({1500 * 51})")
+    for name in ("gram2k", "panel_mix"):
+        if counts_mb_small[name] <= 0:
+            raise AssertionError(f"minibatch small run launched no {name}")
+
+    # ---- 9. minibatch estimator at full size ------------------------------
+    batch_full = 65_536
+    cfg_mf = ClusteringConfig(num_clusters=8, degree=251,
+                              estimation="minibatch", batch_edges=batch_full,
+                              solver=SolverConfig(steps=10, eval_every=10),
+                              seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    (labels_mf, info_mf), mb_full_s = host_s(lambda: spectral_cluster(g, cfg_mf))
+    counts_mb_full = launch_counts()
+    peak_mf = torch.cuda.max_memory_allocated()
+    for name in ("edge_spmm", "gram2k", "panel_mix"):
+        if counts_mb_full[name] <= 0:
+            raise AssertionError(f"full-size minibatch run launched no {name}")
+    eig_mf = info_mf["eigvecs"]
+    if not (labels_mf.shape == (n,) and eig_mf.shape == (n, k)
+            and bool(torch.isfinite(eig_mf).all())
+            and int(labels_mf.min()) >= 0 and int(labels_mf.max()) < 8):
+        raise AssertionError("full-size minibatch run gave malformed output")
+    col_norm_mf = float((torch.linalg.vector_norm(eig_mf, dim=0) - 1).abs().max())
+    if not col_norm_mf <= 1e-4:
+        raise AssertionError(f"minibatch eigvec columns off unit norm by "
+                             f"{col_norm_mf}")
+    e_full = g.num_edges
+    st_mf = solvers.init_from_panel(eig_mf)
+    u_mf = st_mf.v
+
+    def device_profile(fn, reps: int = 20) -> dict:
+        """Device operations and device-busy ms per call of ``fn`` from a
+        torch.profiler trace (kernels, copies and sets on the card)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return {"device_ops": len(ops) / reps,
+                "device_busy_ms": sum(e.time_range.elapsed_us()
+                                      for e in ops) / 1e3 / reps}
+
+    def factor_split(batch: int) -> dict:
+        """One drawn factor's pieces, each in CUDA events on the full
+        graph: the draw and gather of one call's (degree + 1, B) batches
+        (per factor), the batch's row-CSR build, K1 on it, the AXPY; the
+        operator call itself per factor; the factor and the build replayed
+        from a CUDA graph (their card time without the host's launches);
+        and the factor's device operations and busy time in a trace."""
+        gen = torch.Generator(device=dev).manual_seed(5)
+        scale = e_full / batch
+
+        def draw_gather():
+            sel = torch.randint(0, e_full, (252, batch), generator=gen,
+                                device=dev)
+            return g.src[sel].long(), g.dst[sel].long(), g.weight[sel] * scale
+
+        src_b, dst_b, w_b = draw_gather()
+        rows_b = es_ops.build_edge_rows(src_b[0], dst_b[0], w_b[0], n)
+        lu = es_ops.edge_spmm_rows(rows_b, u_mf)
+        s_b = limit_neg_exp(251, scale=8.0 / rho)
+        c_b = 8.0 / rho / 251
+        op_b = operators.minibatch_operator(g, s_b, batch, backend="kernel")
+
+        def factor():
+            return u_mf - c_b * es_ops.edge_spmm(src_b[0], dst_b[0], w_b[0], u_mf)
+
+        return {
+            "batch_edges": batch,
+            "draw_gather_ms": cuda_ms(draw_gather, 10) / 251,
+            "row_csr_build_ms": cuda_ms(lambda: es_ops.build_edge_rows(
+                src_b[0], dst_b[0], w_b[0], n), 20),
+            "k1_ms": cuda_ms(lambda: es_ops.edge_spmm_rows(rows_b, u_mf), 20),
+            "axpy_ms": cuda_ms(lambda: u_mf - c_b * lu, 20),
+            "factor_ms": cuda_ms(factor, 20),
+            "operator_ms_per_factor": cuda_ms(lambda: op_b(gen, u_mf), 2) / 251,
+            "factor_graph_ms": graph_ms(factor, calls=50),
+            "row_csr_build_graph_ms": graph_ms(lambda: es_ops.build_edge_rows(
+                src_b[0], dst_b[0], w_b[0], n), calls=50),
+            "factor_trace": device_profile(factor),
+            "hub_rows": int((rows_b.hub_rows < n).sum()),
+            "longest_row": int((rows_b.row_ptr[1:] - rows_b.row_ptr[:-1]).max()),
+        }, (src_b[0], dst_b[0], rows_b)
+
+    split_full, (src_b, dst_b, rows_b) = factor_split(batch_full)
+    split_small_b, _ = factor_split(1024)
+    # K1 on one drawn batch of the full graph against its plain twin; its
+    # bound: the batch's edges (12 B each), the rows of V it touches, and
+    # the (n, k) output written once
+    mb_err, mb_tol = compare(
+        "edge_spmm (minibatch batch)",
+        lambda: es_ops.edge_spmm_rows(rows_b, u_mf),
+        lambda: es_ref.edge_spmm_rows(rows_b.row_ptr, rows_b.other,
+                                      rows_b.weight, u_mf, 1.0, 0.0))
+    touched = int(torch.unique(torch.cat([src_b, dst_b])).numel())
+    mb_bound, mb_bound_by = bound(batch_full * 12 + touched * k * 4
+                                  + n * k * 4, batch_full * k * 6)
+    op_mf = operators.minibatch_operator(g, limit_neg_exp(251, scale=8.0 / rho),
+                                         batch_full, backend="kernel")
+    gen_mf = torch.Generator(device=dev).manual_seed(6)
+    step_mf_ms = cuda_ms(lambda: step_fn(st_mf, op_mf(gen_mf, st_mf.v), 1e-3), 3)
+    emit({"phase": "minibatch_full", "n": n, "num_edges": e_full, "k": k,
+          "degree": 251, "solver_steps": 10, "batch_edges": batch_full,
+          "batch_fraction": batch_full / e_full,
+          "spectral_cluster_s": mb_full_s, "solver_step_ms": step_mf_ms,
+          "factor_split": split_full, "factor_split_b1024": split_small_b,
+          "k1_batch_max_abs_err": mb_err, "k1_batch_tolerance": mb_tol,
+          "k1_batch_ms": split_full["k1_ms"], "k1_batch_bound_ms": mb_bound,
+          "k1_batch_bound_by": mb_bound_by, "k1_batch_touched_rows": touched,
+          "max_memory_allocated": peak_mf, "col_norm_err": col_norm_mf,
+          "agreement": float(km.cluster_agreement(labels_mf, truth, 8)),
+          "launches": counts_mb_full})
+    del op_mf, st_mf, u_mf, rows_b, src_b, dst_b
+
+    # ---- 10. walk estimator, small (K3/K4 solve, plain-torch walks) --------
+    inc_s, inc_host_s = host_s(lambda: lap.build_edge_incidence(gs))
+    wb_s = walks.sample_walks(torch.Generator(device=dev).manual_seed(4), inc_s,
+                              4096, 6)
+    log_pmin = -5 * float(torch.log(torch.tensor(float(inc_s.deg_star_inc)))) \
+        - float(torch.log(torch.tensor(float(gs.num_edges))))
+    walks_proper = bool(torch.all(wb_s.alpha != 0)) and set(
+        wb_s.alpha[:, 1].unique().tolist()) <= {-1.0, 1.0, 2.0} and bool(
+        torch.all(wb_s.logp[:, -1] >= log_pmin - 1e-4))
+    if not walks_proper:
+        raise AssertionError("walks sampled on the card are not proper")
+    cfg_ws = ClusteringConfig(
+        num_clusters=4, estimation="walks", degree=251, num_walkers=4096,
+        solver=SolverConfig(method="mu_eg", lr=0.05, steps=600, eval_every=100),
+        seed=0)
+    reset_launch_counts()
+    (labels_ws, info_ws), walks_s = host_s(lambda: spectral_cluster(gs, cfg_ws))
+    counts_walks = launch_counts()
+    agreement_ws = float(km.cluster_agreement(labels_ws, truth_s, 4))
+    rho_s = float(lap.spectral_radius_upper_bound(gs))
+    op_w = walks.walk_polynomial_operator(
+        gs, inc_s, walks.lowdeg_negexp_coeffs(6, rho_s, 8.0 / rho_s), 0.0, 4096)
+    st_w = solvers.init_from_panel(info_ws["eigvecs"])
+    gen_w = torch.Generator(device=dev).manual_seed(7)
+    walk_op_ms = cuda_ms(lambda: op_w(gen_w, st_w.v), 20)
+    walk_step_ms = cuda_ms(lambda: step_fn(st_w, op_w(gen_w, st_w.v), 0.05), 20)
+    emit({"phase": "walks_small", "n": 160, "num_edges": gs.num_edges,
+          "degree": 6, "num_walkers": 4096, "solver_steps": 600,
+          "incidence_host_s": inc_host_s,
+          "incidence_width": int(inc_s.nbrs.shape[1]),
+          "spectral_cluster_s": walks_s, "operator_ms": walk_op_ms,
+          "solver_step_ms": walk_step_ms, "agreement": agreement_ws,
+          "plan": info_ws["plan"], "launches": counts_walks})
+    if not agreement_ws > STOCHASTIC_AGREEMENT:
+        raise AssertionError(f"walks clique agreement {agreement_ws} <= "
+                             f"{STOCHASTIC_AGREEMENT}")
+    for name in ("gram2k", "panel_mix"):
+        if counts_walks[name] != 600:
+            raise AssertionError(f"walks run launched {name} "
+                                 f"{counts_walks[name]} times, not 600")
+
+    # ---- 11. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
-                 counts_auto_full)
+                 counts_auto_full, counts_mb_small, counts_mb_full,
+                 counts_walks)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

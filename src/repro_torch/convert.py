@@ -13,8 +13,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.clustering import ClusteringConfig
-from repro_torch.core.laplacian import EdgeList
+from repro_torch.core.laplacian import EdgeIncidence, EdgeList
 from repro_torch.core.solvers import SolverConfig, SolverState
+from repro_torch.core.walks import WalkBatch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.spectral.probes import ProbeResult
@@ -36,6 +37,27 @@ def edge_list_from_numpy(src, dst, weight, num_nodes: int,
         dst=_tensor(dst, np.int32, dev),
         weight=_tensor(weight, np.float32, dev),
         num_nodes=int(num_nodes))
+
+
+def edge_incidence_from_numpy(nbrs, deg, ip, deg_star_inc: int,
+                              device=None) -> EdgeIncidence:
+    """An EdgeIncidence from the JAX package's arrays."""
+    dev = resolve_device(device)
+    return EdgeIncidence(
+        nbrs=_tensor(nbrs, np.int32, dev), deg=_tensor(deg, np.int32, dev),
+        ip=_tensor(ip, np.float32, dev), deg_star_inc=int(deg_star_inc))
+
+
+def walk_batch_from_numpy(first_edge, edge_at, alpha, logp,
+                          device=None) -> WalkBatch:
+    """A WalkBatch from the JAX package's arrays, so that the port's
+    estimators can read the JAX draw."""
+    dev = resolve_device(device)
+    return WalkBatch(
+        first_edge=_tensor(first_edge, np.int32, dev),
+        edge_at=_tensor(edge_at, np.int32, dev),
+        alpha=_tensor(alpha, np.float32, dev),
+        logp=_tensor(logp, np.float32, dev))
 
 
 def node_blocking_from_numpy(u_local, other, weight, chunk_block, deg,

@@ -1,12 +1,17 @@
-"""SPED core of the port: the exact-edges spectral-clustering path."""
+"""SPED core of the port: spectral clustering with exact, minibatch and
+random-walk estimates of the dilated Laplacian."""
 from repro_torch.core.laplacian import (  # noqa: F401
+    EdgeIncidence,
     EdgeList,
     adjacency_dense,
+    build_edge_incidence,
     degrees,
+    edge_inner_product,
     edge_matvec_arrays,
     laplacian_dense,
     laplacian_matvec,
     make_edge_list,
+    minibatch_laplacian_matvec,
     pad_edge_list,
     spectral_radius_upper_bound,
 )

@@ -3,11 +3,12 @@
 Pipeline: edges -> L -> [spectrum transform + Eq. 8 reversal] -> top-k
 solver (mu-EG / Oja) -> bottom-k eigenvector embedding -> k-means.
 
-The port runs the ``exact_edges`` estimation with a fixed transform or
-with ``transform="auto"`` (probe the spectrum and let
-:func:`repro_torch.spectral.plan_dilation` pick family, degree and
-scale); the ``minibatch`` and ``walks`` estimators come with a later
-slice of the port and raise here.
+The operator is estimated three ways: ``exact_edges`` (the full edge
+list), ``minibatch`` (a fresh uniform batch of edges per series factor,
+paper Sec. 3) or ``walks`` (random walks on the edge incidence graph,
+Sec. 4.3), with a fixed transform or with ``transform="auto"`` (probe
+the spectrum and let :func:`repro_torch.spectral.plan_dilation` pick
+family, degree and scale; the walks estimator skips the probe).
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ import torch
 
 from repro_torch.core import kmeans as km
 from repro_torch.core import laplacian as lap
-from repro_torch.core import metrics, operators, series, solvers
+from repro_torch.core import metrics, operators, series, solvers, walks
+
+ESTIMATIONS = ("exact_edges", "minibatch", "walks")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +35,7 @@ class ClusteringConfig:
     # effective decay strength tau: with auto_scale the transform acts like
     # -e^{-tau * lam / rho}
     dilation_strength: float = 8.0
-    estimation: str = "exact_edges"
+    estimation: str = "exact_edges"  # exact_edges | minibatch | walks
     batch_edges: int = 1024
     num_walkers: int = 4096
     solver: solvers.SolverConfig = dataclasses.field(
@@ -68,16 +71,12 @@ def spectral_cluster(g: lap.EdgeList, cfg: ClusteringConfig,
                      v_star: torch.Tensor | None = None):
     """Run the full pipeline on the graph's device.  Returns
     (labels, info dict)."""
-    if cfg.estimation in ("minibatch", "walks"):
-        raise NotImplementedError(
-            f"estimation={cfg.estimation!r} arrives with ROADMAP slice 4, "
-            "the stochastic estimators")
-    if cfg.estimation != "exact_edges":
-        raise ValueError(cfg.estimation)
+    if cfg.estimation not in ESTIMATIONS:
+        raise ValueError(f"unknown estimation mode {cfg.estimation!r}")
     rho_ub = float(lap.spectral_radius_upper_bound(g))
     k = cfg.num_clusters + cfg.extra_eigvecs + (1 if cfg.drop_trivial else 0)
     plan = None
-    if cfg.transform == "auto":
+    if cfg.transform == "auto" and cfg.estimation != "walks":
         from repro_torch import spectral  # deferred: spectral builds on core
 
         gen = torch.Generator(device=g.device).manual_seed(cfg.seed + 3)
@@ -90,17 +89,35 @@ def spectral_cluster(g: lap.EdgeList, cfg: ClusteringConfig,
         cfg = dataclasses.replace(
             cfg, solver=dataclasses.replace(
                 cfg.solver, lr=plan.suggested_lr(cfg.solver.lr)))
+    elif cfg.transform == "auto":
+        # the walks estimator builds its own low-degree operator below, so
+        # a probe's plan would be discarded: s only names info["series"]
+        s = series.with_lambda_star(series.identity_series(), rho_ub * 1.01)
     else:
         s = build_series(cfg, rho_ub)
     scfg = dataclasses.replace(cfg.solver, k=k, seed=cfg.seed,
                                backend=cfg.backend)
-    op = operators.edge_series_operator(g, s, backend=cfg.backend)
+    stochastic = cfg.estimation != "exact_edges"
+    if cfg.estimation == "exact_edges":
+        op = operators.edge_series_operator(g, s, backend=cfg.backend)
+    elif cfg.estimation == "minibatch":
+        op = operators.minibatch_operator(g, s, cfg.batch_edges,
+                                          backend=cfg.backend)
+    else:
+        # the walk variance grows with the degree: a LOW-degree power-basis
+        # fit of the same spectral map (beyond the paper)
+        deg = min(cfg.degree, 6)
+        tau = cfg.dilation_strength / rho_ub if cfg.auto_scale else 1.0
+        op = walks.walk_polynomial_operator(
+            g, lap.build_edge_incidence(g),
+            walks.lowdeg_negexp_coeffs(deg, rho_ub, tau), lambda_star=0.0,
+            num_walkers=cfg.num_walkers)
 
     if v_star is None and g.num_nodes <= 4096:
         _, v_star = metrics.ground_truth_bottom_k(lap.laplacian_dense(g), k)
 
     state, trace = solvers.run_solver(op, g.num_nodes, scfg, v_star=v_star,
-                                      device=g.device)
+                                      stochastic=stochastic, device=g.device)
 
     start = 1 if cfg.drop_trivial else 0
     embedding = state.v[:, start: start + cfg.num_clusters]

@@ -111,6 +111,91 @@ def laplacian_matvec(g: EdgeList, v: torch.Tensor) -> torch.Tensor:
     return edge_matvec_arrays(g.src, g.dst, g.weight, v)
 
 
+def minibatch_laplacian_matvec(src: torch.Tensor, dst: torch.Tensor,
+                               weight: torch.Tensor, v: torch.Tensor,
+                               num_edges_total: int) -> torch.Tensor:
+    """Unbiased estimate of L @ v from a minibatch of B edges.
+
+    E[(E_total / B) * sum_{e in batch} w_e x_e x_e^T v] = L v when the
+    edges are drawn uniformly with replacement: the stochastic
+    optimization model of the paper (Sec. 3).  ``v`` is (n,) or (n, k).
+    """
+    scaled = weight * (num_edges_total / src.shape[0])
+    return edge_matvec_arrays(src, dst, scaled, v)
+
+
 def spectral_radius_upper_bound(g: EdgeList) -> torch.Tensor:
     """lambda_max(L) <= 2 * max weighted degree (paper Sec. 5.4)."""
     return 2.0 * torch.max(degrees(g))
+
+
+# ---------------------------------------------------------------------------
+# Edge incidence graph (Sec. 4.3, Table 1).
+# ---------------------------------------------------------------------------
+
+def edge_inner_product(si, di, sj, dj) -> torch.Tensor:
+    """x_ei^T x_ej per Table 1 of the paper.
+
+    repeated -> 2; serial (one shared node at opposite signs) -> -1;
+    converging/diverging (one shared node at the same sign) -> +1;
+    disconnected -> 0.  Signs follow the min/max encoding: +1 at src,
+    -1 at dst.
+    """
+    si, di, sj, dj = (torch.as_tensor(a) for a in (si, di, sj, dj))
+    return ((si == sj).float()  # +1 * +1
+            + (di == dj).float()  # -1 * -1
+            - (si == dj).float()  # +1 * -1
+            - (di == sj).float())  # -1 * +1
+
+
+class EdgeIncidence(NamedTuple):
+    """Padded adjacency of the edge incidence graph.
+
+    Node u of this graph is edge u of the original graph.  Two edges are
+    adjacent iff they share an endpoint; every edge also has a self loop
+    (paper footnote 1).  ``nbrs[e, :deg[e]]`` lists the neighbours, padded
+    with ``e`` itself (never sampled: slots are drawn below ``deg``).
+    """
+
+    nbrs: torch.Tensor  # (E, max_deg) int32
+    deg: torch.Tensor  # (E,) int32, incidence degree (self loop included)
+    ip: torch.Tensor  # (E, max_deg) float32, x_e^T x_nbr per slot
+    deg_star_inc: int  # upper bound 2 deg* - 1 on the incidence degree
+
+
+def build_edge_incidence(g: EdgeList) -> EdgeIncidence:
+    """Host-side (numpy) construction of the padded incidence-graph
+    adjacency, on the graph's device.  The JAX package's builder, copied
+    so that its arrays come out bitwise equal; like it, an edgeless graph
+    raises (``max`` of no neighbour lists)."""
+    src = g.src.cpu().numpy()
+    dst = g.dst.cpu().numpy()
+    e = src.shape[0]
+    n = g.num_nodes
+    node2edges: list[list[int]] = [[] for _ in range(n)]
+    for idx in range(e):
+        node2edges[src[idx]].append(idx)
+        node2edges[dst[idx]].append(idx)
+    nbr_lists = []
+    for idx in range(e):
+        s = set(node2edges[src[idx]]) | set(node2edges[dst[idx]])
+        s.add(idx)  # self loop
+        nbr_lists.append(sorted(s))
+    max_deg = max(len(l) for l in nbr_lists)
+    nbrs = np.full((e, max_deg), 0, dtype=np.int32)
+    deg = np.zeros((e,), dtype=np.int32)
+    for idx, l in enumerate(nbr_lists):
+        nbrs[idx, : len(l)] = l
+        deg[idx] = len(l)
+        nbrs[idx, len(l):] = idx  # pad with self (never sampled)
+    nb = torch.from_numpy(nbrs).long()
+    s_t, d_t = torch.from_numpy(src), torch.from_numpy(dst)
+    ip = edge_inner_product(s_t[:, None], d_t[:, None], s_t[nb], d_t[nb])
+    node_deg = np.zeros((n,), np.int64)
+    np.add.at(node_deg, src, 1)
+    np.add.at(node_deg, dst, 1)
+    deg_star = int(node_deg.max()) if e else 1
+    return EdgeIncidence(
+        nbrs=torch.from_numpy(nbrs).to(g.device),
+        deg=torch.from_numpy(deg).to(g.device),
+        ip=ip.to(g.device), deg_star_inc=2 * deg_star - 1)

@@ -7,7 +7,8 @@ consume.  Every constructor takes ``backend`` (see
 :mod:`repro_torch.core.backend`).  On the kernel backend the exact-edges
 operator is a :class:`CapturedOperator`: its ``degree`` kernel launches
 are captured once as a CUDA graph and replayed, the port's counterpart of
-the JAX package's jitted series.
+the JAX package's jitted series.  The stochastic minibatch operator
+runs eagerly: a replayed graph would repeat its captured draw.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from repro_torch import kernels
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import laplacian as lap
 from repro_torch.core.series import SpectralSeries
+from repro_torch.kernels.edge_spmm import ops as es_ops
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -119,6 +121,50 @@ def exact_operator(series: SpectralSeries, l_mat: torch.Tensor) -> MatVec:
     return lambda v: a @ v
 
 
+def minibatch_operator(g: lap.EdgeList, series: SpectralSeries,
+                       batch_edges: int, backend: str = "auto"):
+    """Stochastic operator ``op(generator, V, sel=None)``: every inner
+    Laplacian matvec uses its own uniform minibatch of B edges, drawn
+    with replacement and scaled by E / B.  Each factor is unbiased for L
+    and the factors are independent, so every monomial estimate
+    E[L_b1 ... L_bi] = L^i is unbiased (paper Sec. 3).
+
+    One call draws all its batches at once from ``generator`` (on the
+    graph's device): ``sel`` of shape (degree + 1, B), whose row i feeds
+    the matvec at series position i.  That is equal in distribution to
+    the JAX package's ``randint(fold_in(key, i))`` per factor; an
+    injected ``sel`` (F, B) replays a given draw and needs a row for
+    every position the series uses (``degree`` rows for limit_neg_exp).
+
+    On the kernel path every factor is one K1 launch on the batch's edge
+    list (``ops.edge_spmm`` builds the batch's row CSR on the card) at
+    any n: K1 has no node limit there.  Segment runs
+    :func:`laplacian.minibatch_laplacian_matvec`.  The series runs
+    eagerly, never as a captured graph, whose replays would repeat one
+    draw.
+    """
+    e = g.num_edges
+    kind = backend_mod.resolve_backend(backend, g.device)
+    scale = e / batch_edges
+
+    def op(generator: torch.Generator, v: torch.Tensor,
+           sel: torch.Tensor | None = None) -> torch.Tensor:
+        if sel is None:
+            sel = torch.randint(0, e, (series.degree + 1, batch_edges),
+                                generator=generator, device=g.device)
+        sel = torch.as_tensor(sel, device=g.device).long()
+        src, dst, w = g.src[sel].long(), g.dst[sel].long(), g.weight[sel]
+
+        def factor(_, i: int, u: torch.Tensor) -> torch.Tensor:
+            if kind == "kernel":
+                return es_ops.edge_spmm(src[i], dst[i], w[i] * scale, u)
+            return lap.minibatch_laplacian_matvec(src[i], dst[i], w[i], u, e)
+
+        return series.apply_reversed_stochastic(factor, generator, v)
+
+    return op
+
+
 def scaled_series_for_graph(g: lap.EdgeList, series_fn, degree: int,
                             target_radius: float = 1.0,
                             rho: float | None = None) -> SpectralSeries:
@@ -136,23 +182,20 @@ def scaled_series_for_graph(g: lap.EdgeList, series_fn, degree: int,
 def planned_operator(g: lap.EdgeList, k: int,
                      generator: torch.Generator | None = None,
                      budget: int = 96, estimation: str = "exact_edges",
-                     num_probes: int = 4, num_steps: int = 24,
-                     backend: str = "auto"):
+                     batch_edges: int = 1024, num_probes: int = 4,
+                     num_steps: int = 24, backend: str = "auto"):
     """Probe the graph's spectrum and build an auto-tuned solver operator.
 
-    SLQ-probes lambda_max and the bottom-edge eigengap, plans the
-    transform family, degree and strength (:mod:`repro_torch.spectral`)
-    and wires the tuned series into the exact-edges operator.  Returns
-    (operator, DilationPlan).  ``budget`` caps the series degree;
-    ``backend`` selects the kernels of both the probe and the solve.
-    The minibatch estimation (and its ``batch_edges``) comes with ROADMAP
-    slice 4.
+    SLQ-probes lambda_max and the bottom-edge eigengap on the exact
+    edges, plans the transform family, degree and strength
+    (:mod:`repro_torch.spectral`) and wires the tuned series into the
+    requested estimation mode.  Returns (operator, DilationPlan); the
+    operator is deterministic for "exact_edges" and ``op(generator, V)``
+    for "minibatch" (:func:`minibatch_operator`, ``batch_edges`` edges a
+    factor).  ``budget`` caps the series degree; ``backend`` selects the
+    kernels of both the probe and the solve.
     """
-    if estimation == "minibatch":
-        raise NotImplementedError(
-            "estimation='minibatch' arrives with ROADMAP slice 4, the "
-            "stochastic estimators")
-    if estimation != "exact_edges":
+    if estimation not in ("exact_edges", "minibatch"):
         raise ValueError(f"unknown estimation mode {estimation!r}")
     from repro_torch import spectral  # deferred: spectral builds on core
 
@@ -160,4 +203,6 @@ def planned_operator(g: lap.EdgeList, k: int,
         g, k=k, generator=generator, budget=budget,
         num_probes=num_probes, num_steps=num_steps, backend=backend)
     s = spectral.series_from_plan(plan)
+    if estimation == "minibatch":
+        return minibatch_operator(g, s, batch_edges, backend=backend), plan
     return edge_series_operator(g, s, backend=backend), plan

@@ -40,22 +40,28 @@ def run_chunk(opv: MatVec, step_fn, state: solvers.SolverState, lr,
     return state, metrics.operator_residual(opv, state.v)
 
 
-def run_program(operator: MatVec, n: int, cfg: solvers.SolverConfig,
+def run_program(operator: MatVec | solvers.StochMatVec, n: int,
+                cfg: solvers.SolverConfig,
                 v_star: torch.Tensor | None = None,
+                stochastic: bool = False,
                 init_v: torch.Tensor | None = None,
                 device=None) -> tuple[solvers.SolverState, solvers.Trace]:
     """One-shot solve with ground-truth traces, ``run_solver``'s engine.
 
     Runs ``max(1, steps // eval_every)`` evals of ``eval_every`` steps
-    each (the JAX package's cadence).  The random initial panel comes
-    from a ``torch.Generator`` seeded with ``cfg.seed`` on ``device``
-    (``None`` = the CUDA card, or ``init_v``'s device when given);
-    ``init_v`` warm-starts from an (n, k) panel via ``init_from_panel``.
+    each (the JAX package's cadence).  One ``torch.Generator`` seeded
+    with ``cfg.seed`` on ``device`` (``None`` = the CUDA card, or
+    ``init_v``'s device when given) drives the solve: the random initial
+    panel is its first draw, and a ``stochastic`` operator, called as
+    ``operator(generator, V)``, draws each step's batches after it from
+    the same stream, so they never repeat the initial panel's bits.
+    ``init_v`` warm-starts from an (n, k) panel via ``init_from_panel``
+    and leaves the whole stream to the operator.
     """
     dev = init_v.device if init_v is not None else resolve_device(device)
     step_fn = solvers.make_step_fn(cfg.method, cfg.backend, dev)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     if init_v is None:
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         state = solvers.init_state(gen, n, cfg.k)
     else:
         state = solvers.init_from_panel(init_v)
@@ -65,7 +71,8 @@ def run_program(operator: MatVec, n: int, cfg: solvers.SolverConfig,
     steps, err, streak = [], [], []
     for _ in range(num_evals):
         for _ in range(cfg.eval_every):
-            state = apply_solver_step(step_fn, state, operator(state.v), cfg.lr)
+            av = operator(gen, state.v) if stochastic else operator(state.v)
+            state = apply_solver_step(step_fn, state, av, cfg.lr)
         steps.append(state.step)
         err.append(metrics.subspace_error(state.v, v_star))
         streak.append(metrics.eigenvector_streak(state.v, v_star))

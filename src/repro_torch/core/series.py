@@ -25,8 +25,11 @@ import torch
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 # series bodies call an INDEXED matvec mv(i, u), i the position of the
-# matvec within the polynomial evaluation (deterministic operators ignore it)
+# matvec within the polynomial evaluation (deterministic operators ignore
+# it; a stochastic one gives every position its own draw)
 IndexedMatVec = Callable[[int, torch.Tensor], torch.Tensor]
+# keyed(generator, i, u): a random estimate of L u for position i
+KeyedMatVec = Callable[[torch.Generator, int, torch.Tensor], torch.Tensor]
 # fused(u, alpha, beta) -> alpha * (L @ u) + beta * u in one pass
 FusedStep = Callable[[torch.Tensor, float, float], torch.Tensor]
 
@@ -60,6 +63,28 @@ class SpectralSeries:
     def apply_reversed_fused(self, fused_step: FusedStep,
                              v: torch.Tensor) -> torch.Tensor:
         return self.lambda_star * v - self.apply_fused(fused_step, v)
+
+    def apply_stochastic(self, keyed_matvec: KeyedMatVec,
+                         generator: torch.Generator,
+                         v: torch.Tensor) -> torch.Tensor:
+        """S(L) v with the matvec at position i computed as
+        ``keyed_matvec(generator, i, u)``.
+
+        The keyed matvec must give each position a draw of its own,
+        independent of every other position's: the product of independent
+        unbiased factors is then unbiased for each monomial (paper
+        Sec. 4.3).  The JAX package folds i into its key; the port's
+        minibatch operator draws one (F, B) index tensor per call and
+        reads row i at position i.  Positions run from 0 or 1 up to
+        ``degree`` (Chebyshev and the Taylor series reach ``degree``).
+        """
+        return self.apply_fn(lambda i, u: keyed_matvec(generator, i, u), v)
+
+    def apply_reversed_stochastic(self, keyed_matvec: KeyedMatVec,
+                                  generator: torch.Generator,
+                                  v: torch.Tensor) -> torch.Tensor:
+        return self.lambda_star * v - self.apply_stochastic(
+            keyed_matvec, generator, v)
 
     def scalar(self, lam) -> torch.Tensor:
         return self.scalar_fn(torch.as_tensor(lam))

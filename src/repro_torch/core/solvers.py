@@ -16,6 +16,8 @@ import torch
 from repro_torch.device import resolve_device
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
+# stochastic operators additionally take a torch.Generator: op(generator, V)
+StochMatVec = Callable[[torch.Generator, torch.Tensor], torch.Tensor]
 
 
 class SolverState(NamedTuple):
@@ -136,16 +138,19 @@ class Trace(NamedTuple):
     streak: torch.Tensor  # (T,)
 
 
-def run_solver(operator: MatVec, n: int, cfg: SolverConfig,
+def run_solver(operator: MatVec | StochMatVec, n: int, cfg: SolverConfig,
                v_star: torch.Tensor | None = None,
+               stochastic: bool = False,
                init_v: torch.Tensor | None = None,
                device=None) -> tuple[SolverState, Trace]:
     """Run a solver, recording metrics against ground truth ``v_star``;
-    a thin wrapper over :func:`repro_torch.core.program.run_program`."""
+    a thin wrapper over :func:`repro_torch.core.program.run_program`
+    (a ``stochastic`` operator is called as ``operator(generator, V)``)."""
     from repro_torch.core import program  # program builds on solvers
 
     return program.run_program(operator, n, cfg, v_star=v_star,
-                               init_v=init_v, device=device)
+                               stochastic=stochastic, init_v=init_v,
+                               device=device)
 
 
 def steps_to_tolerance(trace: Trace, tol: float) -> int:

@@ -105,15 +105,15 @@ def test_exact_reference_pipeline():
     assert float(km.cluster_agreement(labels, truth, 4)) > 0.95
 
 
-@pytest.mark.parametrize("change,slice_name", [
-    (dict(estimation="minibatch"), "slice 4"),
-    (dict(estimation="walks"), "slice 4"),
-])
-def test_later_slices_raise(change, slice_name):
+@pytest.mark.parametrize("entry", [
+    lambda g: spectral_cluster(g, ClusteringConfig(num_clusters=3,
+                                                   estimation="dense")),
+    lambda g: operators.planned_operator(g, k=3, estimation="dense"),
+], ids=["spectral_cluster", "planned_operator"])
+def test_unknown_estimation_raises(entry):
     g, _ = graphs.ring_of_cliques(3, 6, device=CPU)
-    cfg = dataclasses.replace(ClusteringConfig(num_clusters=3), **change)
-    with pytest.raises(NotImplementedError, match=slice_name):
-        spectral_cluster(g, cfg)
+    with pytest.raises(ValueError, match="estimation mode 'dense'"):
+        entry(g)
 
 
 def test_auto_transform_recovers_cliques_with_the_jax_plan():
@@ -156,14 +156,6 @@ def test_planned_operator_matches_jax_given_the_same_plan():
     v = np.random.default_rng(5).normal(size=(g.num_nodes, 4)).astype(np.float32)
     got = op(torch.from_numpy(v)).numpy()
     assert float(np.max(np.abs(got - np.asarray(jop(jnp.asarray(v)))))) <= 1e-5
-
-
-def test_planned_operator_minibatch_is_a_later_slice():
-    g, _ = graphs.ring_of_cliques(3, 6, device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        operators.planned_operator(g, k=3, estimation="minibatch")
-    with pytest.raises(ValueError, match="estimation"):
-        operators.planned_operator(g, k=3, estimation="dense")
 
 
 def test_scaled_series_for_graph_matches_jax():

@@ -422,3 +422,103 @@ def test_auto_spectral_cluster_on_the_card(dev):
     probe = spectral.probe_graph(g, torch.Generator(device=dev).manual_seed(3),
                                  backend="kernel")
     assert 0.9 <= float(probe.lambda_max) / float(lam[-1]) <= 1.1
+
+
+def _minibatch_case(dev, n: int = 301, e: int = 2000):
+    g_cpu = _graph(11, n, e, "cpu")
+    g = lap.EdgeList(g_cpu.src.to(dev), g_cpu.dst.to(dev), g_cpu.weight.to(dev),
+                     n)
+    return g_cpu, g, limit_neg_exp(7, scale=0.5 / float(
+        lap.spectral_radius_upper_bound(g_cpu)))
+
+
+def test_minibatch_operator_on_the_card_matches_segment(dev):
+    """Each factor one K1 launch on its drawn batch; from the same
+    injected sel the card's operator equals the CPU segment run."""
+    g_cpu, g, s = _minibatch_case(dev)
+    sel = torch.randint(0, g.num_edges, (8, 256),
+                        generator=torch.Generator().manual_seed(0))
+    v = _panel(50, g.num_nodes, 10, dev)
+    want = operators.minibatch_operator(g_cpu, s, 256, backend="segment")(
+        None, v.cpu(), sel=sel)
+    op = operators.minibatch_operator(g, s, 256, backend="kernel")
+    reset_launch_counts()
+    got = op(None, v, sel=sel.to(dev))
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "edge_spmm": 7}
+    assert _rel_err(got, want.to(dev)) <= REL
+    torch.testing.assert_close(op(None, v, sel=sel.to(dev)), got, atol=0, rtol=0)
+
+
+def test_minibatch_operator_draws_on_the_card(dev):
+    _, g, s = _minibatch_case(dev)
+    op = operators.minibatch_operator(g, s, 128, backend="kernel")
+    v = _panel(51, g.num_nodes, 4, dev)
+    a = op(torch.Generator(device=dev).manual_seed(3), v)
+    b = op(torch.Generator(device=dev).manual_seed(3), v)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert not torch.equal(a, op(torch.Generator(device=dev).manual_seed(4), v))
+
+
+def test_minibatch_batch_with_repeats_and_a_hub_row(dev):
+    """Draws with replacement: one edge 48 times in a batch makes both its
+    ends hub rows (> HUB_THRESHOLD half-edges) of the batch's row CSR."""
+    g_cpu, g, s = _minibatch_case(dev)
+    rng = np.random.default_rng(2)
+    sel = rng.integers(0, g.num_edges, (8, 96))
+    sel[:, :48] = 5
+    sel[3, 48:] = rng.integers(0, 4, 48)  # few distinct edges, many repeats
+    sel = torch.from_numpy(sel)
+    v = _panel(52, g.num_nodes, 10, dev)
+    want = operators.minibatch_operator(g_cpu, s, 96, backend="segment")(
+        None, v.cpu(), sel=sel)
+    got = operators.minibatch_operator(g, s, 96, backend="kernel")(
+        None, v, sel=sel.to(dev))
+    assert _rel_err(got, want.to(dev)) <= REL
+    rows = es_ops.build_edge_rows(g.src[sel[0].to(dev)], g.dst[sel[0].to(dev)],
+                                  g.weight[sel[0].to(dev)], g.num_nodes)
+    assert int((rows.hub_rows < g.num_nodes).sum()) >= 2
+
+
+def test_minibatch_spectral_cluster_on_the_card(dev):
+    g, truth = graphs.clique_graph(120, 3, seed=4, device=dev)
+    cfg = ClusteringConfig(
+        num_clusters=3, degree=51, estimation="minibatch", batch_edges=512,
+        solver=SolverConfig(method="mu_eg", lr=0.1, steps=1500, eval_every=250))
+    reset_launch_counts()
+    labels, _ = spectral_cluster(g, cfg)
+    counts = launch_counts()
+    assert counts["edge_spmm"] == 1500 * 51  # one K1 per drawn factor
+    assert counts["gram2k"] == counts["panel_mix"] == 1500
+    assert float(cluster_agreement(labels, truth, 3)) > 0.9
+
+
+def test_sample_walks_on_the_card_is_proper(dev):
+    from repro_torch.core import walks
+    g, _ = graphs.ring_of_cliques(3, 4, device=dev)
+    inc = lap.build_edge_incidence(g)
+    assert inc.nbrs.device.type == "cuda"
+    wb = walks.sample_walks(torch.Generator(device=dev).manual_seed(4), inc,
+                            5000, 3)
+    assert bool(torch.all(wb.alpha != 0.0))
+    assert set(wb.alpha[:, 1].unique().tolist()) <= {-1.0, 1.0, 2.0}
+    assert bool(torch.all(wb.logp[:, 1] <= wb.logp[:, 0] + 1e-6))
+    log_pmin = -2 * np.log(inc.deg_star_inc) - np.log(g.num_edges)
+    assert bool(torch.all(wb.logp[:, 1] >= log_pmin - 1e-5))
+    first, nxt = wb.edge_at[:, 0].long(), wb.edge_at[:, 1].long()
+    listed = (inc.nbrs[first] == nxt[:, None]) & (
+        torch.arange(inc.nbrs.shape[1], device=dev)[None, :]
+        < inc.deg[first][:, None])
+    assert bool(listed.any(dim=1).all())  # never the self-padding
+
+
+def test_walks_spectral_cluster_on_the_card(dev):
+    g, truth = graphs.clique_graph(160, 4, seed=3, device=dev)
+    cfg = ClusteringConfig(
+        num_clusters=4, estimation="walks", degree=251, num_walkers=4096,
+        solver=SolverConfig(method="mu_eg", lr=0.05, steps=600, eval_every=100))
+    reset_launch_counts()
+    labels, info = spectral_cluster(g, cfg)
+    counts = launch_counts()
+    assert info["plan"] is None and counts["edge_spmm"] == 0
+    assert counts["gram2k"] == counts["panel_mix"] == 600
+    assert float(cluster_agreement(labels, truth, 4)) > 0.9

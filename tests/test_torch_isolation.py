@@ -83,8 +83,11 @@ def test_resolve_device_default_raises_without_card(no_card):
     lambda: convert.edge_list_from_numpy([0], [1], [1.0], 2),
     lambda: convert.solver_state_from_numpy(np.ones((3, 1)), 0),
     lambda: solvers.run_solver(lambda v: v, 4, solvers.SolverConfig(k=1, steps=1)),
+    lambda: convert.edge_incidence_from_numpy(np.zeros((1, 1)), [1], np.ones((1, 1)), 1),
+    lambda: convert.walk_batch_from_numpy([0], [[0]], [[1.0]], [[0.0]]),
 ], ids=["ring_of_cliques", "clique_graph", "make_edge_list", "edge_list_from_numpy",
-        "solver_state_from_numpy", "run_solver"])
+        "solver_state_from_numpy", "run_solver", "edge_incidence_from_numpy",
+        "walk_batch_from_numpy"])
 def test_entry_points_default_to_the_card(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
