@@ -45,7 +45,22 @@ outside a checkout.  Phases, one JSON line each:
 10. walks_small - spectral_cluster(estimation="walks") on phase 3's
              clique graph (degree min(251, 6), 4096 walkers, 600 steps):
              the host incidence build, the solver step, agreement
-11. kernels - per kernel: launches on the main path (phases 3-10 but the
+11. baselines - the Bethe Hessian clustering of a 180-node SBM (dense
+             eigh, agreement), lanczos_bottom_k on phase 4's 2^20-node graph
+             over K2 (64 steps: seconds, host share, largest residual) and
+             one shift_invert_operator application there (50 CG steps on K2)
+12. stream_small - bench_stream.py's configuration (10,000-node sparse SBM,
+             k = 8, degree 15, strength 8) through the streaming state: the
+             cold solve to tolerance on the store's dilated operator (K2,
+             K3/K4), a 1 % churn applied as batches of 256, the row-CSR
+             rebuild and the warm re-solve: iterations, ratio, residual
+13. stream_full - phase 4's graph in its capacity class (2^24 slots), k = 10,
+             degree 15: apply_edge_batch at B = 256 and 4,096 (time, peak
+             memory of one apply), refresh_degrees, the row-CSR rebuild, the
+             dilated operator at two c, first_order_update at B = 256, a cold
+             solve and a warm re-solve after a 1 % churn (200 steps each),
+             LabelTracker on the 2^20 labels of two k-means runs
+14. kernels - per kernel: launches on the main path (phases 3-13 but the
              checks, counts reset just before and read just after each),
              error, times and the bound of this run's inputs
 
@@ -79,6 +94,20 @@ GRAPH_CALLS = 200
 # of tests/test_clustering.py's minibatch test; the walks estimator meets
 # it on the 160-node clique graph too (tests/test_torch_walks.py)
 STOCHASTIC_AGREEMENT = 0.9
+# the Bethe Hessian bars of tests/test_baselines.py
+BETHE_AGREEMENT = 0.9
+BETHE_NEGATIVE_EIGS = 3
+# the streaming phases' solver, bench_stream.py's: WarmConfig(tol=5e-3,
+# chunk=10, max_steps=5000, lr=0.3), dilation degree 15, strength 8
+STREAM_TOL = 5e-3
+STREAM_DEGREE = 15
+STREAM_STRENGTH = 8.0
+# 64 Lanczos steps over K2 vs over the segment matvec from one start
+# vector: the eigenvalue bar of tests/test_baselines.py
+LANCZOS_TOL = 1e-3
+# one apply_edge_batch at capacity 2^24 must stay far under the (B, cap)
+# match of the JAX package (68.7 GB of bools at B = 4,096)
+APPLY_PEAK_BYTES = 3e9
 # 3 solver steps of the kernel path vs backend="segment" (n = 8192):
 # panels of unit columns, 3 x 251 fused steps and 3 mu-EG steps of fp32
 STEPS_TOL = 1e-4
@@ -116,6 +145,7 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -133,11 +163,13 @@ def main() -> int:
 
     from repro_torch import spectral
     from repro_torch.core import (ClusteringConfig, SolverConfig, backend,
-                                  graphs, limit_neg_exp, operators, solvers,
-                                  spectral_cluster)
+                                  graphs, limit_neg_exp, metrics, operators,
+                                  solvers, spectral_cluster)
     from repro_torch.core import kmeans as km
     from repro_torch.core import laplacian as lap
-    from repro_torch.core import walks
+    from repro_torch.core import baselines, walks
+    from repro_torch.stream import graph_store as gstore
+    from repro_torch.stream import tracking, updates, warm
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
     from repro_torch.kernels.edge_spmm import ops as es_ops
     from repro_torch.kernels.edge_spmm import ref as es_ref
@@ -433,14 +465,14 @@ def main() -> int:
           reps=50, replaces="src/repro/kernels/laplacian_poly/kernel.py:44",
           source="src/repro_torch/csrc/laplacian_poly.cu",
           matvec_pair=(lambda: lp_ops.dense_matvec_panel(ld, vd),
-                       lambda: lp_ref.dense_matvec_panel(ld, vd)))
+                       lambda: lp_ref.dense_matvec_panel(ld, vd)), graphs=True)
     check("dense_matvec_panel",
           lambda: lp_ops.dense_matvec_panel(ld, vd),
           lambda: lp_ref.dense_matvec_panel(ld, vd),
           lambda: ld @ vd,
           nbytes=nd * nd * 4 + 2 * nd * k * 4, flops=2 * nd * nd * k,
           reps=50, replaces="src/repro/kernels/laplacian_poly/kernel.py:80",
-          source="src/repro_torch/csrc/laplacian_poly.cu")
+          source="src/repro_torch/csrc/laplacian_poly.cu", graphs=True)
     del ld  # rebuilt in phase 5; phase 4's peak memory leaves it out
 
     # ---- 3. small end-to-end (K1 path) -----------------------------------
@@ -870,10 +902,269 @@ def main() -> int:
             raise AssertionError(f"walks run launched {name} "
                                  f"{counts_walks[name]} times, not 600")
 
-    # ---- 11. kernel list -------------------------------------------------
+    # ---- 11. baselines (dense Bethe Hessian; Lanczos and CG on K2) ---------
+    gb, truth_b = graphs.sbm_graph(180, 3, p_in=0.25, p_out=0.01, seed=0,
+                                   device=dev)
+    (labels_b, info_b), bethe_s = host_s(
+        lambda: baselines.bethe_hessian_cluster(gb, 3))
+    agreement_b = float(km.cluster_agreement(labels_b, truth_b, 3))
+    if not (agreement_b > BETHE_AGREEMENT
+            and info_b["negative_eigs"] >= BETHE_NEGATIVE_EIGS):
+        raise AssertionError(f"Bethe Hessian: agreement {agreement_b}, "
+                             f"{info_b['negative_eigs']} negative eigenvalues")
+    # the row CSR the kernel path builds; K2 past 4096
+    rows_g = es_ops.build_edge_rows(g.src, g.dst, g.weight, n)
+    fused_g = backend.rows_fused_step(rows_g)
+    in_k2 = [0.0]
+
+    def k2_matvec(x):
+        t0 = time.perf_counter()
+        out = fused_g(x, 1.0, 0.0)
+        sync()
+        in_k2[0] += time.perf_counter() - t0
+        return out
+
+    reset_launch_counts()
+    (lam_l, vec_l), lanczos_s = host_s(lambda: baselines.lanczos_bottom_k(
+        k2_matvec, n, k, iters=64, seed=0, device=dev))
+    lanczos_k2_s = in_k2[0]
+    si_op = baselines.shift_invert_operator(lambda x: fused_g(x, 1.0, 0.0),
+                                            shift=0.05, cg_iters=50)
+    v_si = panel(n, k, 8)
+    si_out, shift_invert_s = host_s(lambda: si_op(v_si))
+    counts_baselines = launch_counts()
+    resid_l = float(torch.linalg.vector_norm(
+        fused_g(vec_l, 1.0, 0.0) - vec_l * lam_l[None, :], dim=0).max())
+    if not (bool(torch.isfinite(lam_l).all()) and bool(torch.isfinite(si_out).all())
+            and counts_baselines["edge_spmm_nb"] == 64 + 51):
+        raise AssertionError(f"baselines at n = {n}: lanczos {lam_l}, "
+                             f"launches {counts_baselines}")
+    # Lanczos hands K2 (n,) vectors, its k = 1 body: held to the twin on
+    # the same row CSR, and the whole Lanczos run to one over the plain
+    # segment matvec from the same numpy start vector
+    q_l = panel(n, 1, 10)[:, 0]
+    vec_err, vec_tol = compare(
+        "edge_spmm_nb on an (n,) vector", lambda: fused_g(q_l, 1.0, 0.0),
+        lambda: es_ref.edge_spmm_rows(rows_g.row_ptr, rows_g.other,
+                                      rows_g.weight, q_l[:, None], 1.0,
+                                      0.0)[:, 0])
+    lam_seg, _ = baselines.lanczos_bottom_k(
+        lambda x: lap.edge_matvec_arrays(g.src, g.dst, g.weight, x), n, k,
+        iters=64, seed=0, device=dev)
+    lanczos_gap = float((lam_l - lam_seg).abs().max())
+    if not lanczos_gap <= LANCZOS_TOL:
+        raise AssertionError(f"Lanczos on K2 vs segment: eigenvalues "
+                             f"{lam_l.tolist()} vs {lam_seg.tolist()}")
+    emit({"phase": "baselines", "bethe_n": 180, "bethe_agreement": agreement_b,
+          "bethe_negative_eigs": info_b["negative_eigs"], "bethe_r": info_b["r"],
+          "bethe_s": bethe_s, "n": n, "k": k, "lanczos_iters": 64,
+          "lanczos_s": lanczos_s, "lanczos_k2_s": lanczos_k2_s,
+          "lanczos_host_share": 1.0 - lanczos_k2_s / lanczos_s,
+          "lanczos_eigs": lam_l.tolist(), "lanczos_max_residual": resid_l,
+          "k2_vector_max_abs_err": vec_err, "k2_vector_tolerance": vec_tol,
+          "lanczos_vs_segment_max_abs_diff": lanczos_gap,
+          "shift_invert_cg_iters": 50, "shift_invert_s": shift_invert_s,
+          "shift_invert_ms": cuda_ms(lambda: si_op(v_si), 2),
+          "launches": counts_baselines})
+    del si_out, v_si, vec_l, rows_g, fused_g, q_l
+
+    # ---- 12. streaming state, bench_stream.py's configuration --------------
+    def churn_batches(graph, batch, seed=1):
+        """bench_stream.py's _perturb_one_percent: delete E/200 random edges
+        and insert E/200 random pairs, as canonical batches of ``batch``
+        entries (deletes first) for the store."""
+        rng = np.random.default_rng(seed)
+        e = graph.num_edges
+        m = max(e // 200, 1)
+        src, dst = graph.src.cpu().numpy(), graph.dst.cpu().numpy()
+        gone = rng.choice(e, size=m, replace=False)
+        add = np.sort(rng.integers(0, graph.num_nodes, size=(m, 2)).astype(
+            np.int32), axis=1)
+        add = add[add[:, 0] != add[:, 1]]
+        pairs = np.concatenate([np.stack([src[gone], dst[gone]], 1), add])
+        ws = np.concatenate([np.zeros(m), np.ones(len(add))])
+        return [gstore.coalesce_batch(pairs[i:i + batch], ws[i:i + batch],
+                                      pad_to=batch, device=dev)
+                for i in range(0, len(pairs), batch)], 2 * m
+
+    def dilated(store, c_scale=1.0):
+        """The store's captured dilated operator (I - c L)^15 at c =
+        c_scale * strength / rho / degree, rho the store's Gershgorin
+        bound, over its cached row CSR."""
+        store, rho_st = gstore.spectral_radius_upper_bound(store)
+        c_st = c_scale * STREAM_STRENGTH / float(rho_st) / STREAM_DEGREE
+        return store, c_st, operators.dilated_step_operator(
+            gstore.fused_step(store), c_st, STREAM_DEGREE, capture=True)
+
+    def held_to_plain(label, store, c_st, op, v, lr):
+        """The store's dilated operator (K1/K2) against the segment loop
+        on the run's panel V, then K3 and K4 against their twins on that
+        V and AV: the shapes the streaming solve gave them."""
+        errs = {"dilated": compare(
+            f"{label}: dilated operator vs segment", lambda: op(v),
+            lambda: operators.dilated_operator_arrays(
+                store.src, store.dst, store.weight, c_st, STREAM_DEGREE,
+                backend="segment")(v))[0]}
+        av = op(v)
+        errs["gram2k"] = compare(f"{label}: gram2k", lambda: eg_ops.gram2k(v, av),
+                                 lambda: eg_ref.gram2k(v, av))[0]
+        m1_s, m2_s, cs_s = eg_ref.coefficient_matrices(
+            eg_ref.gram2k(v, av), v.shape[1], lr)
+        errs["panel_mix"] = compare(
+            f"{label}: panel_mix", lambda: eg_ops.panel_mix(v, av, m1_s, m2_s, cs_s),
+            lambda: eg_ref.panel_mix(v, av, m1_s, m2_s, cs_s))[0]
+        return errs
+
+    n_ss, k_ss = 10_000, 8
+    g_ss, _ = graphs.sparse_sbm_graph(n_ss, 10, avg_degree_in=10.0,
+                                      avg_degree_out=1.0, seed=0, device=dev)
+    cfg_w = warm.WarmConfig(tol=STREAM_TOL, chunk=10, max_steps=5000, lr=0.3)
+    store_s = gstore.from_edge_list(g_ss)
+    batches_s, churned_s = churn_batches(g_ss, 256)
+    reset_launch_counts()
+    store_s, _, op_cold = dilated(store_s)
+    gen_ss = torch.Generator(device=dev).manual_seed(0)
+    (state_ss, cold_ss), cold_ss_s = host_s(lambda: warm.reconverge(
+        gen_ss, op_cold, n_ss, k_ss, cfg_w))
+    stats_s = [0, 0, 0]
+    for b in batches_s:
+        store_s, _, st_b = gstore.apply_edge_batch(store_s, b)
+        stats_s = [a + int(x) for a, x in zip(stats_s, st_b)]
+    _, rows_ss_s = host_s(lambda: gstore.edge_rows(store_s))
+    store_s, c_ss, op_warm = dilated(store_s)
+    (warm_state_ss, warm_ss), warm_ss_s = host_s(lambda: warm.reconverge(
+        gen_ss, op_warm, n_ss, k_ss, cfg_w, v_prev=state_ss.v))
+    counts_stream_small = launch_counts()
+    errs_ss = held_to_plain("stream_small", store_s, c_ss, op_warm,
+                            warm_state_ss.v, cfg_w.lr)
+    # the residual the warm re-solve starts from (reconverge's info keeps
+    # only the final one)
+    warm_start_ss = float(metrics.operator_residual(
+        op_warm, solvers.init_from_panel(state_ss.v).v))
+    emit({"phase": "stream_small", "n": n_ss, "num_edges": g_ss.num_edges,
+          "capacity": store_s.capacity, "k": k_ss, "degree": STREAM_DEGREE,
+          "strength": STREAM_STRENGTH, "churned": churned_s,
+          "batches": len(batches_s), "matched_inserted_dropped": stats_s,
+          "cold_iterations": cold_ss["iterations"],
+          "cold_residual": cold_ss["residual"], "cold_s": cold_ss_s,
+          "warm": warm_ss["warm"], "warm_start_residual": warm_start_ss,
+          "warm_iterations": warm_ss["iterations"],
+          "warm_residual": warm_ss["residual"], "warm_s": warm_ss_s,
+          "iteration_ratio": cold_ss["iterations"] / max(warm_ss["iterations"],
+                                                        cfg_w.chunk),
+          "row_csr_rebuild_host_s": rows_ss_s, "max_abs_err": errs_ss,
+          "apply_b256_ms": cuda_ms(lambda: gstore.apply_edge_batch(
+              store_s, batches_s[0]), 20),
+          "launches": counts_stream_small})
+    if not (warm_ss["residual"] <= STREAM_TOL
+            and warm_ss["iterations"] < cold_ss["iterations"]):
+        raise AssertionError(f"stream_small: warm {warm_ss} vs cold {cold_ss}")
+    del store_s, state_ss, warm_state_ss, op_cold, op_warm
+
+    # ---- 13. streaming state at full width (2^20 nodes, capacity 2^24) -----
+    store_f, admit_s = host_s(lambda: gstore.from_edge_list(g))
+    batches_f, churned_f = churn_batches(g, 4096)
+    b256 = gstore.coalesce_batch(
+        np.stack([batches_f[0].src[:256].cpu().numpy(),
+                  batches_f[0].dst[:256].cpu().numpy()], 1),
+        np.zeros(256), pad_to=256, device=dev)
+    apply_ms = {bsz: cuda_ms(lambda: gstore.apply_edge_batch(store_f, b), 10)
+                for bsz, b in ((256, b256), (4096, batches_f[0]))}
+    sync()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    applied = gstore.apply_edge_batch(store_f, batches_f[0])
+    sync()
+    apply_peak = torch.cuda.max_memory_allocated() - base_bytes
+    del applied
+    dirty, dw256, _ = gstore.apply_edge_batch(store_f, b256)
+    if not apply_peak < APPLY_PEAK_BYTES:
+        raise AssertionError(f"one apply at capacity {store_f.capacity} took "
+                             f"{apply_peak} bytes")
+    refresh_ms = cuda_ms(lambda: gstore.refresh_degrees(dirty), 10)
+    rebuild_ms = cuda_ms(lambda: es_ops.build_edge_rows(
+        store_f.src, store_f.dst, store_f.weight, n), 5)
+    store_f, c_f, dil = dilated(store_f)
+    _, c_half, dil_half = dilated(store_f, 0.5)
+    v_f = panel(n, k, 9)
+    out_c = [dil(v_f), dil_half(v_f)]
+    dil_err, dil_tol = compare(
+        "dilated operator (K2 graph vs segment)", lambda: dil(v_f),
+        lambda: operators.dilated_operator_arrays(
+            store_f.src, store_f.dst, store_f.weight, c_f, STREAM_DEGREE,
+            backend="segment")(v_f))
+    compare("dilated operator at c / 2 (K2 graph vs segment)",
+            lambda: dil_half(v_f),
+            lambda: operators.dilated_operator_arrays(
+                store_f.src, store_f.dst, store_f.weight, c_half, STREAM_DEGREE,
+                backend="segment")(v_f))
+    c_gap = float((out_c[0] - out_c[1]).abs().max())
+    if not c_gap > 0:
+        raise AssertionError("the dilated operator gives one answer at two c")
+    dil_ms = cuda_ms(lambda: dil(v_f), 10)
+    est_f = updates.anchor_estimate(gstore.fused_step(store_f), v_f)
+    fou_ms = cuda_ms(lambda: updates.first_order_update(
+        est_f, b256.src, b256.dst, dw256), 10)
+    drift_f = float(updates.first_order_update(est_f, b256.src, b256.dst,
+                                               dw256).drift)
+    cfg_f = warm.WarmConfig(tol=STREAM_TOL, chunk=10, max_steps=200, lr=0.3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    _, _, op_cf = dilated(store_f)
+    gen_f = torch.Generator(device=dev).manual_seed(0)
+    (state_f, cold_f), cold_f_s = host_s(lambda: warm.reconverge(
+        gen_f, op_cf, n, k, cfg_f))
+    apply_f_s = 0.0
+    for b in batches_f:
+        (store_f, _, _), s_b = host_s(lambda: gstore.apply_edge_batch(store_f, b))
+        apply_f_s += s_b
+    store_f, _, op_wf = dilated(store_f)
+    (_, warm_f), warm_f_s = host_s(lambda: warm.reconverge(
+        gen_f, op_wf, n, k, cfg_f, v_prev=state_f.v))
+    counts_stream_full = launch_counts()
+    warm_start_f = float(metrics.operator_residual(
+        op_wf, solvers.init_from_panel(state_f.v).v))
+    peak_stream = torch.cuda.max_memory_allocated()
+    emb_f = state_f.v / torch.clamp(torch.linalg.vector_norm(
+        state_f.v, dim=1, keepdim=True), min=1e-12)
+    labels_1 = km.kmeans(torch.Generator(device=dev).manual_seed(1), emb_f, 8).labels
+    labels_2 = km.kmeans(torch.Generator(device=dev).manual_seed(2), emb_f, 8).labels
+    tracker = tracking.LabelTracker(8)
+    tracker.update(labels_1)
+    stable, track_s = host_s(lambda: tracker.update(labels_2))
+    emit({"phase": "stream_full", "n": n, "num_edges": g.num_edges,
+          "capacity": store_f.capacity, "k": k, "degree": STREAM_DEGREE,
+          "strength": STREAM_STRENGTH, "admit_s": admit_s,
+          "apply_b256_ms": apply_ms[256], "apply_b4096_ms": apply_ms[4096],
+          "apply_peak_bytes": apply_peak, "refresh_degrees_ms": refresh_ms,
+          "row_csr_rebuild_ms": rebuild_ms, "dilated_operator_ms": dil_ms,
+          "dilated_max_abs_err": dil_err, "dilated_tolerance": dil_tol,
+          "dilated_two_c_max_abs_diff": c_gap,
+          "first_order_update_b256_ms": fou_ms, "first_order_drift": drift_f,
+          "cold_iterations": cold_f["iterations"],
+          "cold_residual": cold_f["residual"], "cold_s": cold_f_s,
+          "churned": churned_f, "churn_batches": len(batches_f),
+          "churn_apply_host_s": apply_f_s, "warm": warm_f["warm"],
+          "warm_start_residual": warm_start_f,
+          "warm_iterations": warm_f["iterations"],
+          "warm_residual": warm_f["residual"], "warm_s": warm_f_s,
+          "max_memory_allocated": peak_stream,
+          "label_tracker_s": track_s,
+          "label_churn_after_matching": tracking.label_churn(labels_1, stable),
+          "label_churn_raw": tracking.label_churn(labels_1, labels_2),
+          "launches": counts_stream_full})
+    if not (np.isfinite(warm_f["residual"]) and np.isfinite(cold_f["residual"])):
+        raise AssertionError(f"stream_full residuals {cold_f} / {warm_f}")
+    for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_stream_full[name] <= 0:
+            raise AssertionError(f"stream_full launched no {name}")
+    del store_f, dil, dil_half, out_c, est_f, state_f, op_cf, op_wf
+
+    # ---- 14. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
-                 counts_walks)
+                 counts_walks, counts_baselines, counts_stream_small,
+                 counts_stream_full)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

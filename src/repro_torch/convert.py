@@ -19,6 +19,8 @@ from repro_torch.core.walks import WalkBatch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.spectral.probes import ProbeResult
+from repro_torch.stream.graph_store import EdgeBatch, GraphStore
+from repro_torch.stream.updates import EigenEstimate
 
 _BACKEND_NAMES = {"pallas": "kernel"}
 
@@ -100,6 +102,34 @@ def probe_result_from_numpy(ritz, weights, lambda_max, trace, n,
         trace=_tensor(trace, np.float32, dev),
         n=_tensor(n, np.float32, dev),
         num_matvecs=_tensor(num_matvecs, np.int32, dev))
+
+
+def graph_store_from_numpy(src, dst, weight, deg, deg_dirty, num_nodes: int,
+                           device=None) -> GraphStore:
+    """A GraphStore from the JAX package's buffers (``deg_dirty`` its
+    0-dim bool); the row-CSR cache starts empty."""
+    dev = resolve_device(device)
+    return GraphStore(
+        src=_tensor(src, np.int32, dev), dst=_tensor(dst, np.int32, dev),
+        weight=_tensor(weight, np.float32, dev),
+        deg=_tensor(deg, np.float32, dev), deg_dirty=bool(np.asarray(deg_dirty)),
+        num_nodes=int(num_nodes))
+
+
+def edge_batch_from_numpy(src, dst, weight, device=None) -> EdgeBatch:
+    """An EdgeBatch from the JAX package's (canonical, padded) arrays."""
+    dev = resolve_device(device)
+    return EdgeBatch(src=_tensor(src, np.int32, dev),
+                     dst=_tensor(dst, np.int32, dev),
+                     weight=_tensor(weight, np.float32, dev))
+
+
+def eigen_estimate_from_numpy(lam, v, drift, device=None) -> EigenEstimate:
+    """An EigenEstimate from the JAX package's (lam, v, drift)."""
+    dev = resolve_device(device)
+    return EigenEstimate(lam=_tensor(lam, np.float32, dev),
+                         v=_tensor(v, np.float32, dev),
+                         drift=_tensor(drift, np.float32, dev))
 
 
 def solver_state_from_numpy(v, step, device=None) -> SolverState:

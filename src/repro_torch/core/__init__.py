@@ -8,10 +8,12 @@ from repro_torch.core.laplacian import (  # noqa: F401
     degrees,
     edge_inner_product,
     edge_matvec_arrays,
+    incidence_matrix,
     laplacian_dense,
     laplacian_matvec,
     make_edge_list,
     minibatch_laplacian_matvec,
+    normalized_laplacian_dense,
     pad_edge_list,
     spectral_radius_upper_bound,
 )

@@ -75,13 +75,33 @@ def fused_step_fn(g: lap.EdgeList, backend: str = "auto") -> FusedStep | None:
     """
     if resolve_backend(backend, g.device) == "segment":
         return None
-    rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, g.num_nodes)
-    spmm = (es_ops.edge_spmm_rows if g.num_nodes <= ONE_HOT_NODE_LIMIT
+    return buffers_fused_step(g.src, g.dst, g.weight, g.num_nodes, "kernel")
+
+
+def rows_fused_step(rows: es_ops.EdgeRows) -> FusedStep:
+    """fused_step(u, alpha, beta) over a built row CSR: K1 for
+    n <= ``ONE_HOT_NODE_LIMIT``, K2 past it (the plain twin for a CPU
+    panel)."""
+    n = rows.row_ptr.shape[0] - 1
+    spmm = (es_ops.edge_spmm_rows if n <= ONE_HOT_NODE_LIMIT
             else es_ops.edge_spmm_rows_nb)
 
     def fused(u, alpha, beta):
         return spmm(rows, u, alpha=alpha, beta=beta)
     return fused
+
+
+def buffers_fused_step(src: torch.Tensor, dst: torch.Tensor,
+                       weight: torch.Tensor, num_nodes: int,
+                       backend: str = "auto") -> FusedStep:
+    """fused_step(u, alpha, beta) = alpha * L u + beta * u over raw
+    (capacity-padded) edge buffers.  Segment runs the plain edge matvec;
+    the kernel path builds the buffers' row CSR here, on the card (free
+    slots sort past the last row), and launches K1/K2 over it."""
+    if resolve_backend(backend, src.device) == "segment":
+        return lambda u, alpha, beta: (
+            alpha * lap.edge_matvec_arrays(src, dst, weight, u) + beta * u)
+    return rows_fused_step(es_ops.build_edge_rows(src, dst, weight, num_nodes))
 
 
 def laplacian_matvec_fn(g: lap.EdgeList, backend: str = "auto") -> MatVec:

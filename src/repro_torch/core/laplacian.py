@@ -70,6 +70,18 @@ def pad_edge_list(g: EdgeList, capacity: int) -> EdgeList:
     )
 
 
+def incidence_matrix(g: EdgeList) -> torch.Tensor:
+    """Dense incidence matrix X (E x N): +1 at src, -1 at dst (written
+    second, so a self loop's row holds a single -1, as in the JAX
+    package)."""
+    rows = torch.arange(g.num_edges, device=g.device)
+    x = torch.zeros((g.num_edges, g.num_nodes), dtype=torch.float32,
+                    device=g.device)
+    x[rows, g.src.long()] = 1.0
+    x[rows, g.dst.long()] = -1.0
+    return x
+
+
 def adjacency_dense(g: EdgeList) -> torch.Tensor:
     n = g.num_nodes
     a = torch.zeros((n * n,), dtype=torch.float32, device=g.device)
@@ -90,6 +102,17 @@ def laplacian_dense(g: EdgeList) -> torch.Tensor:
     """L = D - A, symmetric PSD."""
     a = adjacency_dense(g)
     return torch.diag(a.sum(dim=1)) - a
+
+
+def normalized_laplacian_dense(g: EdgeList, eps: float = 1e-12) -> torch.Tensor:
+    """I - D^-1/2 A D^-1/2; isolated nodes keep a zero row and column of
+    D^-1/2 A D^-1/2."""
+    a = adjacency_dense(g)
+    d = a.sum(dim=1)
+    inv_sqrt = torch.where(d > 0, torch.rsqrt(torch.clamp(d, min=eps)),
+                           torch.zeros_like(d))
+    return (torch.eye(g.num_nodes, device=g.device)
+            - (inv_sqrt[:, None] * a) * inv_sqrt[None, :])
 
 
 def edge_matvec_arrays(src: torch.Tensor, dst: torch.Tensor,

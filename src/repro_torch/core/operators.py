@@ -7,8 +7,10 @@ consume.  Every constructor takes ``backend`` (see
 :mod:`repro_torch.core.backend`).  On the kernel backend the exact-edges
 operator is a :class:`CapturedOperator`: its ``degree`` kernel launches
 are captured once as a CUDA graph and replayed, the port's counterpart of
-the JAX package's jitted series.  The stochastic minibatch operator
-runs eagerly: a replayed graph would repeat its captured draw.
+the JAX package's jitted series; so is the dilated operator of a
+streaming session, ``(I - c L)^degree`` on raw edge buffers.  The
+stochastic minibatch operator runs eagerly: a replayed graph would
+repeat its captured draw.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import laplacian as lap
+from repro_torch.core import metrics
 from repro_torch.core.series import SpectralSeries
 from repro_torch.kernels.edge_spmm import ops as es_ops
 
@@ -84,6 +87,70 @@ def dense_matvec(l_mat: torch.Tensor) -> MatVec:
     return lambda v: l_mat @ v
 
 
+def dilated_step_operator(fused: backend_mod.FusedStep, c, degree: int,
+                          capture: bool = False) -> MatVec:
+    """``V -> (I - c L)^degree V``, each factor ``u - c L u`` one fused
+    step (alpha = -c, beta = 1): one K1/K2 launch on the kernel path.
+    ``capture`` replays the ``degree`` launches as one CUDA graph per
+    panel shape (:class:`CapturedOperator`, when ``degree`` > 1).  K1/K2
+    take alpha by value and a graph replays the c it was captured at, so
+    c and degree are fixed here: an operator at another c is another
+    operator, with graphs of its own."""
+    c, degree = float(c), int(degree)
+
+    def fn(v: torch.Tensor) -> torch.Tensor:
+        u = v
+        for _ in range(degree):
+            u = fused(u, -c, 1.0)
+        return u
+
+    return CapturedOperator(fn) if capture and degree > 1 else fn
+
+
+def dilated_operator_arrays(src: torch.Tensor, dst: torch.Tensor,
+                            w: torch.Tensor, c, degree: int,
+                            backend: str = "auto") -> MatVec:
+    """``V -> (I - c L)^degree V`` on raw (capacity-padded) edge buffers:
+    the dilated reversed operator of one streaming session (the paper's
+    limit_neg_exp series with lambda* = 0, unit-normalized).
+
+    Segment runs ``degree`` plain edge matvecs.  The kernel path builds
+    the buffers' row CSR at the first call (the panel gives n; free slots
+    sort past the last row) and replays its ``degree`` K1/K2 launches as
+    a CUDA graph.  A streaming session that keeps a :class:`GraphStore`
+    runs :func:`dilated_step_operator` over
+    ``stream.graph_store.fused_step(store)`` instead, whose row CSR is
+    cached on the store.
+    """
+    kind = backend_mod.resolve_backend(backend, src.device)
+    built: list[MatVec] = []
+
+    def opv(v: torch.Tensor) -> torch.Tensor:
+        if not built:
+            built.append(dilated_step_operator(
+                backend_mod.buffers_fused_step(src, dst, w, v.shape[0], kind),
+                c, degree, capture=kind == "kernel"))
+        return built[0](v)
+    return opv
+
+
+def dilated_matvec_arrays(src, dst, w, v: torch.Tensor, c, degree: int,
+                          backend: str = "auto") -> torch.Tensor:
+    """One application of :func:`dilated_operator_arrays`.  A one-shot
+    call captures nothing: the kernel path builds the row CSR and
+    launches its ``degree`` K1/K2 steps eagerly."""
+    fused = backend_mod.buffers_fused_step(src, dst, w, v.shape[0], backend)
+    return dilated_step_operator(fused, c, degree)(v)
+
+
+def dilated_panel_residual(src, dst, w, v: torch.Tensor, c, degree: int,
+                           backend: str = "auto") -> torch.Tensor:
+    """Panel residual under the dilated reversed operator
+    (``metrics.operator_residual``), one application."""
+    return metrics.panel_residual(
+        v, dilated_matvec_arrays(src, dst, w, v, c, degree, backend))
+
+
 def edge_matvec(g: lap.EdgeList, backend: str = "auto") -> MatVec:
     """V -> L @ V on the selected backend."""
     return backend_mod.laplacian_matvec_fn(g, backend)
@@ -112,11 +179,16 @@ def edge_series_operator(g: lap.EdgeList, series: SpectralSeries,
     return CapturedOperator(op) if series.degree > 1 else op
 
 
-def exact_operator(series: SpectralSeries, l_mat: torch.Tensor) -> MatVec:
-    """Exact f(L) via eigh (the paper's 'exact' curves), from a series'
-    scalar map."""
+def exact_operator(series_or_transform, l_mat: torch.Tensor) -> MatVec:
+    """Exact f(L) via eigh (the paper's 'exact' curves), from a
+    SpectralSeries' scalar map or a ``transforms.Transform`` (reversed at
+    lambda*(lambda_max))."""
     lam, vecs = torch.linalg.eigh(l_mat)
-    f_lam = series.reversed_scalar(lam)
+    if isinstance(series_or_transform, SpectralSeries):
+        f_lam = series_or_transform.reversed_scalar(lam)
+    else:  # transforms.Transform
+        tf = series_or_transform
+        f_lam = tf.lambda_star(float(lam[-1])) - tf.scalar(lam)
     a = (vecs * f_lam[None, :]) @ vecs.T
     return lambda v: a @ v
 

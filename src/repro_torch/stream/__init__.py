@@ -1,0 +1,59 @@
+"""Streaming state of the port, below the service.
+
+graph_store
+    Mutable edge store: padded capacity classes (powers of two),
+    fixed-size batched insert/delete/reweight upserts looked up by sorted
+    key (O(capacity) per batch, no (B, capacity) match), lazy degrees,
+    a cached row CSR for K1/K2 (``edge_rows``) and the fused step over it
+    (``fused_step``), EdgeList views.
+warm
+    Warm-started solver sessions: the restart-vs-continue test by the old
+    panel's residual under the new operator, and the chunked
+    run-to-tolerance loop (``program.run_chunk``).
+updates
+    Dhanjal-style first-order incremental eigen-updates from realized
+    edge-weight deltas, with the drift bound that triggers a fallback to a
+    full warm re-solve.
+tracking
+    Stable cluster ids across re-solves: greedy maximum-overlap matching.
+
+The multi-tenant service of the JAX package (``service``) and its
+sharded ticks (``sharded``) are not ported yet.
+"""
+from repro_torch.stream.graph_store import (  # noqa: F401
+    CAPACITY_CLASSES,
+    BatchStats,
+    EdgeBatch,
+    GraphStore,
+    apply_edge_batch,
+    as_edge_list,
+    capacity_class,
+    coalesce_batch,
+    edge_rows,
+    from_edge_list,
+    fused_step,
+    grow,
+    make_edge_batch,
+    num_edges,
+    refresh_degrees,
+)
+from repro_torch.stream.tracking import (  # noqa: F401
+    LabelTracker,
+    label_churn,
+    match_labels,
+)
+from repro_torch.stream.updates import (  # noqa: F401
+    EigenEstimate,
+    UpdateConfig,
+    anchor_estimate,
+    anchor_estimate_arrays,
+    estimate_from_panel,
+    first_order_update,
+    should_fallback,
+)
+from repro_torch.stream.warm import (  # noqa: F401
+    WarmConfig,
+    reconverge,
+    run_to_tolerance,
+    warm_start_state,
+)

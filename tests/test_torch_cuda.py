@@ -522,3 +522,117 @@ def test_walks_spectral_cluster_on_the_card(dev):
     assert info["plan"] is None and counts["edge_spmm"] == 0
     assert counts["gram2k"] == counts["panel_mix"] == 600
     assert float(cluster_agreement(labels, truth, 4)) > 0.9
+
+
+# ---------------------------------------------------------------------------
+# streaming state (stream/) and the dilated operators
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [96, 8192])
+def test_dilated_operator_at_two_c_matches_plain(dev, n):
+    """Captured dilated operators at two c over one store (K1/K2 take alpha
+    by value, so c is fixed per operator): two different answers, each
+    the plain loop's at its c, each replay bitwise its eager run."""
+    from repro_torch.stream import graph_store as gs
+    g = _graph(11, n, 4 * n, dev, capacity=8 * n)
+    store = gs.from_edge_list(g)
+    store, rho = gs.spectral_radius_upper_bound(store)
+    fused = gs.fused_step(store)
+    name = "edge_spmm" if n <= backend.ONE_HOT_NODE_LIMIT else "edge_spmm_nb"
+    v = _panel(50, n, 6, dev)
+    outs = []
+    for c in (0.3 / float(rho), 0.6 / float(rho)):
+        op = operators.dilated_step_operator(fused, c, 7, capture=True)
+        assert isinstance(op, operators.CapturedOperator)
+        eager = operators.dilated_step_operator(fused, c, 7)(v)
+        plain = operators.dilated_operator_arrays(
+            store.src, store.dst, store.weight, c, 7, backend="segment")(v)
+        assert _rel_err(eager, plain) <= REL
+        reset_launch_counts()
+        got = op(v)
+        assert launch_counts()[name] == 7
+        torch.testing.assert_close(got, eager, atol=0, rtol=0)
+        torch.testing.assert_close(op(v), eager, atol=0, rtol=0)
+        assert len(op.graphs) == 1
+        outs.append(got)
+    assert float((outs[0] - outs[1]).abs().max()) > 1e-3
+    dil = operators.dilated_operator_arrays(store.src, store.dst, store.weight,
+                                            0.6 / float(rho), 7, backend="kernel")
+    torch.testing.assert_close(dil(v), outs[1], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["set", "add"])
+def test_apply_edge_batch_on_the_card_is_the_cpu_result(dev, mode):
+    from repro_torch.stream import graph_store as gs
+    rng = np.random.default_rng(12)
+    n, cap = 5000, 1 << 14
+    edges = rng.integers(0, n, size=(9000, 2))
+    edges = np.concatenate([edges[edges[:, 0] != edges[:, 1]], edges[:3]])  # dups
+    g_cpu = lap.make_edge_list(edges, n, device="cpu")
+    stores = {"cpu": gs.from_edge_list(g_cpu, capacity=cap),
+              "cuda": gs.from_edge_list(lap.make_edge_list(edges, n, device=dev),
+                                        capacity=cap)}
+    for step in range(6):
+        pairs = np.concatenate([edges[rng.choice(len(edges), 500)],
+                                rng.integers(0, n, size=(3000 * step, 2))])
+        ws = rng.choice([0.0, 1.0, 2.5, -1.0], size=len(pairs))
+        out = {}
+        for d, st in stores.items():
+            b = gs.coalesce_batch(pairs, np.abs(ws) if mode == "set" else ws,
+                                  mode=mode, pad_to=16384, device=d)
+            out[d] = gs.apply_edge_batch(st, b, mode=mode)
+        (_, dw_cpu, stats_cpu), (_, dw_card, stats_card) = out["cpu"], out["cuda"]
+        for want, got in zip((dw_cpu, *stats_cpu), (dw_card, *stats_card)):
+            torch.testing.assert_close(got.cpu(), want, atol=0, rtol=0)
+        stores = {d: o[0] for d, o in out.items()}
+        for f in ("src", "dst", "weight"):
+            torch.testing.assert_close(getattr(stores["cuda"], f).cpu(),
+                                       getattr(stores["cpu"], f), atol=0, rtol=0)
+    assert int(out["cuda"][2].dropped) > 0  # the last batches overflow
+
+
+def test_first_order_update_on_the_card_matches_cpu(dev):
+    from repro_torch.stream import graph_store as gs
+    from repro_torch.stream import updates
+    g = _graph(13, 6000, 30000, dev, capacity=65536)
+    store = gs.from_edge_list(g)
+    v = solvers.init_state(torch.Generator(device=dev).manual_seed(3), 6000, 8).v
+    reset_launch_counts()
+    est = updates.anchor_estimate(gs.fused_step(store), v)
+    assert launch_counts()["edge_spmm_nb"] == 1
+    est_cpu = updates.anchor_estimate_arrays(
+        store.src.cpu(), store.dst.cpu(), store.weight.cpu(), v.cpu())
+    for a, b in zip(est, est_cpu):
+        assert _rel_err(a, b.to(dev)) <= REL
+    rng = np.random.default_rng(14)
+    for _ in range(3):
+        src = rng.integers(0, 5999, 256)
+        dst = src + rng.integers(1, 6000 - src)
+        dw = (rng.normal(size=256) * 1e-3).astype(np.float32)
+        args = [torch.from_numpy(x) for x in (src, dst, dw)]
+        est = updates.first_order_update(est, *(a.to(dev) for a in args))
+        est_cpu = updates.first_order_update(est_cpu, *args)
+        for a, b in zip(est, est_cpu):
+            assert float((a.cpu() - b).abs().max()) <= 1e-5
+
+
+def test_warm_reconverge_on_the_card_runs_k2_k3_k4(dev):
+    from repro_torch.stream import graph_store as gs
+    from repro_torch.stream import warm
+    g, _ = graphs.sparse_sbm_graph(6000, 6, avg_degree_in=10, avg_degree_out=1,
+                                   seed=0, device=dev)
+    store, rho = gs.spectral_radius_upper_bound(gs.from_edge_list(g))
+    op = operators.dilated_step_operator(gs.fused_step(store),
+                                         8.0 / float(rho) / 15, 15, capture=True)
+    cfg = warm.WarmConfig(tol=5e-3, chunk=10, max_steps=3000, lr=0.3)
+    reset_launch_counts()
+    state, info = warm.reconverge(torch.Generator(device=dev).manual_seed(0), op,
+                                  6000, 6, cfg)
+    counts = launch_counts()
+    assert info["residual"] <= cfg.tol and not info["warm"]
+    assert counts["gram2k"] == counts["panel_mix"] == info["iterations"]
+    assert counts["edge_spmm_nb"] == 15 * (info["iterations"]
+                                           + info["iterations"] // 10 + 1)
+    _, info2 = warm.reconverge(torch.Generator(device=dev).manual_seed(1), op,
+                               6000, 6, cfg, v_prev=state.v)
+    assert info2["warm"] and info2["iterations"] < info["iterations"]

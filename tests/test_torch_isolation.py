@@ -17,6 +17,8 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import graphs, laplacian as lap, solvers
+from repro_torch.core.baselines import lanczos_bottom_k
+from repro_torch.stream.graph_store import make_edge_batch
 from repro_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -85,9 +87,15 @@ def test_resolve_device_default_raises_without_card(no_card):
     lambda: solvers.run_solver(lambda v: v, 4, solvers.SolverConfig(k=1, steps=1)),
     lambda: convert.edge_incidence_from_numpy(np.zeros((1, 1)), [1], np.ones((1, 1)), 1),
     lambda: convert.walk_batch_from_numpy([0], [[0]], [[1.0]], [[0.0]]),
+    lambda: convert.graph_store_from_numpy([0], [1], [1.0], [1.0, 1.0], False, 2),
+    lambda: convert.edge_batch_from_numpy([0], [1], [1.0]),
+    lambda: convert.eigen_estimate_from_numpy([0.0], [[1.0]], 0.0),
+    lambda: make_edge_batch([[0, 1]], [1.0]),
+    lambda: lanczos_bottom_k(lambda v: v, 4, 1),
 ], ids=["ring_of_cliques", "clique_graph", "make_edge_list", "edge_list_from_numpy",
         "solver_state_from_numpy", "run_solver", "edge_incidence_from_numpy",
-        "walk_batch_from_numpy"])
+        "walk_batch_from_numpy", "graph_store_from_numpy", "edge_batch_from_numpy",
+        "eigen_estimate_from_numpy", "make_edge_batch", "lanczos_bottom_k"])
 def test_entry_points_default_to_the_card(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
