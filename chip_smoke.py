@@ -60,7 +60,30 @@ outside a checkout.  Phases, one JSON line each:
              dilated operator at two c, first_order_update at B = 256, a cold
              solve and a warm re-solve after a 1 % churn (200 steps each),
              LabelTracker on the 2^20 labels of two k-means runs
-14. kernels - per kernel: launches on the main path (phases 3-13 but the
+14. service_small - bench_stream.py's mixed fleet through the
+             StreamingService (4 fast and 4 slow sbm_graph(200, 4) tenants,
+             its FLEET_CFG, edge capacity 8192): round_robin and
+             residual_decay to convergence, each group tick one program
+             replayed from CUDA graphs (K1 on the 8 x 256-row layout,
+             K3/K4 per member); ticks, invocations, device work, captures,
+             layout fills, wall, agreement; then a kernel tick held to the
+             segment tick (the plain twins) on the same inputs
+15. service_full - 4 tenants at full width: phase 4's graph under a
+             seeded node permutation each, weights x (1 + i/2), capacity
+             class 2^24, k = 10, the default degree budget and
+             steps_per_tick, round_robin ticks: admission (probe and plan)
+             per tenant, 3 ticks at occupancy 4 (K2 on the 4 x 2^20-row
+             layout) with an apply_updates of B = 4,096 to tenant 2 between
+             ticks 2 and 3; one group factor, a tenant's own factor and the
+             member steps timed apart;
+             ms per tick, launches per tick, the capture count before and
+             after the update, the layout fill, peak memory; every tenant's
+             replayed tick held to its own dilated operator and run_chunk,
+             K2 on the group layout held to its plain twin; then the split
+             a residual-decay tick makes: two sub-batches of occupancy 2
+             through one program in turn, each call a layout refill and a
+             replay (ms, fills, bitwise repeats)
+16. kernels - per kernel: launches on the main path (phases 3-15 but the
              checks, counts reset just before and read just after each),
              error, times and the bound of this run's inputs
 
@@ -70,6 +93,7 @@ TF32 off.  This script imports torch and the port, never JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -105,6 +129,16 @@ STREAM_STRENGTH = 8.0
 # 64 Lanczos steps over K2 vs over the segment matvec from one start
 # vector: the eigenvalue bar of tests/test_baselines.py
 LANCZOS_TOL = 1e-3
+# bench_stream.py's mixed fleet (FLEET_* and FLEET_CFG there): its bars
+# are "every tenant converged" and "max residual <= tol"
+FLEET_N = 200
+FLEET_FAST = 4  # sbm_graph(200, 4, p_in=0.35, p_out=0.01, seed=i)
+FLEET_SLOW = 4  # sbm_graph(200, 4, p_in=0.12, p_out=0.04, seed=100 + i)
+FLEET_CAPACITY = 8192
+# service_full: tenants, the update between ticks 2 and 3
+SERVICE_TENANTS = 4
+SERVICE_TICKS = 3
+SERVICE_UPDATE_B = 4096
 # one apply_edge_batch at capacity 2^24 must stay far under the (B, cap)
 # match of the JAX package (68.7 GB of bools at B = 4,096)
 APPLY_PEAK_BYTES = 3e9
@@ -168,8 +202,10 @@ def main() -> int:
     from repro_torch.core import kmeans as km
     from repro_torch.core import laplacian as lap
     from repro_torch.core import baselines, walks
+    from repro_torch.core import program
     from repro_torch.stream import graph_store as gstore
     from repro_torch.stream import tracking, updates, warm
+    from repro_torch.stream.service import ServiceConfig, StreamingService
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
     from repro_torch.kernels.edge_spmm import ops as es_ops
     from repro_torch.kernels.edge_spmm import ref as es_ref
@@ -1160,11 +1196,292 @@ def main() -> int:
             raise AssertionError(f"stream_full launched no {name}")
     del store_f, dil, dil_half, out_c, est_f, state_f, op_cf, op_wf
 
-    # ---- 14. kernel list -------------------------------------------------
+    # ---- 14. the streaming service: bench_stream.py's mixed fleet --------
+    fleet_cfg = ServiceConfig(k=6, num_clusters=4, degree=15, steps_per_tick=5,
+                              lr=0.3, tol=2e-3, dilation_strength=8.0,
+                              max_tick_multiplier=16, seed=0)
+    fleet = [(f"fast{i}", *graphs.sbm_graph(FLEET_N, 4, p_in=0.35, p_out=0.01,
+                                            seed=i, device=dev))
+             for i in range(FLEET_FAST)]
+    fleet += [(f"slow{i}", *graphs.sbm_graph(FLEET_N, 4, p_in=0.12,
+                                             p_out=0.04, seed=100 + i,
+                                             device=dev))
+              for i in range(FLEET_SLOW)]
+    fleet_runs = {}
+    reset_launch_counts()
+    for schedule in ("round_robin", "residual_decay"):
+        svc = StreamingService(dataclasses.replace(fleet_cfg,
+                                                   tick_schedule=schedule))
+        for sid, g_t, _ in fleet:
+            svc.add_graph(sid, g_t, edge_capacity=FLEET_CAPACITY)
+        ticks, wall = host_s(lambda: svc.run_until_converged(max_ticks=600))
+        residuals = {sid: svc.session_info(sid)["residual"]
+                     for sid, _, _ in fleet}
+        fleet_runs[schedule] = {
+            "service": svc, "ticks": ticks, "wall_s": wall,
+            "tick_invocations": svc.tick_invocations,
+            "device_work_steps": svc.device_work,
+            "multiplied_ticks": svc.multiplied_ticks,
+            "captures": sum(p.captures for p in svc._compiled.values()),
+            "programs": svc.compile_count,
+            "layout_fills": svc.layout_fills,
+            "ms_per_invocation": wall / max(svc.tick_invocations, 1) * 1e3,
+            "converged": svc.all_converged,
+            "max_residual": max(residuals.values()),
+            "degrees": sorted({key[1] for key, _ in svc._compiled})}
+    counts_service_small = launch_counts()
+    for schedule, run in fleet_runs.items():
+        svc = run.pop("service")
+        run["agreement"] = float(np.mean([
+            float(km.cluster_agreement(torch.from_numpy(svc.labels(sid)),
+                                       lab, fleet_cfg.num_clusters))
+            for sid, _, lab in fleet]))
+        if not (run["converged"] and run["max_residual"] <= fleet_cfg.tol):
+            raise AssertionError(f"service_small {schedule}: {run}")
+        if run["captures"] != run["programs"]:
+            raise AssertionError(f"service_small {schedule}: {run['captures']} "
+                                 f"captures for {run['programs']} programs")
+    # a kernel tick against the segment tick (the plain twins) on the same
+    # inputs: the admitted fleet's stores, panels, c and lr, budgets 1 and 2
+    svc = StreamingService(fleet_cfg)
+    for sid, g_t, _ in fleet:
+        svc.add_graph(sid, g_t, edge_capacity=FLEET_CAPACITY)
+    members = list(svc._sessions.values())
+    deg_f = svc._session_degree(members[0])
+    if any(svc._session_degree(m) != deg_f for m in members):
+        raise AssertionError("service_small: the fleet spans two degrees")
+    rows_f = [gstore.edge_rows(m.store) for m in members]
+    cs_f = [program.dilation_scale(m.plan, deg_f) for m in members]
+    vs_f = torch.stack([m.v for m in members])
+    lrs_f = [m.lr for m in members]
+    chunks_f = [1 + i % 2 for i in range(len(members))]
+    sched_f = program.StepSchedule(degree=deg_f, steps=fleet_cfg.steps_per_tick,
+                                   backend="kernel")
+    prog_f = program.build_tick_program(sched_f)
+    prog_f(rows_f, cs_f, vs_f, lrs_f, chunks_f)  # eager run and capture
+    seg_f = program.build_tick_program(
+        dataclasses.replace(sched_f, backend="segment"))
+    tick_errs = [compare(
+        f"service_small tick ({label}) vs segment",
+        lambda j=j: prog_f(rows_f, cs_f, vs_f, lrs_f, chunks_f)[j],
+        lambda j=j: seg_f(rows_f, cs_f, vs_f, lrs_f, chunks_f)[j])[0]
+        for j, label in enumerate(("panels", "residuals"))]
+    replay_ms = cuda_ms(lambda: prog_f(rows_f, cs_f, vs_f, lrs_f, chunks_f), 5)
+    emit({"phase": "service_small", "tenants": len(fleet), "n": FLEET_N,
+          "edge_capacity": FLEET_CAPACITY, "k": fleet_cfg.k,
+          "steps_per_tick": fleet_cfg.steps_per_tick, "degree": deg_f,
+          **fleet_runs,
+          "tick_invocations_rr_over_scheduled": (
+              fleet_runs["round_robin"]["tick_invocations"]
+              / max(fleet_runs["residual_decay"]["tick_invocations"], 1)),
+          "kernel_vs_segment_max_abs_err": tick_errs,
+          "replayed_tick_ms_budgets_1_2": replay_ms,
+          "launches": counts_service_small})
+    del svc, members, rows_f, vs_f, prog_f, seg_f
+
+    # ---- 15. the streaming service at full width ---------------------------
+    def tenant_graph(i):
+        """Phase 4's graph under a seeded node permutation, weights
+        x (1 + i/2): c differs per tenant, and rows of two tenants that
+        mix up show."""
+        perm = torch.randperm(n, generator=torch.Generator(device=dev)
+                              .manual_seed(1000 + i), device=dev)
+        s_t, d_t = perm[g.src.long()], perm[g.dst.long()]
+        return lap.EdgeList(torch.minimum(s_t, d_t).int(),
+                            torch.maximum(s_t, d_t).int(),
+                            g.weight * (1.0 + i / 2.0), n)
+
+    # round_robin keeps the 3 ticks at occupancy 4: the residual-decay
+    # scheduler may sub-batch tenants whose forecasts differ into smaller
+    # occupancies (programs of their own), which service_small drives
+    cfg_svc = ServiceConfig(k=k, num_clusters=8, tick_schedule="round_robin")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    svc = StreamingService(cfg_svc)
+    admit = []
+    for i in range(SERVICE_TENANTS):
+        g_t = tenant_graph(i)
+        _, admit_t = host_s(lambda: svc.add_graph(f"t{i}", g_t))
+        sess = svc._sessions[f"t{i}"]
+        admit.append({"seconds": admit_t, "family": sess.plan.family,
+                      "degree": sess.plan_degree, "rho": sess.rho,
+                      "rho_ub": sess.rho_ub, "tau": sess.tau, "lr": sess.lr,
+                      "edge_capacity": sess.store.capacity})
+        del g_t
+    rng_u = np.random.default_rng(5)
+    src2, dst2, _ = svc.live_edges("t2")
+    gone = rng_u.choice(len(src2), SERVICE_UPDATE_B // 2, replace=False)
+    upd_pairs = np.concatenate([
+        np.stack([src2[gone], dst2[gone]], 1),
+        rng_u.integers(0, n, size=(SERVICE_UPDATE_B // 2, 2))])
+    upd_w = np.concatenate([np.zeros(SERVICE_UPDATE_B // 2),
+                            np.ones(SERVICE_UPDATE_B // 2)])
+    del src2, dst2
+    tenants = [svc._sessions[f"t{i}"] for i in range(SERVICE_TENANTS)]
+    ticks_f, before_upd, check_in, check_out = [], None, None, None
+    reset_launch_counts()
+    for t in range(SERVICE_TICKS):
+        if t == 2:
+            before_upd = (svc.compile_count,
+                          sum(p.captures for p in svc._compiled.values()))
+            _, update_s = host_s(lambda: svc.apply_updates(
+                "t2", upd_pairs, upd_w))
+        if t == 1:  # the first replayed tick: every tenant is checked on it
+            check_in = [(s_.v, program.dilation_scale(
+                s_.plan, svc._session_degree(s_)), s_.lr, s_.store,
+                svc._session_degree(s_)) for s_ in tenants]
+        c_before = launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_t, tick_s = host_s(svc.tick)
+        end.record()
+        sync()
+        c_after = launch_counts()
+        ticks_f.append({
+            "ms": start.elapsed_time(end), "host_s": tick_s,
+            "invocations": svc.tick_invocations,
+            "multiplied_ticks": svc.multiplied_ticks,
+            "residuals": out_t,
+            "launches": {name: c_after[name] - c_before[name]
+                         for name in c_after}})
+        if t == 1:
+            check_out = [(s_.v, out_t[s_.sid]) for s_ in tenants]
+    counts_service_full = launch_counts()
+    after_upd = (svc.compile_count,
+                 sum(p.captures for p in svc._compiled.values()))
+    peak_service = torch.cuda.max_memory_allocated()
+    if before_upd != after_upd or after_upd != (1, 1):
+        raise AssertionError(f"service_full: programs/captures {before_upd} "
+                             f"before the update, {after_upd} after")
+    for t_rec in ticks_f:
+        if not (len(t_rec["residuals"]) == SERVICE_TENANTS and all(
+                np.isfinite(r) for r in t_rec["residuals"].values())):
+            raise AssertionError(f"service_full tick: {t_rec}")
+    for sid in svc.session_ids():
+        v_t = svc.panel(sid)
+        if not (v_t.shape == (n, k) and bool(torch.isfinite(v_t).all())):
+            raise AssertionError(f"service_full: {sid}'s panel is malformed")
+    # every tenant's replayed tick against its own dilated operator +
+    # run_chunk from the same panel, c and lr: a row offset or hub list
+    # that goes wrong for members past the first shows here
+    step_fn_f = solvers.make_step_fn("mu_eg", "kernel", dev)
+    tenant_errs, tenant_res_gaps = [], []
+    for i, ((v_in, c_i, lr_i, store_i, deg_i), (v_out, res_out)) in enumerate(
+            zip(check_in, check_out)):
+        op_i = operators.dilated_step_operator(gstore.fused_step(store_i), c_i,
+                                               deg_i, capture=True)
+        state_i, res_i = program.run_chunk(
+            op_i, step_fn_f, solvers.SolverState(v=v_in, step=torch.zeros(
+                (), dtype=torch.int32, device=dev)),
+            lr_i, cfg_svc.steps_per_tick)
+        tenant_errs.append(compare(f"service_full tenant {i} tick vs its own run",
+                                   lambda: v_out, lambda: state_i.v))
+        tenant_res_gaps.append(abs(float(res_i) - res_out))
+        if not tenant_res_gaps[-1] <= REL_TOL * float(res_i):
+            raise AssertionError(f"service_full tenant {i} residual {res_out} "
+                                 f"vs {float(res_i)}")
+        del op_i, state_i
+    # the pieces of a tick: the layout fill, one K2 factor on the group
+    # layout (4 x 2^20 rows; held to its plain twin on the same layout) and
+    # on tenant 0's own permuted row CSR, the four members' solver steps
+    # (K3, the k x k algebra, K4)
+    deg_0, c_0, store_0 = check_in[0][4], check_in[0][1], check_in[0][3]
+    member_rows = [gstore.edge_rows(m.store) for m in tenants]
+    member_cs = [program.dilation_scale(m.plan, deg_0) for m in tenants]
+    sync()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows_g = program.group_edge_rows(member_rows, member_cs)
+    sync()
+    layout_peak = torch.cuda.max_memory_allocated() - base_bytes
+    layout_ms = cuda_ms(lambda: program.group_edge_rows(
+        member_rows, member_cs, out=rows_g), 3)
+    vs_g = torch.stack([m.v for m in tenants])
+    fused_g = backend.rows_fused_step(rows_g)
+    group_factor_err, group_factor_tol = compare(
+        "service_full K2 on the group layout vs plain",
+        lambda: fused_g(vs_g.reshape(-1, k), -1.0, 1.0),
+        lambda: es_ref.edge_spmm_rows(rows_g.row_ptr, rows_g.other,
+                                      rows_g.weight, vs_g.reshape(-1, k),
+                                      -1.0, 1.0))
+    group_factor_ms = cuda_ms(
+        lambda: fused_g(vs_g.reshape(-1, k), -1.0, 1.0), 10)
+    group_factor_bound = bound(SERVICE_TENANTS * k2_bytes(g),
+                               SERVICE_TENANTS * (2 * g.num_edges * k * 2
+                                                  + 4 * n * k))[0]
+    fused_0 = gstore.fused_step(store_0)
+    tenant_factor_ms = cuda_ms(lambda: fused_0(vs_g[0], -c_0, 1.0), 10)
+    avs_g = fused_g(vs_g.reshape(-1, k), -1.0, 1.0).reshape(vs_g.shape)
+    lrs_g = torch.tensor([m.lr for m in tenants], device=dev)
+    member_steps_ms = cuda_ms(lambda: program._step_all(
+        step_fn_f, vs_g, avs_g, lrs_g), 10)
+    del rows_g, fused_g, avs_g
+    # the split a residual-decay tick makes when two halves of the group
+    # ride different budgets: two sub-batches of occupancy 2 through one
+    # program in turn, so every call refills the layout (A B A B A: the
+    # replays of one pair repeat bitwise)
+    prog_2 = program.build_tick_program(program.StepSchedule(
+        degree=deg_0, steps=cfg_svc.steps_per_tick, backend="kernel"))
+    pairs = [[0, 1], [2, 3]]
+    split_calls = []
+    for call in range(5):
+        idx = pairs[call % 2]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        sync()
+        start.record()
+        out_2 = prog_2([member_rows[i] for i in idx],
+                       [member_cs[i] for i in idx], vs_g[idx],
+                       [tenants[i].lr for i in idx], 1)
+        end.record()
+        sync()
+        split_calls.append((start.elapsed_time(end), out_2))
+    for a_, b_ in ((1, 3), (2, 4)):
+        for x, y in zip(split_calls[a_][1], split_calls[b_][1]):
+            if not torch.equal(x, y):
+                raise AssertionError("service_full split: a refilled replay "
+                                     "did not repeat its pair's answer")
+    if (prog_2.captures, prog_2.layout_fills) != (1, 5):
+        raise AssertionError(f"service_full split: {prog_2.captures} captures, "
+                             f"{prog_2.layout_fills} fills in 5 calls")
+    split = {"occupancy": 2, "calls": 5, "captures": prog_2.captures,
+             "layout_fills": prog_2.layout_fills,
+             "first_call_ms": split_calls[0][0],
+             "refill_and_replay_ms": [t_ for t_, _ in split_calls[1:]]}
+    del prog_2, split_calls, out_2, vs_g, member_rows
+    emit({"phase": "service_full", "tenants": SERVICE_TENANTS, "n": n,
+          "num_edges": g.num_edges, "k": k, "degree": deg_0,
+          "steps_per_tick": cfg_svc.steps_per_tick, "admission": admit,
+          "update_b": SERVICE_UPDATE_B, "update_s": update_s,
+          "ticks": ticks_f, "programs_captures_before_update": before_upd,
+          "programs_captures_after_update": after_upd,
+          "layout_fills": svc.layout_fills,
+          "group_layout_fill_ms": layout_ms,
+          "group_layout_fill_peak_bytes": layout_peak,
+          "group_factor_max_abs_err": group_factor_err,
+          "group_factor_tolerance": group_factor_tol,
+          "group_factor_ms": group_factor_ms,
+          "group_factor_bound_ms": group_factor_bound,
+          "tenant0_own_factor_ms": tenant_factor_ms,
+          "natural_order_factor_ms": kernels["edge_spmm_nb"]["ms"],
+          "member_steps_ms": member_steps_ms,
+          "tenant_max_abs_err": [e for e, _ in tenant_errs],
+          "tenant_tolerance": [t_ for _, t_ in tenant_errs],
+          "tenant_residual_gap": tenant_res_gaps, "split": split,
+          "max_memory_allocated": peak_service,
+          "launches": counts_service_full})
+    for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_service_full[name] <= 0:
+            raise AssertionError(f"service_full launched no {name}")
+    del svc, tenants, check_in, check_out
+
+    # ---- 16. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
-                 counts_stream_full)
+                 counts_stream_full, counts_service_small,
+                 counts_service_full)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

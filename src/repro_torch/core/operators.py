@@ -28,19 +28,54 @@ from repro_torch.kernels.edge_spmm import ops as es_ops
 MatVec = Callable[[torch.Tensor], torch.Tensor]
 
 
+def side_stream_call(fn: Callable[[], object], device: torch.device):
+    """Run ``fn()`` eagerly on a side stream and hand its result back to
+    the current one: the warm-up before a capture (it builds and loads
+    the kernel library, and gives the call's result)."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    for t in out if isinstance(out, tuple) else (out,):
+        t.record_stream(main)
+    return out
+
+
+def capture_graph(fn: Callable[[], object]
+                  ) -> tuple[torch.cuda.CUDAGraph, object, dict[str, int]]:
+    """Capture ``fn()`` as a new CUDA graph: (graph, fn's static output,
+    the kernel launches the graph holds).  The capture records launches
+    without running them, so the counts the wrappers added during it are
+    taken back; whoever replays the graph adds ``held``."""
+    graph = torch.cuda.CUDAGraph()
+    before = kernels.launch_counts()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+        held = {name: c - before[name]
+                for name, c in kernels.launch_counts().items()}
+    finally:
+        kernels.add_launch_counts(
+            {name: before[name] - c
+             for name, c in kernels.launch_counts().items()})
+    return graph, out, held
+
+
 class CapturedOperator:
     """A CUDA operator V -> fn(V) replayed from a CUDA graph.
 
     The first call for a (panel shape, dtype, device) runs ``fn`` eagerly
-    on a side stream (that builds and loads the kernel library and gives
-    the call's result), then captures one ``fn`` on a static input panel;
-    later calls copy V in, replay, and return a copy of the static output.
-    Allocations freed during the capture are reused within it from the
-    graph's private pool, so the graph holds a few panels, not one per
-    step.  A replay adds the kernel launches the graph holds to the
-    launch counts, so they read as the eager loop's would; the capture
-    itself launches nothing and counts nothing.  A call that cannot be
-    captured raises: there is no eager fallback.
+    on a side stream (:func:`side_stream_call`), then captures one ``fn``
+    on a static input panel (:func:`capture_graph`); later calls copy V
+    in, replay, and return a copy of the static output.  Allocations
+    freed during the capture are reused within it from the graph's
+    private pool, so the graph holds a few panels, not one per step.  A
+    replay adds the kernel launches the graph holds to the launch
+    counts, so they read as the eager loop's would; the capture itself
+    launches nothing and counts nothing.  A call that cannot be captured
+    raises: there is no eager fallback.
     """
 
     def __init__(self, fn: MatVec):
@@ -52,35 +87,16 @@ class CapturedOperator:
             raise ValueError(f"CapturedOperator runs CUDA panels, got {v.device}")
         key = (tuple(v.shape), v.dtype, v.device)
         if key not in self.graphs:
-            return self._capture(key, v)
+            out = side_stream_call(lambda: self.fn(v), v.device)
+            static_in = v.clone(memory_format=torch.contiguous_format)
+            graph, static_out, held = capture_graph(lambda: self.fn(static_in))
+            self.graphs[key] = (graph, static_in, static_out, held)
+            return out
         graph, static_in, static_out, held = self.graphs[key]
         static_in.copy_(v)
         graph.replay()
         kernels.add_launch_counts(held)
         return static_out.clone()
-
-    def _capture(self, key: tuple, v: torch.Tensor) -> torch.Tensor:
-        main = torch.cuda.current_stream(v.device)
-        side = torch.cuda.Stream(device=v.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = self.fn(v)
-        main.wait_stream(side)
-        out.record_stream(main)
-        static_in = v.clone(memory_format=torch.contiguous_format)
-        graph = torch.cuda.CUDAGraph()
-        before = kernels.launch_counts()
-        try:
-            with torch.cuda.graph(graph):
-                static_out = self.fn(static_in)
-            held = {name: c - before[name]
-                    for name, c in kernels.launch_counts().items()}
-        finally:  # the wrappers counted launches the capture only recorded
-            kernels.add_launch_counts(
-                {name: before[name] - c
-                 for name, c in kernels.launch_counts().items()})
-        self.graphs[key] = (graph, static_in, static_out, held)
-        return out
 
 
 def dense_matvec(l_mat: torch.Tensor) -> MatVec:

@@ -1,21 +1,158 @@
-"""The single-panel solve loop.
+"""Solve programs: the single-panel loops and the batched group tick.
 
 :func:`apply_solver_step` is THE one place a mu-EG/Oja solver step is
-built; :func:`run_chunk` and :func:`run_program` (the engine of
-``solvers.run_solver``) are plain Python loops over it.  Trace metrics
-stay on the device and are stacked at the end, so the loop never waits
-on the card.
+built.  On it stand:
+
+* the single-panel loops :func:`run_chunk` and :func:`run_program` (the
+  engine of ``solvers.run_solver``), plain Python loops whose trace
+  metrics stay on the device, so the loop never waits on the card;
+* the batched tick of a streaming session group (:class:`TickProgram`,
+  built by :func:`build_tick_program`): ``chunks x steps`` dilated
+  solver steps for every member, then one residual evaluation.  The
+  group's dilated operator runs on ONE block-diagonal row CSR
+  (:func:`group_edge_rows`, filled from the members' own row CSRs by
+  copies): member i's nodes sit at rows ``[i * node_cap, (i + 1) *
+  node_cap)`` and its weights are pre-scaled by its dilation scale c_i,
+  which is exact since ``c L(w) = L(c w)``.
+  Each factor ``u - c_i L_i u`` of every member is then one K1/K2 launch
+  for the whole group at ``alpha = -1, beta = 1``, and the solver step
+  runs K3/K4 per member over row-slice views of the stacked panel.  On
+  the card the tick is replayed from CUDA graphs captured at its first
+  call: the per-session c lives in the layout's weights, which the
+  program owns and refills in place, and the per-session lr in a device
+  tensor, so a re-plan refills buffers and captures nothing new;
+* the schedule helpers (:class:`StepSchedule`, :func:`session_lr`,
+  :func:`dilation_scale`, :func:`schedule_degrees`) and the
+  residual-decay forecasts (:func:`contraction_rate`,
+  :func:`predicted_residual`, :func:`predicted_steps_to_tol`), host-side
+  copies of the JAX package's, equal float for float.
 """
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+import math
+import weakref
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.core import metrics, solvers
+from repro_torch.core import backend as backend_mod
+from repro_torch.core import metrics, operators, solvers
 from repro_torch.device import resolve_device
+from repro_torch.kernels import add_launch_counts
+from repro_torch.kernels.edge_spmm import ops as es_ops
+from repro_torch.kernels.edge_spmm import ref as es_ref
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# schedule
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StepSchedule:
+    """Hyperparameters of one solve-program invocation.
+
+    ``method`` / ``degree`` / ``steps`` / ``backend`` are the static
+    part (:attr:`statics`): a tick program is built per value, so
+    adaptive layers move them only on snapped grids (see
+    :func:`schedule_degrees`).  ``lr`` is advisory metadata for
+    SINGLE-PANEL callers (a plan-derived step size for
+    ``run_chunk``/``SolverConfig``); tick programs never read it, their
+    learning rates arrive as the per-session ``lrs`` input.
+    """
+
+    method: str = "mu_eg"  # "mu_eg" | "oja"
+    degree: int = 15  # dilation degree of the (I - c L)^degree operator
+    steps: int = 20  # solver steps per program invocation
+    lr: float = 0.3  # advisory: single-panel callers; ticks take lrs
+    backend: str = "auto"  # repro_torch.core.backend
+
+    @property
+    def statics(self) -> tuple:
+        """The program-key contribution of this schedule."""
+        return (self.method, self.degree, self.steps, self.backend)
+
+    @classmethod
+    def from_plan(cls, plan, *, steps: int, base_lr: float,
+                  method: str = "mu_eg", backend: str = "auto",
+                  max_degree: int | None = None,
+                  normalized: bool = True) -> "StepSchedule":
+        """Derive (lr, degree) from a :class:`DilationPlan`.
+
+        ``normalized=True`` is the tick-program form ``(I - c L)^degree``
+        whose TOP eigenvalue is 1 by construction (an identity plan runs
+        as degree 1 with ``c = 1/lambda_star``), so the lr is normalized
+        to the plan's WANTED-direction scale (:func:`session_lr`).
+        ``normalized=False`` keeps ``plan.suggested_lr`` verbatim for
+        callers driving the raw reversed operator ``lambda* I - S(L)``.
+        """
+        degree = 1 if plan.family == "identity" else int(plan.degree)
+        if max_degree is not None:
+            cap = max_degree if max_degree % 2 == 1 else max_degree - 1
+            degree = min(degree, max(cap, 1))
+        if normalized:
+            lr = session_lr(plan, base_lr)
+        else:
+            lr = plan.suggested_lr(base_lr)
+        return cls(method=method, degree=degree, steps=steps, lr=lr,
+                   backend=backend)
+
+
+def wanted_scale(plan) -> float:
+    """Transformed operator value of the slowest WANTED direction: the
+    factor by which a step size tuned for a unit-scale direction
+    under-steps it, the denominator of :func:`session_lr`."""
+    if plan.family == "identity":
+        lam_star = max(plan.lambda_star, 1e-30)
+        return max(1.0 - plan.lam_k / lam_star, 1e-3)
+    if plan.rho <= 0.0 or not math.isfinite(plan.rho):
+        return 1.0
+    return math.exp(-plan.tau * min(plan.lam_k, plan.rho) / plan.rho)
+
+
+# The top direction still sees operator value 1, so the wanted-scale lr
+# boost must stay inside the solver's stable step range.
+LR_BOOST_CAP = 2.0
+
+
+def session_lr(plan, base_lr: float, boost_cap: float = LR_BOOST_CAP
+               ) -> float:
+    """Plan-driven per-session step size for the unit-normalized tick
+    form: the base lr boosted by the inverse wanted-direction scale,
+    capped at ``boost_cap``."""
+    return base_lr * min(1.0 / max(wanted_scale(plan), 1e-3), boost_cap)
+
+
+def dilation_scale(plan, degree: int) -> float:
+    """Per-matvec scale ``c`` of the ``(I - c L)^degree`` form: the series
+    step ``tau / (rho * degree)`` of an exp-family plan; an identity plan
+    maps onto degree 1 with ``c = 1 / lambda_star``."""
+    if plan.family == "identity":
+        return 1.0 / max(plan.lambda_star, 1e-30)
+    return plan.scale / max(degree, 1)
+
+
+def schedule_degrees(max_degree: int) -> tuple[int, ...]:
+    """Every degree a plan-derived schedule may take under ``max_degree``:
+    the planner's snapped tau grid, the identity's degree 1 and the
+    budget's largest odd degree."""
+    from repro_torch.spectral import plan as plan_mod
+
+    degs = {1, plan_mod.MIN_DEGREE}
+    for t in plan_mod.TAU_GRID:
+        d = int(math.ceil(plan_mod.DEGREE_PER_TAU * t))
+        d = d if d % 2 == 1 else d + 1
+        degs.add(max(d, plan_mod.MIN_DEGREE))
+    degs.add(max(max_degree if max_degree % 2 == 1 else max_degree - 1, 1))
+    return tuple(sorted(d for d in degs if d <= max_degree))
+
+
+# ---------------------------------------------------------------------------
+# the solver step - THE single construction site
+# ---------------------------------------------------------------------------
 
 
 def apply_solver_step(step_fn, state: solvers.SolverState, av: torch.Tensor,
@@ -31,6 +168,10 @@ def apply_solver_step(step_fn, state: solvers.SolverState, av: torch.Tensor,
         return solvers.mu_eg_step_from_gram(state, av, gram, lr)
     return step_fn(state, av, lr)
 
+
+# ---------------------------------------------------------------------------
+# single-panel loops
+# ---------------------------------------------------------------------------
 
 def run_chunk(opv: MatVec, step_fn, state: solvers.SolverState, lr,
               steps: int) -> tuple[solvers.SolverState, torch.Tensor]:
@@ -79,3 +220,283 @@ def run_program(operator: MatVec | solvers.StochMatVec, n: int,
     return state, solvers.Trace(steps=torch.stack(steps),
                                 subspace_error=torch.stack(err),
                                 streak=torch.stack(streak))
+
+
+# ---------------------------------------------------------------------------
+# batched (session-group) tick
+# ---------------------------------------------------------------------------
+
+def group_edge_rows(member_rows: Sequence[es_ops.EdgeRows], cs,
+                    out: es_ops.EdgeRows | None = None) -> es_ops.EdgeRows:
+    """The block-diagonal row CSR of a session group, written into
+    ``out`` (or new tensors).
+
+    ``member_rows`` are the members' own row CSRs
+    (``graph_store.edge_rows``), all of one (node capacity n, slots S),
+    and ``cs`` their dilation scales.  Member i's rows become rows
+    ``[i n, (i + 1) n)``: its live entries are copied after those of the
+    members before it, with neighbours offset by ``i n`` and weights
+    times ``cs[i]``, and its hub rows, offset, join ONE ascending hub
+    list padded with ``G n`` (K1/K2 stop at the first sentinel).  The
+    result equals ``build_edge_rows`` of the block-diagonal c-scaled edge
+    list bitwise on the live entries and the hub list, without its sort:
+    a fill is copies only, plus one host read of every member's live and
+    hub counts.  The shapes depend only on (G, n, S)."""
+    g = len(member_rows)
+    n = member_rows[0].row_ptr.shape[0] - 1
+    slots = member_rows[0].other.shape[0]
+    dev = member_rows[0].row_ptr.device
+    if out is None:
+        hub_cap = min(g * n, g * slots // (es_ops.HUB_THRESHOLD + 1))
+        out = es_ops.EdgeRows(
+            row_ptr=torch.empty(g * n + 1, dtype=torch.int32, device=dev),
+            other=torch.empty(g * slots, dtype=torch.int32, device=dev),
+            weight=torch.empty(g * slots, dtype=torch.float32, device=dev),
+            hub_rows=torch.empty(hub_cap + 1, dtype=torch.int32, device=dev))
+    counts = torch.stack([torch.stack([r.row_ptr[n].long(),
+                                       (r.hub_rows < n).sum()])
+                          for r in member_rows]).tolist()
+    cs = torch.as_tensor(cs, dtype=torch.float32).to(dev)
+    live = hubs = 0
+    for i, (r, (nl, nh)) in enumerate(zip(member_rows, counts)):
+        torch.add(r.row_ptr[:n], live, out=out.row_ptr[i * n:(i + 1) * n])
+        torch.add(r.other[:nl], i * n, out=out.other[live:live + nl])
+        torch.mul(r.weight[:nl], cs[i], out=out.weight[live:live + nl])
+        torch.add(r.hub_rows[:nh], i * n, out=out.hub_rows[hubs:hubs + nh])
+        live, hubs = live + nl, hubs + nh
+    out.row_ptr[g * n:].fill_(live)
+    out.other[live:].zero_()
+    out.weight[live:].zero_()
+    out.hub_rows[hubs:].fill_(g * n)
+    return out
+
+
+def group_operator(rows: es_ops.EdgeRows, degree: int, kind: str) -> MatVec:
+    """(G, n, k) -> (G, n, k): every member's ``(I - c_i L_i)^degree``
+    over the group's c-scaled layout, each factor one fused step at
+    ``alpha = -1, beta = 1`` on the stacked (G n, k) panel.  ``kind``
+    "kernel" launches K1 (G n <= ``backend.ONE_HOT_NODE_LIMIT``) or K2;
+    "segment" runs their plain twin over the same rows, on any device."""
+    if kind == "kernel":
+        fused = backend_mod.rows_fused_step(rows)
+    else:
+        def fused(u, alpha, beta):
+            return es_ref.edge_spmm_rows(rows.row_ptr, rows.other,
+                                         rows.weight, u, alpha, beta)
+
+    def opv_all(vs: torch.Tensor) -> torch.Tensor:
+        g, n, k = vs.shape
+        u = vs.reshape(g * n, k)
+        for _ in range(degree):
+            u = fused(u, -1.0, 1.0)
+        return u.reshape(g, n, k)
+    return opv_all
+
+
+def _step_all(step_fn, vs: torch.Tensor, avs: torch.Tensor,
+              lrs: torch.Tensor) -> torch.Tensor:
+    """The solver step of every member (K3/K4 per member on the kernel
+    path, over row-slice views of the stacked panel); ``lrs[i]`` is a
+    device scalar, so a replayed graph reads the lr of its inputs.  The
+    tick reports no step counts, so each member steps from count 0."""
+    zero = torch.zeros((), dtype=torch.int32, device=vs.device)
+    return torch.stack([
+        apply_solver_step(step_fn, solvers.SolverState(v=vs[i], step=zero),
+                          avs[i], lrs[i]).v for i in range(vs.shape[0])])
+
+
+def _group_chunk(opv_all: MatVec, step_fn, vs, lrs, budget, steps: int):
+    """``steps`` solver steps of every member, then the freeze: a member
+    whose chunk budget is spent (``budget <= 0``) keeps its panel.
+    Returns (vs, budget - 1)."""
+    live = budget > 0
+    v = vs
+    for _ in range(steps):
+        v = _step_all(step_fn, v, opv_all(v), lrs)
+    return torch.where(live[:, None, None], v, vs), budget - 1
+
+
+def _group_residuals(opv_all: MatVec, vs: torch.Tensor) -> torch.Tensor:
+    """(G,) ``metrics.panel_residual`` of every member, one dilated
+    application of the group."""
+    avs = opv_all(vs)
+    return torch.stack([metrics.panel_residual(vs[i], avs[i])
+                        for i in range(vs.shape[0])])
+
+
+def _budgets(chunks, g: int, device) -> tuple[torch.Tensor, int]:
+    """(G,) int32 chunk budgets on ``device`` from a scalar or (G,)
+    ``chunks``, and their max (the chunks the program runs)."""
+    if isinstance(chunks, torch.Tensor):
+        chunks = chunks.cpu().numpy()
+    per = np.broadcast_to(np.asarray(chunks, np.int64), (g,)).copy()
+    return torch.as_tensor(per, dtype=torch.int32, device=device), int(per.max())
+
+
+class TickProgram:
+    """One batched tick of a session group: ``prog(member_rows, cs, vs,
+    lrs, chunks) -> (vs, res)``.
+
+    ``member_rows`` are the G slots' own row CSRs and ``cs`` their
+    dilation scales, ``vs`` the (G, n, k) stacked panels, ``lrs`` the
+    (G,) learning rates and ``chunks`` the residual-decay scheduler's
+    multiplier: a scalar, or a per-session (G,) budget.  Every member
+    runs ``chunks[i] * steps`` solver steps and then FREEZES under a
+    mask while its peers go on, up to ``max(chunks)`` chunks; one
+    dilated application then gives the (G,) panel residuals.
+
+    The program owns the group's layout: it fills it
+    (:func:`group_edge_rows`, c folded into the weights) in place and
+    only when a slot's row CSR or c differs from the last fill's
+    (``layout_fills`` counts the fills), so two sub-batches that share
+    the program refill it, by copies, each time they alternate.  On the
+    kernel path the first call runs eagerly (on a side stream) and
+    captures two CUDA graphs over the layout and static copies of the
+    other inputs: one chunk (``steps`` steps and the freeze) and the
+    residual evaluation.  Later calls copy their inputs in, replay the
+    chunk graph ``max(chunks)`` times and the evaluation once, and add
+    the launches the graphs hold to the counts.  Inputs of other shapes
+    raise: a program serves one (G, node capacity, slots, k).
+    ``captures`` counts the captures (at most one).  A segment program
+    runs the same loop eagerly over the plain twins.
+    """
+
+    def __init__(self, schedule: StepSchedule, device=None):
+        self.schedule = schedule
+        self.device = resolve_device(device)
+        self.kind = backend_mod.resolve_backend(schedule.backend, self.device)
+        self.step_fn = solvers.make_step_fn(schedule.method, self.kind,
+                                            self.device)
+        self.captures = 0
+        self.layout_fills = 0
+        self._layout: es_ops.EdgeRows | None = None
+        # per slot: (weak reference to its rows' weights, c) of the fill;
+        # weak, so the program keeps no evicted or replaced store alive
+        self._filled: list[tuple] = []
+        self._static = None
+
+    def _fill_layout(self, member_rows, cs) -> es_ops.EdgeRows:
+        cs = [float(c) for c in cs]
+        if len(member_rows) == len(self._filled) and all(
+                ref() is r.weight and c == fc
+                for r, c, (ref, fc) in zip(member_rows, cs, self._filled)):
+            return self._layout
+        if self._layout is not None:
+            g = len(self._filled)
+            got = (len(member_rows), member_rows[0].row_ptr.shape[0] - 1,
+                   member_rows[0].other.shape[0])
+            want = (g, (self._layout.row_ptr.shape[0] - 1) // g,
+                    self._layout.other.shape[0] // g)
+            if got != want:
+                raise ValueError(f"tick program: (G, n, slots) {got} != "
+                                 f"{want} of its layout")
+        self._layout = group_edge_rows(member_rows, cs, out=self._layout)
+        self._filled = [(weakref.ref(r.weight), c)
+                        for r, c in zip(member_rows, cs)]
+        self.layout_fills += 1
+        return self._layout
+
+    def _loop(self, rows, vs, lrs, budget, num_chunks: int):
+        opv_all = group_operator(rows, self.schedule.degree, self.kind)
+        for _ in range(num_chunks):
+            vs, budget = _group_chunk(opv_all, self.step_fn, vs, lrs, budget,
+                                      self.schedule.steps)
+        return vs, _group_residuals(opv_all, vs)
+
+    def __call__(self, member_rows: Sequence[es_ops.EdgeRows], cs,
+                 vs: torch.Tensor, lrs, chunks
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        rows = self._fill_layout(member_rows, cs)
+        budget, num_chunks = _budgets(chunks, vs.shape[0], vs.device)
+        lrs = torch.as_tensor(lrs, dtype=torch.float32, device=vs.device)
+        if self.kind == "segment":
+            return self._loop(rows, vs, lrs, budget, num_chunks)
+        if self._static is None:
+            return self._capture(rows, vs, lrs, budget, num_chunks)
+        return self._replay(vs, lrs, budget, num_chunks)
+
+    def _capture(self, rows, vs, lrs, budget, num_chunks):
+        out = operators.side_stream_call(
+            lambda: self._loop(rows, vs, lrs, budget, num_chunks), vs.device)
+        st = {"v": vs.clone(memory_format=torch.contiguous_format),
+              "lrs": lrs.clone(), "budget": budget.clone()}
+        opv_all = group_operator(rows, self.schedule.degree, "kernel")
+
+        def chunk():
+            v, left = _group_chunk(opv_all, self.step_fn, st["v"], st["lrs"],
+                                   st["budget"], self.schedule.steps)
+            st["v"].copy_(v)
+            st["budget"].copy_(left)
+
+        st["chunk"] = operators.capture_graph(chunk)
+        st["eval"] = operators.capture_graph(
+            lambda: _group_residuals(opv_all, st["v"]))
+        self._static = st
+        self.captures += 1
+        return out
+
+    def _replay(self, vs, lrs, budget, num_chunks):
+        st = self._static
+        if vs.shape != st["v"].shape:
+            raise ValueError(f"tick program: panels {tuple(vs.shape)} != "
+                             f"{tuple(st['v'].shape)} it was captured at")
+        st["v"].copy_(vs)
+        st["lrs"].copy_(lrs)
+        st["budget"].copy_(budget)
+        graph, _, held = st["chunk"]
+        for _ in range(num_chunks):
+            graph.replay()
+            add_launch_counts(held)
+        graph, res, held = st["eval"]
+        graph.replay()
+        add_launch_counts(held)
+        return st["v"].clone(), res.clone()
+
+
+def build_tick_program(schedule: StepSchedule, device=None, *, mesh=None,
+                       model_axes=None) -> TickProgram:
+    """One batched tick program for a session group on ``device``
+    (``None`` = the card): the kernel tick on CUDA, the segment tick on
+    the CPU (``schedule.backend="auto"``).  The streaming service keeps
+    one per (capacity class, degree, occupancy bucket); per-session c,
+    lr and chunk budgets are inputs, so the adaptive layer moves under
+    one program.  The sharded ticks (``mesh``, ``model_axes``) are
+    ROADMAP slice 7."""
+    if mesh is not None or model_axes is not None:
+        raise NotImplementedError(
+            "sharded tick programs (mesh / model_axes) are not ported yet: "
+            "ROADMAP slice 7")
+    return TickProgram(schedule, device)
+
+
+# ---------------------------------------------------------------------------
+# residual-decay forecasting (the adaptive scheduler's math)
+# ---------------------------------------------------------------------------
+
+def contraction_rate(res_prev: float, res: float,
+                     steps: int) -> float | None:
+    """Measured per-step residual decay ratio, or None when the pair of
+    observations carries no usable contraction signal (non-finite,
+    non-positive, zero steps, or not actually decaying)."""
+    if steps <= 0 or not (math.isfinite(res_prev) and math.isfinite(res)):
+        return None
+    if not (0.0 < res < res_prev):
+        return None
+    return (res / res_prev) ** (1.0 / steps)
+
+
+def predicted_residual(res: float, rate: float, steps: int) -> float:
+    """Forecast the panel residual after ``steps`` more solver steps."""
+    return res * rate ** steps
+
+
+def predicted_steps_to_tol(res: float, rate: float | None,
+                           tol: float) -> int:
+    """Predicted-contraction stopping: solver steps until the residual
+    is forecast to reach ``tol`` (0 when already there; a large sentinel
+    when the rate predicts no convergence)."""
+    if res <= tol:
+        return 0
+    if rate is None or not (0.0 < rate < 1.0):
+        return 1 << 30
+    return int(math.ceil(math.log(tol / res) / math.log(rate)))

@@ -15,10 +15,10 @@ import torch
 from repro_torch.core.laplacian import EdgeList
 
 
-def _step_seed(seed: int, step: int) -> int:
-    """A 64-bit generator seed mixed from (seed, step) by numpy's
+def mixed_seed(seed: int, index: int) -> int:
+    """A 64-bit generator seed mixed from (seed, index) by numpy's
     SeedSequence: distinct pairs give unrelated streams."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +36,7 @@ class EdgePipeline:
         g = self.graph
         if sel is None:
             gen = torch.Generator(device=g.device).manual_seed(
-                _step_seed(self.seed, step))
+                mixed_seed(self.seed, step))
             sel = torch.randint(0, g.num_edges, (self.batch_edges,),
                                 generator=gen, device=g.device)
         sel = torch.as_tensor(sel, device=g.device).long()

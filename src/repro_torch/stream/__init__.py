@@ -1,4 +1,14 @@
-"""Streaming state of the port, below the service.
+"""Streaming clustering of the port: the multi-tenant service and the
+state below it.
+
+service
+    The multi-tenant ``StreamingService``: admission with spectral
+    probes and dilation plans, edge updates with first-order eigen
+    updates and drift fallback, batched ticks of each (capacity class,
+    degree) group through one ``core.program.TickProgram`` (one K1/K2
+    launch per dilation factor for the whole group on the card,
+    replayed as CUDA graphs), the residual-decay tick scheduler, stable
+    labels, eviction and resume.
 
 graph_store
     Mutable edge store: padded capacity classes (powers of two),
@@ -17,8 +27,8 @@ updates
 tracking
     Stable cluster ids across re-solves: greedy maximum-overlap matching.
 
-The multi-tenant service of the JAX package (``service``) and its
-sharded ticks (``sharded``) are not ported yet.
+The JAX package's sharded ticks (``sharded``) are not ported yet
+(ROADMAP slice 7).
 """
 from repro_torch.stream.graph_store import (  # noqa: F401
     CAPACITY_CLASSES,
@@ -36,6 +46,13 @@ from repro_torch.stream.graph_store import (  # noqa: F401
     make_edge_batch,
     num_edges,
     refresh_degrees,
+)
+from repro_torch.stream.service import (  # noqa: F401
+    ServiceConfig,
+    StreamingService,
+    UnknownSessionError,
+    node_capacity_class,
+    panel_labels,
 )
 from repro_torch.stream.tracking import (  # noqa: F401
     LabelTracker,

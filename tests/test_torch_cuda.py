@@ -11,6 +11,8 @@ each row in registers in an order the layout fixes, K3/K4 in another
 order than the plain matmuls, so they agree with their twins to
 rounding, not bitwise; all four are bitwise equal from run to run.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -636,3 +638,140 @@ def test_warm_reconverge_on_the_card_runs_k2_k3_k4(dev):
     _, info2 = warm.reconverge(torch.Generator(device=dev).manual_seed(1), op,
                                6000, 6, cfg, v_prev=state.v)
     assert info2["warm"] and info2["iterations"] < info["iterations"]
+
+
+# ---------------------------------------------------------------------------
+# the streaming service's batched tick (core/program.py, stream/service.py)
+# ---------------------------------------------------------------------------
+
+def _tick_group(dev, n: int, cap: int):
+    """Four members of node capacity n in edge capacity cap, one of them a
+    power-law graph with hub rows, each with its own c and lr."""
+    from repro_torch.stream import graph_store as gs
+    members = [_graph(60 + i, n, 3 * n, dev) for i in range(3)]
+    members.insert(2, graphs.power_law_graph(n, avg_degree=6, alpha=2.0,
+                                             seed=3, device=dev))
+    stores = [gs.from_edge_list(g, capacity=cap) for g in members]
+    rhos = [float(gs.spectral_radius_upper_bound(s)[1]) for s in stores]
+    cs = [(1.5 + i) / r / 5 for i, r in enumerate(rhos)]
+    return stores, cs, [0.2, 0.3, 0.4, 0.5]
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_kernel_group_tick_matches_per_member_runs(dev, n):
+    """One group tick (K1 at 4 x 1024 rows, K2 at 4 x 4096) == each
+    member's own dilated operator and run_chunk on the card, from the
+    same panels at the same c and lr, with per-member chunk budgets; the
+    replay repeats bitwise, and the segment tick (the plain twins) agrees."""
+    from repro_torch.core import program
+    from repro_torch.stream import graph_store as gs
+    stores, cs, lrs = _tick_group(dev, n, 8 * n)
+    hubs = es_ops.build_edge_rows(stores[2].src, stores[2].dst,
+                                  stores[2].weight, n).hub_rows
+    assert int((hubs < n).sum()) > 0  # the power-law member has hub rows
+    vs = torch.stack([_panel(70 + i, n, 6, dev) for i in range(4)])
+    vs = torch.stack([solvers.init_from_panel(v).v for v in vs])
+    chunks = (2, 1, 2, 1)
+    rows = [gs.edge_rows(s) for s in stores]
+    sched = program.StepSchedule(degree=5, steps=3, backend="kernel")
+    prog = program.build_tick_program(sched, dev)
+    first = prog(rows, cs, vs, lrs, chunks)
+    reset_launch_counts()
+    second = prog(rows, cs, vs, lrs, chunks)
+    counts = launch_counts()
+    third = prog(rows, cs, vs, lrs, chunks)
+    assert prog.captures == 1 and prog.layout_fills == 1
+    name = "edge_spmm" if 4 * n <= backend.ONE_HOT_NODE_LIMIT else "edge_spmm_nb"
+    assert counts[name] == 5 * (3 * 2 + 1)
+    assert counts["gram2k"] == counts["panel_mix"] == 4 * 3 * 2
+    for a, b in zip(second, third):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    for a, b in zip(first, second):
+        assert _rel_err(b, a) <= REL
+    seg = program.build_tick_program(
+        dataclasses.replace(sched, backend="segment"), dev)(rows, cs, vs, lrs,
+                                                            chunks)
+    for a, b in zip(second, seg):
+        assert _rel_err(a, b) <= REL
+    step_fn = solvers.make_step_fn("mu_eg", "kernel", dev)
+    for i, st in enumerate(stores):
+        op = operators.dilated_step_operator(gs.fused_step(st), cs[i], 5,
+                                             capture=True)
+        state = solvers.SolverState(v=vs[i].clone(),
+                                    step=torch.zeros((), dtype=torch.int32,
+                                                     device=dev))
+        state, res = program.run_chunk(op, step_fn, state, lrs[i],
+                                       3 * chunks[i])
+        assert _rel_err(second[0][i], state.v) <= REL, i
+        assert abs(float(second[1][i]) - float(res)) <= REL, i
+
+
+def test_kernel_tick_refilled_between_groups_replays_their_answers(dev):
+    """One captured program serving two groups in turn (as two
+    sub-batches of one occupancy do): every call refills the layout in
+    place, captures nothing, and repeats bitwise the answer the program
+    gave that group before, which the segment tick confirms."""
+    from repro_torch.core import program
+    from repro_torch.stream import graph_store as gs
+    stores, cs, lrs = _tick_group(dev, 2048, 8 * 2048)
+    rows = [gs.edge_rows(s) for s in stores]
+    vs = torch.stack([solvers.init_from_panel(_panel(80 + i, 2048, 6, dev)).v
+                      for i in range(2)])
+    groups = [([rows[0], rows[2]], [cs[0], cs[2]]),
+              ([rows[1], rows[3]], [cs[1], cs[3]])]
+    sched = program.StepSchedule(degree=5, steps=3, backend="kernel")
+    prog = program.build_tick_program(sched, dev)
+    seg = program.build_tick_program(
+        dataclasses.replace(sched, backend="segment"), dev)
+    prog(*groups[0], vs, lrs[:2], (2, 1))  # eager run and capture
+    answers = {}
+    for i in (0, 1, 0, 1):
+        out = prog(*groups[i], vs, lrs[:2], (2, 1))
+        if i in answers:
+            for a, b in zip(out, answers[i]):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+        else:
+            answers[i] = out
+            for a, b in zip(out, seg(*groups[i], vs, lrs[:2], (2, 1))):
+                assert _rel_err(a, b) <= REL, i
+    assert prog.captures == 1 and prog.layout_fills == 4
+
+
+def test_service_captures_once_across_updates_replans_and_membership(dev):
+    """A kernel-path service at occupancy 4: an apply_updates, a re-plan
+    (new c and lr at the same degree) and a member leaving and
+    re-entering at the same occupancy each refill the group's layout
+    once and capture nothing new."""
+    from repro_torch.stream.service import ServiceConfig, StreamingService
+    cfg = ServiceConfig(k=4, num_clusters=3, degree=7, steps_per_tick=5,
+                        tol=1e-9, probe_spectrum=False,
+                        tick_schedule="round_robin")
+    svc = StreamingService(cfg, device=dev)
+    for i in range(4):
+        g, _ = graphs.sbm_graph(60, 3, p_in=0.4, p_out=0.02, seed=i, device=dev)
+        svc.add_graph(f"g{i}", g, num_clusters=3, edge_capacity=1024)
+    svc.tick()
+    svc.tick()
+
+    def captures():
+        return (svc.compile_count,
+                sum(p.captures for p in svc._compiled.values()))
+    assert captures() == (1, 1) and svc.layout_fills == 1
+    svc.apply_updates("g1", [[0, 30], [2, 45]], [1.0, 1.0])
+    svc.tick()
+    assert captures() == (1, 1) and svc.layout_fills == 2
+    sess = svc._sessions["g2"]
+    c_before = sess.plan.scale
+    svc._plan_session(sess, 0.8 * sess.rho, sess.rho_ub)
+    assert sess.plan.scale != c_before and sess.plan.degree == 7
+    out = svc.tick()
+    assert captures() == (1, 1) and np.isfinite(out["g2"])
+    assert svc.layout_fills == 3
+    panel = svc.evict("g3")["panel"]
+    g3, _ = graphs.sbm_graph(60, 3, p_in=0.4, p_out=0.02, seed=3, device=dev)
+    svc.add_graph("g3", g3, num_clusters=3, edge_capacity=1024,
+                  resume_panel=panel)
+    out = svc.tick()
+    assert captures() == (1, 1) and svc.layout_fills == 4
+    assert all(np.isfinite(r) for r in out.values()) and len(out) == 4
+    assert svc.tick_invocations == 5

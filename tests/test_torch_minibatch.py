@@ -38,6 +38,18 @@ STEPS_TOL = 1e-4
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One ATen thread for this module's many small-tensor ops: with the
+    suite's parallel workers on a shared CPU, a pool of threads per op
+    turned this module's seconds into minutes of contention.  Restored
+    after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _edges(seed: int, n: int, e: int):
     rng = np.random.default_rng(seed)
     edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], axis=1)

@@ -28,6 +28,18 @@ REL = 1e-5
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One ATen thread for this module's many small-tensor ops: with the
+    suite's parallel workers on a shared CPU, a pool of threads per op
+    turned this module's seconds into minutes of contention.  Restored
+    after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _loops_and_duplicates():
     """A graph with self-loops, duplicate and reversed duplicate edges."""
     edges = np.array([[0, 1], [1, 0], [0, 1], [2, 2], [1, 2], [3, 3], [2, 3],
