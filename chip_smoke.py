@@ -83,9 +83,33 @@ outside a checkout.  Phases, one JSON line each:
              a residual-decay tick makes: two sub-batches of occupancy 2
              through one program in turn, each call a layout refill and a
              replay (ms, fills, bitwise repeats)
-16. kernels - per kernel: launches on the main path (phases 3-15 but the
-             checks, counts reset just before and read just after each),
-             error, times and the bound of this run's inputs
+16. serve_small - benchmarks/bench_serve.py's load through the port's
+             Server (re-created here): 6 sbm_graph(120, 4) tenants run to
+             convergence, then 96 pushes of 8 intra-block edges per tenant
+             (a thread each) beside 2 query threads x 40, both pipelines
+             (serialized, double_buffer) to re-convergence with every
+             batch applied: walls and their ratio, p50/p99 per request
+             type, counters, programs and captures
+17. serve_http - bench_serve.http_smoke against python -m repro_torch.serve
+             on the card as a subprocess: a 60-node SBM admitted and
+             converged, 110 rounds of push, labels and summary, /metrics
+             (the child's kernel launches), worst non-admit p99 <= 3 s,
+             SIGTERM -> exit 0 and STOPPED; the child killed in a finally
+18. serve_full - a started Server over phase 15's 4 tenants (capacity 2^24,
+             k = 10, 8 clusters, round_robin): 4 pusher threads stage 8
+             batches of B = 4,096 "add" pairs per tenant, one per tick,
+             2 query threads read summary and labels from before the first
+             tick (capture included), flush, 2 more ticks, stop(): versions
+             monotone, labels of one version one byte string, every
+             tenant's live edges equal to a numpy reference, one capture
+             per program, the engine thread alive until stop(); ms per
+             tick, push/labels p50/p99, the flush wall, tick_utilization,
+             counters, the labels path split (k-means, copy, tracker),
+             the staging merge at B = 4,096, peak memory
+19. kernels - per kernel: launches on the main path (phases 3-18 but the
+             checks, counts reset just before and read just after each;
+             serve_http's from the child's /metrics, counted from its
+             start), error, times and the bound of this run's inputs
 
 The card's name and power limit are printed as nvidia-smi gives them, and
 the last line is {"ok": true, "device": {...}}.  Numbers are fp32 with
@@ -160,6 +184,30 @@ LMAX_SLACK = 0.05
 # gets the card test's 1e-3 (a wrong K1 scatter is off by far more)
 SLQ_TOL = 1e-3
 
+# bench_serve.py's load (its TENANTS, N_NODES, ROUNDS, BATCH_EDGES,
+# QUERY_THREADS, QUERIES_PER_THREAD and _service_cfg), re-created here
+SERVE_SMALL_TENANTS = 6
+SERVE_SMALL_N = 120
+SERVE_SMALL_ROUNDS = 96
+SERVE_SMALL_BATCH = 8
+SERVE_QUERY_THREADS = 2
+SERVE_SMALL_QUERIES = 40
+# bench_serve.http_smoke: the shell's flags, its 60-node SBM, 110 rounds of
+# push + labels + summary, and its bar on the worst non-admit p99
+SERVE_HTTP_ARGS = ("--num-clusters", "3", "--k", "4", "--degree", "7",
+                   "--steps-per-tick", "10")
+SERVE_HTTP_ROUNDS = 110
+SERVE_HTTP_P99_S = 3.0
+# serve_full: per tenant, 8 pushes of B = 4,096 new pairs in mode "add" at
+# weights k/64 (k in 1..8): every sum the store and the staging buffer
+# form is exact in fp32, so the live edges must equal the numpy
+# reference exactly; ticks the engine runs after the flush
+SERVE_FULL_PUSHES = 8
+SERVE_FULL_B = 4096
+SERVE_FULL_TAIL_TICKS = 2
+# every wait of the serve phases
+SERVE_TIMEOUT_S = 300.0
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -176,6 +224,489 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _latency(snap: dict) -> dict:
+    """count, p50, p99 and max (seconds) per request type of a
+    ``Server.stats()`` snapshot."""
+    return {op: {key: h[key] for key in ("count", "p50_s", "p99_s", "max_s")}
+            for op, h in snap["latency"].items()}
+
+
+def _join_all(threads, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(timeout=max(deadline - time.monotonic(), 0.0))
+    alive = [t.name for t in threads if t.is_alive()]
+    if alive:
+        raise AssertionError(f"threads still running after {timeout} s: {alive}")
+
+
+def _engine_alive(srv, phase: str) -> None:
+    """The server's engine thread is alive, and flush() drains."""
+    if not srv.running:
+        raise AssertionError(f"{phase}: the engine thread is not running")
+    if not srv.flush(timeout=SERVE_TIMEOUT_S):
+        raise AssertionError(f"{phase}: flush() timed out")
+    if not srv.running:
+        raise AssertionError(f"{phase}: the engine thread died in flush()")
+
+
+def _wait_for_ticks(srv, ticks: int, phase: str) -> None:
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    while srv.metrics.counter("ticks") < ticks:
+        if not srv.running:
+            raise AssertionError(f"{phase}: the engine thread died")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{phase}: no tick {ticks} in time")
+        time.sleep(0.005)
+
+
+def serve_small_phase(dev) -> dict:
+    """bench_serve.py's load through both pipelines: 6 sbm_graph(120, 4)
+    tenants admitted and run to convergence untimed, then 96 pushes of up
+    to 8 intra-block edges at weight 0.01 per tenant, a thread each,
+    beside 2 query threads of 40 summary + labels requests, until every
+    batch is applied and the fleet is back at tolerance: the wall."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core import graphs
+    from repro_torch.serve import Server, ServerConfig
+    from repro_torch.stream.service import ServiceConfig
+
+    cfg = ServiceConfig(k=6, num_clusters=4, degree=9, steps_per_tick=10,
+                        lr=0.3, tol=5e-3, dilation_strength=6.0, seed=0)
+    n = SERVE_SMALL_N
+    sids = [f"t{i}" for i in range(SERVE_SMALL_TENANTS)]
+    tenants, batches = {}, {}
+    for i, sid in enumerate(sids):
+        g, _ = graphs.sbm_graph(n, 4, p_in=0.3, p_out=0.02, seed=100 + i,
+                                device="cpu")
+        tenants[sid] = (torch.stack([g.src, g.dst], 1).numpy(), g.weight.numpy())
+        rng = np.random.default_rng(1000 + i)
+        batches[sid] = []
+        for _ in range(SERVE_SMALL_ROUNDS):
+            blk = rng.integers(4) * (n // 4)
+            e = np.stack([rng.integers(blk, blk + n // 4, SERVE_SMALL_BATCH),
+                          rng.integers(blk, blk + n // 4, SERVE_SMALL_BATCH)],
+                         axis=1)
+            e = e[e[:, 0] != e[:, 1]]
+            batches[sid].append((e, np.full(len(e), 0.01, np.float32)))
+    runs = {}
+    for pipeline in ("serialized", "double_buffer"):
+        phase = f"serve_small {pipeline}"
+        srv = Server(ServerConfig(service=cfg, pipeline=pipeline,
+                                  idle_sleep_s=0.001), device=dev)
+        srv.start()
+        for sid in sids:
+            edges, w = tenants[sid]
+            srv.admit(sid, edges, n, weights=w, num_clusters=4,
+                      edge_capacity=2048)
+        if not srv.wait_converged(timeout=SERVE_TIMEOUT_S):
+            raise AssertionError(f"{phase}: the warm-up did not converge")
+        errors = []
+
+        def pusher(sid):
+            try:
+                for e, w in batches[sid]:
+                    srv.push(sid, e, w, mode="add")
+            except Exception as exc:
+                errors.append(exc)
+
+        def querier(t):
+            try:
+                rng = np.random.default_rng(2000 + t)
+                for _ in range(SERVE_SMALL_QUERIES):
+                    sid = sids[rng.integers(len(sids))]
+                    srv.summary(sid)
+                    srv.labels(sid)
+            except Exception as exc:
+                errors.append(exc)
+
+        threads = ([threading.Thread(target=pusher, args=(sid,), daemon=True)
+                    for sid in sids]
+                   + [threading.Thread(target=querier, args=(t,), daemon=True)
+                      for t in range(SERVE_QUERY_THREADS)])
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        _join_all(threads, SERVE_TIMEOUT_S)
+        _engine_alive(srv, phase)
+        if not srv.wait_converged(timeout=SERVE_TIMEOUT_S):
+            raise AssertionError(f"{phase}: the fleet did not re-converge")
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        _engine_alive(srv, phase)
+        srv.stop()
+        snap = srv.stats()
+        counters = snap["counters"]
+        pushed = SERVE_SMALL_TENANTS * SERVE_SMALL_ROUNDS
+        if not (counters.get("applied_batches") == pushed
+                and counters.get("dropped_batches", 0) == 0
+                and snap["engine"]["all_converged"]):
+            raise AssertionError(f"{phase}: {counters}, {snap['engine']}")
+        runs[pipeline] = {
+            "wall_s": wall, "latency": _latency(snap), "counters": counters,
+            "tick_utilization": snap["gauges"]["tick_utilization"],
+            "programs": srv.service.compile_count,
+            "captures": sum(p.captures for p in srv.service._compiled.values()),
+            "tick_invocations": srv.service.tick_invocations}
+    return {"phase": "serve_small", "tenants": SERVE_SMALL_TENANTS, "n": n,
+            "pushes_per_tenant": SERVE_SMALL_ROUNDS, **runs,
+            "serialized_over_double_buffer_wall": (
+                runs["serialized"]["wall_s"] / runs["double_buffer"]["wall_s"])}
+
+
+def serve_http_phase(shell_args) -> dict:
+    """bench_serve.http_smoke against ``python -m repro_torch.serve`` as a
+    subprocess: admit a 60-node SBM, wait for convergence, 110 rounds of
+    push, labels and summary, read /metrics (the child's kernel launches
+    too), then SIGTERM: exit 0 and STOPPED.  The child is killed in a
+    finally."""
+    import os
+    import select
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from repro_torch.core import graphs
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve", *shell_args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], SERVE_TIMEOUT_S)
+        banner = proc.stdout.readline().strip() if ready else ""
+        if not banner.startswith("SERVING "):
+            proc.kill()
+            _, err = proc.communicate(timeout=60)
+            raise AssertionError(f"serve_http: banner {banner!r}; {err[-3000:]}")
+        boot_s = time.perf_counter() - t0
+        base = "http://127.0.0.1:" + dict(
+            kv.split("=") for kv in banner.split()[1:])["port"]
+
+        def req(path, method="GET", body=None):
+            data = json.dumps(body).encode() if body is not None else None
+            r = urllib.request.Request(
+                base + path, data=data, method=method,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(r, timeout=60) as resp:
+                return json.loads(resp.read())
+
+        g, _ = graphs.sbm_graph(60, 3, p_in=0.4, p_out=0.02, seed=0,
+                                device="cpu")
+        req("/v1/sessions/smoke", "POST",
+            {"edges": torch.stack([g.src, g.dst], 1).tolist(),
+             "num_nodes": 60, "num_clusters": 3,
+             "weights": g.weight.tolist()})
+        deadline = time.monotonic() + 120.0
+        while not req("/v1/sessions/smoke").get("converged"):
+            if time.monotonic() > deadline:
+                raise AssertionError("serve_http: the session never converged")
+            time.sleep(0.1)
+        req("/v1/sessions/smoke/labels")
+        rng = np.random.default_rng(0)
+        t_load = time.perf_counter()
+        for _ in range(SERVE_HTTP_ROUNDS):
+            i, j = rng.integers(0, 60, 2)
+            if i != j:
+                req("/v1/sessions/smoke/edges", "POST",
+                    {"edges": [[int(i), int(j)]], "weights": [0.05],
+                     "mode": "add"})
+            req("/v1/sessions/smoke/labels")
+            req("/v1/sessions/smoke")
+        load_s = time.perf_counter() - t_load
+        metrics = req("/metrics")
+        health = req("/healthz")
+        worst = max(h["p99_s"] for op, h in metrics["latency"].items()
+                    if h["count"] and op != "admit")
+        if worst > SERVE_HTTP_P99_S:
+            raise AssertionError(f"serve_http: worst p99 {worst} s > "
+                                 f"{SERVE_HTTP_P99_S} s")
+        if not health["running"]:
+            raise AssertionError("serve_http: the engine thread died")
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+        if proc.returncode != 0 or out.strip().splitlines()[-1] != "STOPPED":
+            raise AssertionError(f"serve_http: exit {proc.returncode}, "
+                                 f"{out[-500:]!r}, {err[-3000:]}")
+        return {"phase": "serve_http", "args": list(shell_args),
+                "boot_to_banner_s": boot_s, "rounds": SERVE_HTTP_ROUNDS,
+                "load_s": load_s, "worst_non_admit_p99_s": worst,
+                "latency": _latency(metrics), "counters": metrics["counters"],
+                "engine": metrics["engine"], "exit_code": proc.returncode}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+
+
+def _live_edges_match(base, pushes, after, n: int) -> bool:
+    """The session's live edges ``after`` equal ``base`` with every pushed
+    (pairs, weights) batch added in order, per canonical key (duplicate
+    slots summed), exactly."""
+    import numpy as np
+
+    def per_key(src, dst, w):
+        keys = (np.minimum(src, dst).astype(np.int64) * n
+                + np.maximum(src, dst))
+        uniq, inv = np.unique(keys, return_inverse=True)
+        return uniq, np.bincount(inv, weights=w.astype(np.float64))
+
+    pairs = np.concatenate([e for e, _ in pushes])
+    want = per_key(np.concatenate([base[0], pairs[:, 0]]),
+                   np.concatenate([base[1], pairs[:, 1]]),
+                   np.concatenate([base[2], *[w for _, w in pushes]]))
+    got = per_key(*after)
+    return all(np.array_equal(a, b) for a, b in zip(want, got))
+
+
+def serve_full_phase(tenant_graph, cfg_svc, n: int, dev) -> dict:
+    """The headline serving cell: a started Server (double_buffer) over
+    SERVICE_TENANTS tenants of ``tenant_graph(i)`` (n nodes, in their
+    capacity class), 4 pusher threads staging SERVE_FULL_PUSHES batches of
+    SERVE_FULL_B new pairs per tenant (one per tick), 2 query threads
+    reading summary and labels in a loop from before the first tick,
+    then flush, SERVE_FULL_TAIL_TICKS more ticks and stop()."""
+    import hashlib
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core import kmeans as km
+    from repro_torch.core import operators
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Server, ServerConfig
+    from repro_torch.serve import server as serve_server
+    from repro_torch.stream import tracking
+
+    phase = "serve_full"
+    sids = [f"t{i}" for i in range(SERVICE_TENANTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    srv = Server(ServerConfig(service=cfg_svc, idle_sleep_s=0.001), device=dev)
+    admit_s, base = [], {}
+    for i, sid in enumerate(sids):
+        g_t = tenant_graph(i)
+        t0 = time.perf_counter()
+        srv.admit(sid, torch.stack([g_t.src, g_t.dst], 1), n,
+                  weights=g_t.weight)
+        admit_s.append(time.perf_counter() - t0)
+        base[sid] = srv.service.live_edges(sid)
+        del g_t
+    rng = np.random.default_rng(7)
+    pushes = {sid: [] for sid in sids}
+    for sid in sids:
+        for _ in range(SERVE_FULL_PUSHES):
+            a = rng.integers(0, n, SERVE_FULL_B)
+            b = (a + rng.integers(1, n, SERVE_FULL_B)) % n
+            w = rng.integers(1, 9, SERVE_FULL_B).astype(np.float32) / 64
+            pushes[sid].append((np.stack([a, b], 1), w))
+    buf = serve_server._PendingBuffer()
+    t0 = time.perf_counter()
+    buf.merge(*pushes[sids[0]][0], "add")
+    merge_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    list(buf.flush_batches())
+    flush_batches_s = time.perf_counter() - t0
+    del buf
+
+    captures_at, ticks_at, queries, errors = [], [], [], []
+    real_capture = operators.capture_graph
+    inner_tick = srv.service.tick
+
+    def capture_graph(fn):
+        t0 = time.perf_counter()
+        try:
+            return real_capture(fn)
+        finally:
+            captures_at.append((t0, time.perf_counter()))
+
+    def tick():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = inner_tick()
+        end.record()
+        end.synchronize()
+        ticks_at.append((t0, time.perf_counter(), start, end))
+        return out
+
+    stop_queries = threading.Event()
+
+    def querier(t):
+        try:
+            j = t
+            while not stop_queries.is_set():
+                sid = sids[j % len(sids)]
+                j += 1
+                t0 = time.perf_counter()
+                version = srv.summary(sid)["version"]
+                queries.append((t, sid, "summary", version, t0,
+                                time.perf_counter(), None))
+                t0 = time.perf_counter()
+                out = srv.labels(sid)
+                queries.append((t, sid, "labels", out["version"], t0,
+                                time.perf_counter(), hashlib.blake2b(
+                                    out["labels"].tobytes(),
+                                    digest_size=16).hexdigest()))
+                time.sleep(0.002)
+        except Exception as exc:
+            errors.append(exc)
+
+    def pusher(sid):
+        try:
+            for b, (e, w) in enumerate(pushes[sid]):
+                _wait_for_ticks(srv, b + 1, phase)
+                srv.push(sid, e, w, mode="add")
+        except Exception as exc:
+            errors.append(exc)
+
+    q_threads = [threading.Thread(target=querier, args=(t,), daemon=True)
+                 for t in range(SERVE_QUERY_THREADS)]
+    p_threads = [threading.Thread(target=pusher, args=(sid,), daemon=True)
+                 for sid in sids]
+    operators.capture_graph = capture_graph
+    srv.service.tick = tick
+    reset_launch_counts()
+    try:
+        for t in q_threads:
+            t.start()
+        t_start = time.perf_counter()
+        srv.start()
+        for t in p_threads:
+            t.start()
+        _join_all(p_threads, SERVE_TIMEOUT_S)
+        if errors:
+            raise errors[0]
+        if not srv.running:
+            raise AssertionError(f"{phase}: the engine thread died")
+        t0 = time.perf_counter()
+        flushed = srv.flush(timeout=SERVE_TIMEOUT_S)
+        flush_s = time.perf_counter() - t0
+        if not (flushed and srv.running):
+            raise AssertionError(f"{phase}: flush {flushed}, running "
+                                 f"{srv.running}")
+        _wait_for_ticks(srv, srv.metrics.counter("ticks")
+                        + SERVE_FULL_TAIL_TICKS, phase)
+        stop_queries.set()
+        _join_all(q_threads, SERVE_TIMEOUT_S)
+        if errors:
+            raise errors[0]
+        _engine_alive(srv, phase)
+        t0 = time.perf_counter()
+        srv.stop(timeout=SERVE_TIMEOUT_S)
+        stop_s = time.perf_counter() - t0
+        serving_s = time.perf_counter() - t_start
+        counts = launch_counts()
+    finally:
+        stop_queries.set()
+        operators.capture_graph = real_capture
+        del srv.service.tick
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    if srv.running:
+        raise AssertionError(f"{phase}: the engine thread outlived stop()")
+    snap = srv.stats()
+    counters = snap["counters"]
+    pushed = SERVICE_TENANTS * SERVE_FULL_PUSHES
+    if not (counters.get("staged_batches") == counters.get("applied_batches")
+            == pushed and counters.get("dropped_batches", 0) == 0):
+        raise AssertionError(f"{phase}: counters {counters}")
+    # served versions never go backwards, per query thread and tenant;
+    # labels served at one version are one byte string
+    seen, digests = {}, {}
+    for t, sid, op, version, _, _, digest in queries:
+        if version < seen.get((t, sid, op), 0):
+            raise AssertionError(f"{phase}: {op} of {sid} went back to "
+                                 f"version {version}")
+        seen[(t, sid, op)] = version
+        if digest is not None and digests.setdefault((sid, version),
+                                                     digest) != digest:
+            raise AssertionError(f"{phase}: two labellings of {sid} at "
+                                 f"version {version}")
+    for sid in sids:
+        if not _live_edges_match(base[sid], pushes[sid],
+                                 srv.service.live_edges(sid), n):
+            raise AssertionError(f"{phase}: {sid}'s live edges differ from "
+                                 "the reference: an update was lost")
+
+    def overlaps(op):
+        return sum(1 for q in queries if q[2] == op and any(
+            q[4] < c1 and c0 < q[5] for c0, c1 in captures_at))
+
+    labels_s = [q[5] - q[4] for q in queries if q[2] == "labels"]
+    # the labels path at n = 2^20 on an idle card, split: k-means on a
+    # committed panel (CUDA events), the copy of its labels to the host,
+    # the store's tracker on the host; then one uncommitted-version
+    # labels request end to end after a manual step
+    served = srv.labels(sids[0])["labels"]
+    rv = srv.results._sessions[sids[0]].latest
+    emb = rv.panel[:, 1: 1 + cfg_svc.num_clusters]
+    emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True),
+                            min=1e-12)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = km.kmeans(torch.Generator(device=dev).manual_seed(0), emb,
+                    cfg_svc.num_clusters, restarts=cfg_svc.kmeans_restarts)
+    end.record()
+    end.synchronize()
+    kmeans_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    raw = res.labels.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    tracker = tracking.LabelTracker(cfg_svc.num_clusters)
+    tracker.update(torch.from_numpy(served))
+    t0 = time.perf_counter()
+    tracker.update(torch.as_tensor(raw)).numpy().astype(np.int32)
+    tracker_s = time.perf_counter() - t0
+    srv.step()
+    t0 = time.perf_counter()
+    fresh = srv.labels(sids[0])
+    labels_fresh_s = time.perf_counter() - t0
+    if not (fresh["labels"].shape == (n,) and fresh["labels"].min() >= 0
+            and fresh["labels"].max() < cfg_svc.num_clusters):
+        raise AssertionError(f"{phase}: malformed labels")
+    programs = srv.service.compile_count
+    captures = sum(p.captures for p in srv.service._compiled.values())
+    return {
+        "phase": phase, "tenants": SERVICE_TENANTS, "n": n,
+        "capacity_class": srv.service.capacity_class(sids[0]), "k": cfg_svc.k, "num_clusters": cfg_svc.num_clusters,
+        "pushes_per_tenant": SERVE_FULL_PUSHES, "push_b": SERVE_FULL_B,
+        "admit_s": admit_s,
+        "tick_ms": [s_.elapsed_time(e_) for _, _, s_, e_ in ticks_at],
+        "tick_host_s": [t1 - t0 for t0, t1, _, _ in ticks_at],
+        "capture_s": [c1 - c0 for c0, c1 in captures_at],
+        "queries": {"summary": sum(q[2] == "summary" for q in queries),
+                    "labels": len(labels_s)},
+        "queries_overlapping_a_capture": {
+            "summary": overlaps("summary"), "labels": overlaps("labels")},
+        "labels_over_50ms": sum(s_ > 0.05 for s_ in labels_s),
+        "latency": _latency(snap),
+        "staging_merge_s_b4096": merge_s,
+        "staging_flush_batches_s_b4096": flush_batches_s,
+        "flush_s": flush_s, "stop_s": stop_s,
+        "tick_utilization": snap["gauges"]["tick_utilization"],
+        "serving_s": serving_s,
+        "tick_share_of_serving": sum(t1 - t0 for t0, t1, _, _ in ticks_at)
+        / serving_s,
+        "counters": counters, "programs": programs, "captures": captures,
+        "labels_split": {"kmeans_ms": kmeans_ms, "copy_to_host_s": copy_s,
+                         "tracker_host_s": tracker_s,
+                         "labels_new_version_s": labels_fresh_s},
+        "memory_allocated_at_start": start_bytes,
+        "max_memory_allocated": peak, "memory_reserved": reserved,
+        "launches": counts}
 
 
 def main() -> int:
@@ -1476,12 +2007,48 @@ def main() -> int:
             raise AssertionError(f"service_full launched no {name}")
     del svc, tenants, check_in, check_out
 
-    # ---- 16. kernel list -------------------------------------------------
+    # ---- 16. the serving layer: bench_serve.py's load ----------------------
+    reset_launch_counts()
+    small_serve = serve_small_phase(dev)
+    counts_serve_small = launch_counts()
+    for pipeline in ("serialized", "double_buffer"):
+        run = small_serve[pipeline]
+        if run["captures"] != run["programs"]:
+            raise AssertionError(f"serve_small {pipeline}: {run['captures']} "
+                                 f"captures for {run['programs']} programs")
+    emit({**small_serve, "launches": counts_serve_small})
+    for name in ("edge_spmm", "gram2k", "panel_mix"):
+        if counts_serve_small[name] <= 0:
+            raise AssertionError(f"serve_small launched no {name}")
+
+    # ---- 17. the process shell on the card -------------------------------
+    http_serve = serve_http_phase(SERVE_HTTP_ARGS)
+    counts_serve_http = http_serve["engine"]["kernel_launches"]
+    emit(http_serve)
+    for name in ("edge_spmm", "gram2k", "panel_mix"):
+        if counts_serve_http[name] <= 0:
+            raise AssertionError(f"serve_http launched no {name}")
+
+    # ---- 18. the serving layer at full width -----------------------------
+    full_serve = serve_full_phase(tenant_graph, cfg_svc, n, dev)
+    counts_serve_full = full_serve["launches"]
+    emit(full_serve)
+    if not full_serve["captures"] == full_serve["programs"] >= 1:
+        raise AssertionError(f"serve_full: {full_serve['captures']} captures "
+                             f"for {full_serve['programs']} programs")
+    if sum(full_serve["queries_overlapping_a_capture"].values()) < 1:
+        raise AssertionError("serve_full: no query overlapped a capture")
+    for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_serve_full[name] <= 0:
+            raise AssertionError(f"serve_full launched no {name}")
+
+    # ---- 19. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
                  counts_stream_full, counts_service_small,
-                 counts_service_full)
+                 counts_service_full, counts_serve_small, counts_serve_http,
+                 counts_serve_full)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

@@ -48,11 +48,19 @@ def capture_graph(fn: Callable[[], object]
     """Capture ``fn()`` as a new CUDA graph: (graph, fn's static output,
     the kernel launches the graph holds).  The capture records launches
     without running them, so the counts the wrappers added during it are
-    taken back; whoever replays the graph adds ``held``."""
+    taken back; whoever replays the graph adds ``held``.
+
+    The capture is thread-local: only the capturing thread is barred
+    from calls that are unsafe during a capture, so other threads may
+    allocate, synchronize and run work on other streams meanwhile (the
+    serving layer's request threads label on the card while the engine
+    thread captures a tick program).  Those threads must put nothing on
+    the capturing stream and launch no counted kernel during the
+    capture."""
     graph = torch.cuda.CUDAGraph()
     before = kernels.launch_counts()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = fn()
         held = {name: c - before[name]
                 for name, c in kernels.launch_counts().items()}

@@ -746,7 +746,13 @@ class StreamingService:
                 w[live])
 
     def panel(self, sid: str) -> torch.Tensor:
-        """The session's live eigenvector panel (real rows only)."""
+        """The session's live eigenvector panel (real rows only): a view
+        of the session's current panel tensor, not a copy.  No code path
+        of the service writes into a panel tensor it has handed out (a
+        tick, an update or a re-solve binds the session to a new
+        tensor), but the view stops being the session's panel after the
+        next tick or update; a reader that must keep one state, as the
+        serving layer's committed versions do, clones it."""
         sess = self._get(sid)
         return sess.v[: sess.n]
 

@@ -12,6 +12,7 @@ order than the plain matmuls, so they agree with their twins to
 rounding, not bitwise; all four are bitwise equal from run to run.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -775,3 +776,146 @@ def test_service_captures_once_across_updates_replans_and_membership(dev):
     assert captures() == (1, 1) and svc.layout_fills == 4
     assert all(np.isfinite(r) for r in out.values()) and len(out) == 4
     assert svc.tick_invocations == 5
+
+
+# ---------------------------------------------------------------------------
+# the serving layer on the card
+# ---------------------------------------------------------------------------
+
+def _serve_cfg():
+    from repro_torch.serve import ServerConfig
+    from repro_torch.stream.service import ServiceConfig
+    return ServerConfig(service=ServiceConfig(
+        k=4, num_clusters=3, degree=7, steps_per_tick=5, tol=1e-9,
+        probe_spectrum=False, tick_schedule="round_robin"))
+
+
+def _serve_admit(srv, count, n=1 << 14):
+    for i in range(count):
+        g, _ = graphs.sparse_sbm_graph(n, 4, 8.0, 0.5, seed=i, device="cpu")
+        srv.admit(f"s{i}", torch.stack([g.src, g.dst], 1), n,
+                  weights=g.weight, num_clusters=3)
+
+
+def test_labels_run_while_the_engine_thread_captures(dev, monkeypatch):
+    """A request thread labels (k-means on the card, allocations, a copy
+    to the host) INSIDE the first tick's capture of both graphs: the
+    capture waits until the request thread has labelled every session.
+    Neither side raises, the program captures once, and the engine
+    thread lives until stop()."""
+    import threading
+    from repro_torch.core import operators
+    from repro_torch.serve import Server
+    srv = Server(_serve_cfg(), device=dev)
+    _serve_admit(srv, 2)
+    inside, labelled, errors, served = (threading.Event(), threading.Event(),
+                                        [], [])
+    real_capture = operators.capture_graph
+
+    def capture_graph(fn):
+        def fn_after_queries():
+            inside.set()
+            if not labelled.wait(timeout=120):
+                raise AssertionError("the request thread never labelled")
+            return fn()
+        return real_capture(fn_after_queries)
+
+    monkeypatch.setattr(operators, "capture_graph", capture_graph)
+
+    def querier():
+        try:
+            if not inside.wait(timeout=120):
+                raise AssertionError("no capture started")
+            served.extend(srv.labels(sid) for sid in ("s0", "s1"))
+        except Exception as e:
+            errors.append(e)
+        finally:
+            labelled.set()
+
+    thread = threading.Thread(target=querier)
+    thread.start()
+    srv.start()
+    thread.join(timeout=180)
+    assert not thread.is_alive() and not errors, errors
+    assert srv.flush(timeout=120) and srv.running
+    deadline = time.monotonic() + 120
+    while srv.metrics.counter("ticks") < 3 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert srv.running and srv.metrics.counter("ticks") >= 3
+    srv.stop()
+    progs = list(srv.service._compiled.values())
+    assert len(progs) == 1 and progs[0].captures == 1
+    assert [r["version"] for r in served] == [1, 1]
+    for r in served:
+        assert r["labels"].shape == (1 << 14,) and r["labels"].max() < 3
+
+
+def test_labels_of_one_version_are_bitwise_equal_across_threads(dev):
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.serve import Server
+    srv = Server(_serve_cfg(), device=dev)
+    _serve_admit(srv, 2)
+    for _ in range(3):
+        srv.step()
+    with ThreadPoolExecutor(4) as pool:
+        futures = [pool.submit(srv.labels, f"s{i % 2}") for i in range(8)]
+        outs = [f.result(timeout=120) for f in futures]
+    for i, out in enumerate(outs):
+        ref = outs[i % 2]
+        assert out["version"] == ref["version"] == srv.results.version(
+            f"s{i % 2}")
+        np.testing.assert_array_equal(out["labels"], ref["labels"])
+    again = srv.labels("s0")
+    np.testing.assert_array_equal(again["labels"], outs[0]["labels"])
+
+
+def test_http_shell_serves_on_the_card(dev):
+    import json
+    import os
+    import select
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.serve", "--num-clusters", "3",
+         "--k", "4", "--degree", "7", "--steps-per-tick", "10"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=root)
+
+    def req(base, path, method="GET", body=None):
+        data = json.dumps(body).encode() if body is not None else None
+        r = urllib.request.Request(base + path, data=data, method=method,
+                                   headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            return json.loads(resp.read())
+
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 180)
+        assert ready, "no banner within 180 s"
+        banner = proc.stdout.readline().strip()
+        assert banner.startswith("SERVING "), banner
+        base = "http://127.0.0.1:" + dict(
+            kv.split("=") for kv in banner.split()[1:])["port"]
+        g, truth = graphs.sbm_graph(60, 3, p_in=0.4, p_out=0.02, seed=0,
+                                    device="cpu")
+        out = req(base, "/v1/sessions/c", "POST",
+                  {"edges": torch.stack([g.src, g.dst], 1).tolist(),
+                   "num_nodes": 60, "weights": g.weight.tolist(),
+                   "num_clusters": 3})
+        assert out["version"] == 1
+        out = req(base, "/v1/sessions/c/labels")
+        assert len(out["labels"]) == 60
+        launches = req(base, "/metrics")["engine"]["kernel_launches"]
+        assert launches["edge_spmm"] > 0  # the admission probe on K1
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=120)
+        assert proc.returncode == 0, stderr
+        assert stdout.strip().splitlines()[-1] == "STOPPED"
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)

@@ -18,6 +18,7 @@ import torch
 from repro_torch import convert
 from repro_torch.core import graphs, laplacian as lap, solvers
 from repro_torch.core.baselines import lanczos_bottom_k
+from repro_torch.serve import Server
 from repro_torch.stream.graph_store import make_edge_batch
 from repro_torch.device import resolve_device
 
@@ -92,10 +93,12 @@ def test_resolve_device_default_raises_without_card(no_card):
     lambda: convert.eigen_estimate_from_numpy([0.0], [[1.0]], 0.0),
     lambda: make_edge_batch([[0, 1]], [1.0]),
     lambda: lanczos_bottom_k(lambda v: v, 4, 1),
+    lambda: Server(),
 ], ids=["ring_of_cliques", "clique_graph", "make_edge_list", "edge_list_from_numpy",
         "solver_state_from_numpy", "run_solver", "edge_incidence_from_numpy",
         "walk_batch_from_numpy", "graph_store_from_numpy", "edge_batch_from_numpy",
-        "eigen_estimate_from_numpy", "make_edge_batch", "lanczos_bottom_k"])
+        "eigen_estimate_from_numpy", "make_edge_batch", "lanczos_bottom_k",
+        "Server"])
 def test_entry_points_default_to_the_card(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
