@@ -106,10 +106,29 @@ outside a checkout.  Phases, one JSON line each:
              tick, push/labels p50/p99, the flush wall, tick_utilization,
              counters, the labels path split (k-means, copy, tracker),
              the staging merge at B = 4,096, peak memory
-19. kernels - per kernel: launches on the main path (phases 3-18 but the
+19. sharded_small - phase 3's clique solve on 4 ranks of this card
+             (torch.distributed over gloo; NCCL refuses two ranks on one
+             GPU) through core.distributed.distributed_solve, K1 on each
+             rank's shard and one all_reduce per factor, cut to 40 steps:
+             agreement equal to phase 3's, panels bitwise equal across ranks
+20. sharded_full - phase 7's planned operator (limit_neg_exp, degree 41) on
+             phase 4's 2^20-node graph over 4 ranks: one call held to the
+             one-process CapturedOperator on the same panel, the per-factor
+             split (the shard's K2 in CUDA events, the all_reduce of the
+             (2^20, 10) panel by the host clock, the AXPY), 3 steps of
+             distributed_solve held to run_solver, each rank's peak memory;
+             then the same operator in a one-rank NCCL world
+21. sharded_service - phase 14's fleet, round_robin, through a
+             StreamingService(mesh=...) on 2 ranks to convergence
+             (sharded probes and ticks): invocations and agreement equal to
+             phase 14's; then one degree-11 tick of phase 15's tenant 0
+             (2^20 nodes, capacity 2^24) on 2 ranks held to its one-process
+             tick
+22. kernels - per kernel: launches on the main path (phases 3-21 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
-             start), error, times and the bound of this run's inputs
+             start; the sharded phases' from their ranks), error, times
+             and the bound of this run's inputs
 
 The card's name and power limit are printed as nvidia-smi gives them, and
 the last line is {"ok": true, "device": {...}}.  Numbers are fp32 with
@@ -207,6 +226,16 @@ SERVE_FULL_B = 4096
 SERVE_FULL_TAIL_TICKS = 2
 # every wait of the serve phases
 SERVE_TIMEOUT_S = 300.0
+# the sharded phases: ranks on this one card (gloo), the clique solve cut
+# to 40 of phase small's 600 steps, 3 solver steps at 2^20, the
+# split's repetitions, the service's ranks, tenant 0's capacity class
+SHARDED_RANKS = 4
+SHARDED_SMALL_STEPS = 40
+SHARDED_SOLVE_STEPS = 3
+SHARDED_SPLIT_REPS = 5
+SHARDED_SERVICE_RANKS = 2
+SHARDED_TENANT_CAPACITY = 1 << 24
+SHARDED_TIMEOUT_S = 400.0
 
 
 def emit(obj) -> None:
@@ -709,6 +738,214 @@ def serve_full_phase(tenant_graph, cfg_svc, n: int, dev) -> dict:
         "launches": counts}
 
 
+# ---- rank bodies of the sharded phases ------------------------------------
+# Each runs in one rank of a world that parallel.run_ranks spawns (ranks
+# import this file as their main module).  A body resets the kernel counts
+# just before its main-path part and returns them just after, so timing
+# and comparison launches stay out of the kernels line.
+
+def _edge_list(src, dst, w, n: int, dev):
+    import torch
+
+    from repro_torch.core import laplacian as lap
+
+    return lap.EdgeList(*(torch.from_numpy(a).to(dev) for a in (src, dst, w)),
+                        int(n))
+
+
+def sharded_small_rank(dev, cfg, steps: int) -> dict:
+    """Phase small's clique solve (clustering.spectral_cluster's series,
+    solver and k-means) through distributed_solve, K1 per shard."""
+    import torch
+
+    from repro_torch import kernels, parallel
+    from repro_torch.core import build_series, distributed, graphs, metrics
+    from repro_torch.core import kmeans as km
+    from repro_torch.core import laplacian as lap
+
+    mesh = parallel.default_edge_mesh(device=dev)
+    g, truth = graphs.clique_graph(160, 4, seed=3, device=dev)
+    k = cfg.num_clusters + cfg.extra_eigvecs + 1
+    s = build_series(cfg, float(lap.spectral_radius_upper_bound(g)))
+    scfg = dataclasses.replace(cfg.solver, k=k, seed=cfg.seed, steps=steps,
+                               eval_every=steps)
+    _, v_star = metrics.ground_truth_bottom_k(lap.laplacian_dense(g), k)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, trace = distributed.distributed_solve(mesh, g, s, scfg,
+                                                 v_star=v_star)
+    emb = state.v[:, 1:1 + cfg.num_clusters]
+    emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True),
+                            min=1e-12)
+    labels = km.kmeans(torch.Generator(device=dev).manual_seed(cfg.seed + 1),
+                       emb, cfg.num_clusters,
+                       restarts=cfg.kmeans_restarts).labels
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"seconds": seconds, "launches": kernels.launch_counts(),
+            "agreement": float(km.cluster_agreement(labels, truth, 4)),
+            "panel": state.v, "subspace_error": trace.subspace_error}
+
+
+def _operator_call(dev, src, dst, w, n: int, plan, v0) -> dict:
+    """One call of the edge-sharded series operator of ``plan`` (K2 per
+    shard) on ``v0``: its output, seconds and launches, and the mesh,
+    graph, panel and operator for further use in the rank."""
+    import torch
+
+    from repro_torch import kernels, parallel, spectral
+    from repro_torch.core import distributed
+
+    mesh = parallel.default_edge_mesh(device=dev)
+    g = _edge_list(src, dst, w, n, dev)
+    op = distributed.distributed_series_operator(
+        mesh, g, spectral.series_from_plan(plan), backend="kernel")
+    v = torch.from_numpy(v0).to(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = op(v)
+    torch.cuda.synchronize()
+    return {"out": out, "first_call_s": time.perf_counter() - t0,
+            "launches": kernels.launch_counts(), "op": op, "g": g, "v": v,
+            "mesh": mesh}
+
+
+def sharded_operator_rank(dev, src, dst, w, n: int, plan, v0) -> dict:
+    """:func:`_operator_call`'s output, seconds and launches."""
+    out = _operator_call(dev, src, dst, w, n, plan, v0)
+    return {key: out[key] for key in ("out", "first_call_s", "launches")}
+
+
+def sharded_full_rank(dev, src, dst, w, n: int, plan, v0, lr: float,
+                      steps: int, reps: int) -> dict:
+    """Phase sharded_full in one rank: the operator call, the per-factor
+    split (the shard's K2 in CUDA events, the all_reduce of the panel by
+    the host clock, the AXPY), a second call, then ``steps`` solver
+    steps of distributed_solve and the rank's peak memory."""
+    import torch
+
+    from repro_torch import kernels, parallel, spectral
+    from repro_torch.core import SolverConfig, distributed, program
+
+    first = _operator_call(dev, src, dst, w, n, plan, v0)
+    mesh, g, v, op = first.pop("mesh"), first.pop("g"), first.pop("v"), \
+        first.pop("op")
+    main = first.pop("launches")
+    sync = torch.cuda.synchronize
+    group = parallel.edge_group(mesh)
+    gp = distributed.pad_edges_for_mesh(g, parallel.num_edge_shards(mesh))
+    local = distributed._local_fused(mesh, ("data",), gp.src, gp.dst,
+                                     gp.weight, n, "kernel")
+    c = plan.scale / plan.degree  # a factor's alpha is -c, its beta 1
+
+    def events_ms(fn) -> float:
+        fn()
+        sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        sync()
+        return start.elapsed_time(end) / reps
+
+    shard_k2_ms = events_ms(lambda: local(v, 1.0, 0.0))
+    lu = local(v, 1.0, 0.0)
+    all_reduce_ms = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        program._psum(lu, group)
+        sync()
+        all_reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    axpy_ms = events_ms(lambda: -c * lu + 1.0 * v)
+    sync()
+    t0 = time.perf_counter()
+    op(v)
+    sync()
+    call_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()  # the split's launches are not the path's
+    t0 = time.perf_counter()
+    state, _ = distributed.distributed_solve(
+        mesh, g, spectral.series_from_plan(plan),
+        SolverConfig(lr=lr, steps=steps, eval_every=steps, k=v.shape[1],
+                     backend="kernel"), init_v=v)
+    sync()
+    solve_s = time.perf_counter() - t0
+    solve_launches = kernels.launch_counts()
+    return {**first, "call_s": call_s, "shard_k2_ms": shard_k2_ms,
+            "all_reduce_ms": all_reduce_ms, "axpy_ms": axpy_ms,
+            "solve_s": solve_s, "solve_panel": state.v,
+            "launches": {name: main[name] + solve_launches[name]
+                         for name in main},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "shard_slots": int(gp.num_edges // parallel.num_edge_shards(mesh))}
+
+
+def sharded_fleet_rank(dev, fleet_np, cfg, capacity: int) -> dict:
+    """Phase service_small's round_robin fleet through an edge-sharded
+    StreamingService (probes and ticks sharded), run to convergence."""
+    import torch
+
+    from repro_torch import kernels, parallel
+    from repro_torch.stream.service import StreamingService
+
+    mesh = parallel.default_edge_mesh(device=dev)
+    svc = StreamingService(dataclasses.replace(cfg, mesh=mesh), device=dev)
+    kernels.reset_launch_counts()
+    for sid, src, dst, w, n in fleet_np:
+        svc.add_graph(sid, _edge_list(src, dst, w, n, dev),
+                      edge_capacity=capacity)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = svc.run_until_converged(max_ticks=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    return {"ticks": ticks, "wall_s": wall, "launches": launches,
+            "tick_invocations": svc.tick_invocations,
+            "device_work_steps": svc.device_work,
+            "programs": svc.compile_count,
+            "captures": sum(p.captures for p in svc._compiled.values()),
+            "converged": svc.all_converged,
+            "max_residual": max(svc.session_info(sid)["residual"]
+                                for sid in svc.session_ids()),
+            "labels": {sid: svc.labels(sid) for sid in svc.session_ids()}}
+
+
+def sharded_tick_rank(dev, src, dst, w, n: int, capacity: int, v0, c: float,
+                      lr: float, degree: int, steps: int) -> dict:
+    """One edge-sharded kernel tick of one tenant's store (its shard of
+    the capacity-padded buffer), one all_reduce per dilation factor."""
+    import torch
+
+    from repro_torch import kernels, parallel
+    from repro_torch.core import program
+    from repro_torch.stream import graph_store as gstore
+
+    mesh = parallel.default_edge_mesh(device=dev)
+    store = gstore.from_edge_list(_edge_list(src, dst, w, n, dev),
+                                  capacity=capacity)
+    rows = gstore.shard_edge_rows(store, mesh)
+    prog = program.build_tick_program(program.StepSchedule(
+        degree=degree, steps=steps, backend="kernel"), dev, mesh=mesh)
+    v = torch.from_numpy(v0).to(dev)[None]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    vs, res = prog([rows], [c], v, [lr], 1)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "panel": vs[0],
+            "residual": float(res[0]), "launches": kernels.launch_counts(),
+            "captures": prog.captures,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -726,7 +963,7 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
-    from repro_torch import spectral
+    from repro_torch import parallel, spectral
     from repro_torch.core import (ClusteringConfig, SolverConfig, backend,
                                   graphs, limit_neg_exp, metrics, operators,
                                   solvers, spectral_cluster)
@@ -2005,6 +2242,9 @@ def main() -> int:
     for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
         if counts_service_full[name] <= 0:
             raise AssertionError(f"service_full launched no {name}")
+    # tenant 0's tick-1 inputs, for its edge-sharded tick in sharded_service
+    tick_in_0 = (check_in[0][0].cpu().numpy(), check_in[0][1], check_in[0][2],
+                 check_in[0][4])
     del svc, tenants, check_in, check_out
 
     # ---- 16. the serving layer: bench_serve.py's load ----------------------
@@ -2042,13 +2282,173 @@ def main() -> int:
         if counts_serve_full[name] <= 0:
             raise AssertionError(f"serve_full launched no {name}")
 
-    # ---- 19. kernel list -------------------------------------------------
+    # ---- 19. the edge-sharded clique solve: 4 ranks on this card ----------
+    # ranks of one card take gloo (NCCL refuses two ranks on one GPU); the
+    # solve is phase small's but cut to SHARDED_SMALL_STEPS steps, since a
+    # factor costs a 4-rank all_reduce of ~4.5 ms here (at 20 steps one
+    # label of 160 still differed from phase small's on the card)
+    torch.cuda.empty_cache()
+    res_ss, ss_wall = host_s(lambda: parallel.run_ranks(
+        SHARDED_RANKS, sharded_small_rank, cfg_s, SHARDED_SMALL_STEPS,
+        timeout=SHARDED_TIMEOUT_S))
+    outs_ss = [r.value for r in res_ss]
+    counts_sharded_small = parallel.sum_launches(o["launches"] for o in outs_ss)
+    if not parallel.bitwise_equal([o["panel"] for o in outs_ss]):
+        raise AssertionError("sharded_small: the ranks' panels differ")
+    emit({"phase": "sharded_small", "ranks": SHARDED_RANKS, "backend": "gloo",
+          "n": 160, "degree": cfg_s.degree, "steps": SHARDED_SMALL_STEPS,
+          "world_wall_s": ss_wall, "solve_and_kmeans_s": outs_ss[0]["seconds"],
+          "agreement": outs_ss[0]["agreement"], "small_agreement": agreement,
+          "subspace_error": outs_ss[0]["subspace_error"].tolist(),
+          "launches": counts_sharded_small})
+    if outs_ss[0]["agreement"] != agreement:
+        raise AssertionError(f"sharded_small agreement {outs_ss[0]['agreement']}"
+                             f" != phase small's {agreement}")
+    for name in ("edge_spmm", "gram2k", "panel_mix"):
+        if counts_sharded_small[name] <= 0:
+            raise AssertionError(f"sharded_small launched no {name}")
+
+    # ---- 20. the edge-sharded operator and solve at n = 2^20 ----------------
+    s_plan = spectral.series_from_plan(plan_af)
+    v0_sf = panel(n, k, 5)
+    op_1p = operators.edge_series_operator(g, s_plan, backend="kernel")
+    want_sf = op_1p(v0_sf)
+    want_solve = solvers.run_solver(op_1p, n, SolverConfig(
+        lr=lr_af, steps=SHARDED_SOLVE_STEPS, eval_every=SHARDED_SOLVE_STEPS,
+        k=k, backend="kernel"), init_v=v0_sf)[0].v
+    arrays_g = tuple(t.cpu().numpy() for t in (g.src, g.dst, g.weight))
+    v0_np = v0_sf.cpu().numpy()
+    del op_1p
+    torch.cuda.empty_cache()
+    res_sf, sf_wall = host_s(lambda: parallel.run_ranks(
+        SHARDED_RANKS, sharded_full_rank, *arrays_g, n, plan_af, v0_np, lr_af,
+        SHARDED_SOLVE_STEPS, SHARDED_SPLIT_REPS, timeout=SHARDED_TIMEOUT_S))
+    outs_sf = [r.value for r in res_sf]
+    res_nccl, nccl_wall = host_s(lambda: parallel.run_ranks(
+        1, sharded_operator_rank, *arrays_g, n, plan_af, v0_np,
+        backend="nccl", timeout=SHARDED_TIMEOUT_S))
+    out_nccl = res_nccl[0].value
+    counts_sharded_full = parallel.sum_launches(
+        [o["launches"] for o in outs_sf] + [out_nccl["launches"]])
+    for key in ("out", "solve_panel"):
+        if not parallel.bitwise_equal([o[key] for o in outs_sf]):
+            raise AssertionError(f"sharded_full: the ranks' {key} differ")
+    sf_err = compare("sharded_full operator (4 gloo ranks) vs one process",
+                     lambda: torch.from_numpy(outs_sf[0]["out"]).to(dev),
+                     lambda: want_sf)
+    nccl_err = compare("sharded_full operator (1 NCCL rank) vs one process",
+                       lambda: torch.from_numpy(out_nccl["out"]).to(dev),
+                       lambda: want_sf)
+    sf_solve_err = float((torch.from_numpy(outs_sf[0]["solve_panel"]).to(dev)
+                          - want_solve).abs().max())
+    emit({"phase": "sharded_full", "ranks": SHARDED_RANKS, "backend": "gloo",
+          "n": n, "num_edges": g.num_edges, "k": k, "degree": plan_af.degree,
+          "shard_slots": outs_sf[0]["shard_slots"], "world_wall_s": sf_wall,
+          "operator_first_call_s": [o["first_call_s"] for o in outs_sf],
+          "operator_call_s": [o["call_s"] for o in outs_sf],
+          "shard_k2_ms": [o["shard_k2_ms"] for o in outs_sf],
+          "all_reduce_ms": [o["all_reduce_ms"] for o in outs_sf],
+          "panel_bytes": n * k * 4,
+          "axpy_ms": [o["axpy_ms"] for o in outs_sf],
+          "solve_steps": SHARDED_SOLVE_STEPS,
+          "solve_s": [o["solve_s"] for o in outs_sf],
+          "max_memory_allocated": [o["max_memory_allocated"] for o in outs_sf],
+          "operator_max_abs_err": sf_err[0], "operator_tolerance": sf_err[1],
+          "solve_max_abs_err": sf_solve_err, "solve_tolerance": STEPS_TOL,
+          "nccl_one_rank": {"world_wall_s": nccl_wall,
+                            "operator_first_call_s": out_nccl["first_call_s"],
+                            "max_abs_err": nccl_err[0]},
+          "launches": counts_sharded_full})
+    if not sf_solve_err <= STEPS_TOL:
+        raise AssertionError(f"sharded_full: {SHARDED_SOLVE_STEPS} sharded steps "
+                             f"differ from one process by {sf_solve_err}")
+    for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_sharded_full[name] <= 0:
+            raise AssertionError(f"sharded_full launched no {name}")
+    del want_sf, want_solve, v0_sf, outs_sf, res_sf, arrays_g
+
+    # ---- 21. the edge-sharded service: the fleet, and a 2^20 tick ------------
+    fleet_np = [(sid, *(t.cpu().numpy() for t in (g_t.src, g_t.dst, g_t.weight)),
+                 g_t.num_nodes) for sid, g_t, _ in fleet]
+    cfg_rr = dataclasses.replace(fleet_cfg, tick_schedule="round_robin")
+    res_fl, fl_wall = host_s(lambda: parallel.run_ranks(
+        SHARDED_SERVICE_RANKS, sharded_fleet_rank, fleet_np, cfg_rr,
+        FLEET_CAPACITY, timeout=SHARDED_TIMEOUT_S))
+    outs_fl = [r.value for r in res_fl]
+    fl = outs_fl[0]
+    fl_agreement = float(np.mean([
+        float(km.cluster_agreement(torch.from_numpy(fl["labels"][sid]), lab,
+                                   fleet_cfg.num_clusters))
+        for sid, _, lab in fleet]))
+    rr = fleet_runs["round_robin"]
+    v_t0, c_t0, lr_t0, deg_t0 = tick_in_0
+    g_t0 = tenant_graph(0)
+    store_t0 = gstore.from_edge_list(g_t0, capacity=SHARDED_TENANT_CAPACITY)
+    prog_1p = program.build_tick_program(program.StepSchedule(
+        degree=deg_t0, steps=cfg_svc.steps_per_tick, backend="kernel"))
+    want_t0 = prog_1p([gstore.edge_rows(store_t0)], [c_t0],
+                      torch.from_numpy(v_t0).to(dev)[None], [lr_t0], 1)
+    arrays_t0 = tuple(t.cpu().numpy() for t in (g_t0.src, g_t0.dst, g_t0.weight))
+    del prog_1p, store_t0, g_t0
+    torch.cuda.empty_cache()
+    res_t0, t0_wall = host_s(lambda: parallel.run_ranks(
+        SHARDED_SERVICE_RANKS, sharded_tick_rank, *arrays_t0, n,
+        SHARDED_TENANT_CAPACITY, v_t0, c_t0, lr_t0, deg_t0,
+        cfg_svc.steps_per_tick, timeout=SHARDED_TIMEOUT_S))
+    outs_t0 = [r.value for r in res_t0]
+    if not parallel.bitwise_equal([o["panel"] for o in outs_t0]):
+        raise AssertionError("sharded_service: the ranks' tick panels differ")
+    t0_err = compare("sharded_service 2^20 tick (2 ranks) vs one process",
+                     lambda: torch.from_numpy(outs_t0[0]["panel"]).to(dev),
+                     lambda: want_t0[0][0])
+    t0_res_gap = abs(outs_t0[0]["residual"] - float(want_t0[1][0]))
+    counts_sharded_service = parallel.sum_launches(
+        [o["launches"] for o in outs_fl] + [o["launches"] for o in outs_t0])
+    emit({"phase": "sharded_service", "ranks": SHARDED_SERVICE_RANKS,
+          "backend": "gloo",
+          "fleet": {key: fl[key] for key in (
+              "ticks", "wall_s", "tick_invocations", "device_work_steps",
+              "programs", "captures", "converged", "max_residual")},
+          "fleet_world_wall_s": fl_wall, "fleet_agreement": fl_agreement,
+          "single_process": {"tick_invocations": rr["tick_invocations"],
+                             "agreement": rr["agreement"],
+                             "wall_s": rr["wall_s"]},
+          "tenant_tick": {"n": n, "edge_capacity": SHARDED_TENANT_CAPACITY,
+                          "degree": deg_t0,
+                          "steps": cfg_svc.steps_per_tick,
+                          "world_wall_s": t0_wall,
+                          "seconds": [o["seconds"] for o in outs_t0],
+                          "captures": [o["captures"] for o in outs_t0],
+                          "max_memory_allocated": [
+                              o["max_memory_allocated"] for o in outs_t0],
+                          "max_abs_err": t0_err[0], "tolerance": t0_err[1],
+                          "residual_gap": t0_res_gap},
+          "launches": counts_sharded_service})
+    if not (fl["converged"] and fl["max_residual"] <= fleet_cfg.tol):
+        raise AssertionError(f"sharded_service fleet: {fl}")
+    if fl["tick_invocations"] != rr["tick_invocations"] \
+            or fl_agreement != rr["agreement"]:
+        raise AssertionError(
+            f"sharded_service fleet: {fl['tick_invocations']} invocations, "
+            f"agreement {fl_agreement}; one process {rr['tick_invocations']}, "
+            f"{rr['agreement']}")
+    if fl["captures"] != 0 or any(o["captures"] != 0 for o in outs_t0):
+        raise AssertionError("sharded_service: an eager program captured")
+    if not t0_res_gap <= REL_TOL * float(want_t0[1][0]):
+        raise AssertionError(f"sharded_service tick residual gap {t0_res_gap}")
+    for name in ("edge_spmm", "edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_sharded_service[name] <= 0:
+            raise AssertionError(f"sharded_service launched no {name}")
+    del want_t0, outs_t0, res_t0, arrays_t0
+
+    # ---- 22. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
                  counts_stream_full, counts_service_small,
                  counts_service_full, counts_serve_small, counts_serve_http,
-                 counts_serve_full)
+                 counts_serve_full, counts_sharded_small, counts_sharded_full,
+                 counts_sharded_service)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

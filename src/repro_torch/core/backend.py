@@ -24,7 +24,9 @@ from repro_torch.core import laplacian as lap
 from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.kernels.edge_spmm.ops import (  # noqa: F401  (re-exported)
     NodeBlocking,
+    ShardedNodeBlocking,
     build_node_blocking,
+    build_sharded_node_blocking,
 )
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
@@ -63,6 +65,17 @@ def blocking_for(g: lap.EdgeList, *, block_n: int | None = None,
     host), on the graph's device.  The kernel path does not read it."""
     return build_node_blocking(
         g.src, g.dst, g.weight, g.num_nodes,
+        block_n=block_n or DEFAULT_BLOCK_N, block_e=block_e, device=g.device)
+
+
+def sharded_blocking_for(g: lap.EdgeList, num_shards: int,
+                         *, block_n: int | None = None,
+                         block_e: int = 128) -> ShardedNodeBlocking:
+    """The JAX package's per-shard node-blocked layouts of a mesh-padded
+    EdgeList (built on the host), on the graph's device: the layout of
+    ``distributed.sharded_blocked_matvec``."""
+    return build_sharded_node_blocking(
+        g.src, g.dst, g.weight, g.num_nodes, num_shards,
         block_n=block_n or DEFAULT_BLOCK_N, block_e=block_e, device=g.device)
 
 

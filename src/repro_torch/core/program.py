@@ -21,6 +21,12 @@ built.  On it stand:
   call: the per-session c lives in the layout's weights, which the
   program owns and refills in place, and the per-session lr in a device
   tensor, so a re-plan refills buffers and captures nothing new;
+* the edge-sharded group tick (``build_tick_program(mesh=...)``,
+  :func:`build_tick_sharded_segment`, :func:`build_tick_sharded_pallas`):
+  the same program over each rank's SHARD of the members' edges, one
+  all_reduce of the stacked panel per dilation factor, eager (see
+  :mod:`repro_torch.parallel` for the one-rank-one-shard design), and
+  the collective accounting :func:`count_psums` over :func:`_psum`;
 * the schedule helpers (:class:`StepSchedule`, :func:`session_lr`,
   :func:`dilation_scale`, :func:`schedule_degrees`) and the
   residual-decay forecasts (:func:`contraction_rate`,
@@ -29,6 +35,7 @@ built.  On it stand:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import weakref
@@ -36,7 +43,9 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import parallel
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import metrics, operators, solvers
 from repro_torch.device import resolve_device
@@ -148,6 +157,59 @@ def schedule_degrees(max_degree: int) -> tuple[int, ...]:
         degs.add(max(d, plan_mod.MIN_DEGREE))
     degs.add(max(max_degree if max_degree % 2 == 1 else max_degree - 1, 1))
     return tuple(sorted(d for d in degs if d <= max_degree))
+
+
+# ---------------------------------------------------------------------------
+# collective accounting
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PsumStats:
+    """All_reduce calls issued under :func:`count_psums`.
+
+    ``fused`` counts TUPLE reductions (several tensors in one call, one
+    all_reduce of their flat concatenation), ``plain`` single-tensor
+    ones.  The JAX package counts the calls of a traced program body
+    once; here every call made at run time counts, so an operator of
+    ``degree`` factors adds ``degree`` per application.
+    """
+
+    plain: int = 0
+    fused: int = 0
+
+
+_PSUM_STATS: PsumStats | None = None
+
+
+@contextlib.contextmanager
+def count_psums():
+    """Count the all_reduce calls made under this context (every
+    collective of the port's sharded paths goes through :func:`_psum`)."""
+    global _PSUM_STATS
+    prev, _PSUM_STATS = _PSUM_STATS, PsumStats()
+    try:
+        yield _PSUM_STATS
+    finally:
+        _PSUM_STATS = prev
+
+
+def _psum(x, group):
+    """``psum`` over ``group``: ``dist.all_reduce(SUM)`` IN PLACE on a
+    tensor the caller owns, returned; a tuple of tensors of one dtype is
+    reduced in ONE call on their flat concatenation and returned as new
+    tensors.  Counted by :func:`count_psums`."""
+    if _PSUM_STATS is not None:
+        if isinstance(x, tuple):
+            _PSUM_STATS.fused += 1
+        else:
+            _PSUM_STATS.plain += 1
+    if isinstance(x, tuple):
+        flat = torch.cat([t.reshape(-1) for t in x])
+        dist.all_reduce(flat, group=group)
+        parts = flat.split([t.numel() for t in x])
+        return tuple(p.view_as(t) for p, t in zip(parts, x))
+    dist.all_reduce(x, group=group)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -271,12 +333,18 @@ def group_edge_rows(member_rows: Sequence[es_ops.EdgeRows], cs,
     return out
 
 
-def group_operator(rows: es_ops.EdgeRows, degree: int, kind: str) -> MatVec:
+def group_operator(rows: es_ops.EdgeRows, degree: int, kind: str,
+                   group=None) -> MatVec:
     """(G, n, k) -> (G, n, k): every member's ``(I - c_i L_i)^degree``
     over the group's c-scaled layout, each factor one fused step at
     ``alpha = -1, beta = 1`` on the stacked (G n, k) panel.  ``kind``
     "kernel" launches K1 (G n <= ``backend.ONE_HOT_NODE_LIMIT``) or K2;
-    "segment" runs their plain twin over the same rows, on any device."""
+    "segment" runs their plain twin over the same rows, on any device.
+
+    With an edge ``group`` the rows are this rank's shard of every
+    member: a factor is the shard's ``c_i L_i,s u`` (alpha = 1, beta = 0),
+    ONE all_reduce over the group, and ``u - that`` after it (beta must
+    apply once, so the AXPY cannot ride the kernel's epilogue)."""
     if kind == "kernel":
         fused = backend_mod.rows_fused_step(rows)
     else:
@@ -288,7 +356,10 @@ def group_operator(rows: es_ops.EdgeRows, degree: int, kind: str) -> MatVec:
         g, n, k = vs.shape
         u = vs.reshape(g * n, k)
         for _ in range(degree):
-            u = fused(u, -1.0, 1.0)
+            if group is None:
+                u = fused(u, -1.0, 1.0)
+            else:
+                u = u - _psum(fused(u, 1.0, 0.0), group)
         return u.reshape(g, n, k)
     return opv_all
 
@@ -359,10 +430,20 @@ class TickProgram:
     raise: a program serves one (G, node capacity, slots, k).
     ``captures`` counts the captures (at most one).  A segment program
     runs the same loop eagerly over the plain twins.
+
+    An EDGE-SHARDED program (``group``, the process group of the mesh's
+    edge axes) runs on every rank of the group with the members' SHARD
+    row CSRs (``graph_store.shard_edge_rows``): each dilation factor is
+    one K1/K2 launch on the shard's layout and one all_reduce of the
+    stacked panel, and the solver steps run replicated on every rank.
+    It runs eagerly at every call and captures nothing (``captures``
+    stays 0): a gloo collective is host work, which a CUDA graph cannot
+    hold.
     """
 
-    def __init__(self, schedule: StepSchedule, device=None):
+    def __init__(self, schedule: StepSchedule, device=None, group=None):
         self.schedule = schedule
+        self.group = group
         self.device = resolve_device(device)
         self.kind = backend_mod.resolve_backend(schedule.backend, self.device)
         self.step_fn = solvers.make_step_fn(schedule.method, self.kind,
@@ -397,7 +478,8 @@ class TickProgram:
         return self._layout
 
     def _loop(self, rows, vs, lrs, budget, num_chunks: int):
-        opv_all = group_operator(rows, self.schedule.degree, self.kind)
+        opv_all = group_operator(rows, self.schedule.degree, self.kind,
+                                 self.group)
         for _ in range(num_chunks):
             vs, budget = _group_chunk(opv_all, self.step_fn, vs, lrs, budget,
                                       self.schedule.steps)
@@ -409,7 +491,7 @@ class TickProgram:
         rows = self._fill_layout(member_rows, cs)
         budget, num_chunks = _budgets(chunks, vs.shape[0], vs.device)
         lrs = torch.as_tensor(lrs, dtype=torch.float32, device=vs.device)
-        if self.kind == "segment":
+        if self.kind == "segment" or self.group is not None:
             return self._loop(rows, vs, lrs, budget, num_chunks)
         if self._static is None:
             return self._capture(rows, vs, lrs, budget, num_chunks)
@@ -453,19 +535,43 @@ class TickProgram:
         return st["v"].clone(), res.clone()
 
 
+def build_tick_sharded_segment(schedule: StepSchedule, mesh,
+                               edge_axes=("data",), device=None) -> TickProgram:
+    """Edge-sharded segment tick: the plain twins over this rank's shard
+    of the group layout, one all_reduce of the stacked panels per
+    dilation factor (see :class:`TickProgram`)."""
+    return TickProgram(dataclasses.replace(schedule, backend="segment"),
+                       device, group=parallel.edge_group(mesh, edge_axes))
+
+
+def build_tick_sharded_pallas(schedule: StepSchedule, mesh,
+                              edge_axes=("data",), device=None) -> TickProgram:
+    """Edge-sharded kernel tick (the JAX package's sharded pallas tick):
+    K1/K2 on this rank's shard of the group layout, one all_reduce per
+    dilation factor, the dilation AXPY after it and K3/K4 per member.
+    The port's layout is a row CSR with no node blocks, so there are no
+    blocking statics to pass."""
+    return TickProgram(dataclasses.replace(schedule, backend="kernel"),
+                       device, group=parallel.edge_group(mesh, edge_axes))
+
+
 def build_tick_program(schedule: StepSchedule, device=None, *, mesh=None,
-                       model_axes=None) -> TickProgram:
+                       edge_axes=("data",), model_axes=None) -> TickProgram:
     """One batched tick program for a session group on ``device``
     (``None`` = the card): the kernel tick on CUDA, the segment tick on
     the CPU (``schedule.backend="auto"``).  The streaming service keeps
     one per (capacity class, degree, occupancy bucket); per-session c,
     lr and chunk budgets are inputs, so the adaptive layer moves under
-    one program.  The sharded ticks (``mesh``, ``model_axes``) are
-    ROADMAP slice 7."""
-    if mesh is not None or model_axes is not None:
+    one program.  ``mesh`` makes it edge-sharded over ``edge_axes``
+    (one all_reduce per dilation factor); the panel-sharded tick
+    (``model_axes``) is ROADMAP slice 7b."""
+    if model_axes is not None:
         raise NotImplementedError(
-            "sharded tick programs (mesh / model_axes) are not ported yet: "
-            "ROADMAP slice 7")
+            "panel-sharded tick programs (model_axes) are not ported yet: "
+            "ROADMAP slice 7b")
+    if mesh is not None:
+        return TickProgram(schedule, device,
+                           group=parallel.edge_group(mesh, edge_axes))
     return TickProgram(schedule, device)
 
 

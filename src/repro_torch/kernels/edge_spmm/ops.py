@@ -26,6 +26,11 @@ n), and the kernel splits each of them over a whole thread block.
   ``block_chunks``, the (NB+1,) block -> first-real-chunk offsets.  No
   kernel reads this layout: :func:`edge_spmm_blocked` runs K2 over its
   :func:`blocking_rows`.
+* Edge shards (``core.distributed``): shard s of a mesh-padded buffer
+  owns its s-th contiguous slice, and its K1/K2 read the row CSR of that
+  slice (:func:`build_edge_rows`), whose rows give ``deg_s v - A_s v``.
+  ``build_sharded_node_blocking`` is the JAX package's per-shard chunk
+  layout, bitwise, whose ``shard(s)`` rows give the same matvec.
 """
 from __future__ import annotations
 
@@ -269,6 +274,123 @@ def build_node_blocking(src, dst, weight, num_nodes: int,
         num_chunks=nc,
         num_nodes=int(num_nodes),
         block_chunks=torch.from_numpy(block_chunk_offsets(counts, block_e)).to(dev),
+    )
+
+
+class ShardedNodeBlocking(NamedTuple):
+    """Per-shard node-blocked layouts of the JAX package, for a mesh of
+    edge shards.
+
+    The edge buffer splits into ``num_shards`` contiguous slices and each
+    slice is bucketed on its own, as :func:`build_node_blocking` buckets
+    the whole buffer; all shards share ONE pow2-snapped chunk count.
+    Shard s computes ``L_s v = deg_s v - A_s v`` from its own edges, so
+    the all_reduce of the shards' panels is ``L v``; a shard whose slice
+    is all padding gets an all-zero layout of the same shapes.  No kernel
+    reads it: a shard's K2 runs over ``blocking_rows(sb.shard(s))``.
+    """
+
+    u_local: torch.Tensor  # (S, NC*BE) int32 - dest index local to block
+    other: torch.Tensor  # (S, NC*BE) int32 - global source node
+    weight: torch.Tensor  # (S, NC*BE) float32 - 0 => padding slot
+    chunk_block: torch.Tensor  # (S, NC+1) int32 - per-shard chunk->block map
+    deg: torch.Tensor  # (S, NB*block_n) float32 - PER-SHARD weighted degrees
+    block_n: int
+    block_e: int
+    num_chunks: int  # NC, TOTAL chunks, shared across shards
+    num_nodes: int  # real node count n
+    num_shards: int  # S
+    block_chunks: torch.Tensor  # (S, NB+1) int32 - first real chunk per block
+
+    @property
+    def num_blocks(self) -> int:
+        return self.deg.shape[1] // self.block_n
+
+    @property
+    def padded_nodes(self) -> int:
+        return self.deg.shape[1]
+
+    def shard(self, s: int) -> NodeBlocking:
+        """Shard s's own layout, what its rank computes with."""
+        return shard_local_blocking(
+            self.u_local[s:s + 1], self.other[s:s + 1], self.weight[s:s + 1],
+            self.chunk_block[s:s + 1], self.deg[s:s + 1],
+            self.block_chunks[s:s + 1], **self.statics)
+
+    @property
+    def statics(self) -> dict:
+        """The layout's ints, as kwargs for :func:`shard_local_blocking`."""
+        return dict(block_n=self.block_n, block_e=self.block_e,
+                    num_chunks=self.num_chunks, num_nodes=self.num_nodes)
+
+
+def shard_local_blocking(u_local, other, weight, chunk_block, deg,
+                         block_chunks, *, block_n: int, block_e: int,
+                         num_chunks: int, num_nodes: int) -> NodeBlocking:
+    """One shard's NodeBlocking from (1, ...) slices of a
+    :class:`ShardedNodeBlocking`'s stacked arrays (leading shard axis of
+    size 1, as a shard_map body sees them in the JAX package)."""
+    return NodeBlocking(
+        u_local=u_local[0], other=other[0], weight=weight[0],
+        chunk_block=chunk_block[0], deg=deg[0], block_n=block_n,
+        block_e=block_e, num_chunks=num_chunks, num_nodes=num_nodes,
+        block_chunks=block_chunks[0])
+
+
+def build_sharded_node_blocking(src, dst, weight, num_nodes: int,
+                                num_shards: int, *, block_n: int = 512,
+                                block_e: int = 128, device=None
+                                ) -> ShardedNodeBlocking:
+    """Host-side per-shard node blockings of a mesh-padded edge buffer,
+    bitwise the JAX package's, on ``device`` (``None`` = the card).
+
+    ``len(src)`` must divide by ``num_shards`` (pad with
+    ``core.distributed.pad_edges_for_mesh``); shard s owns the s-th
+    contiguous slice.  The chunk count is the worst shard's, pow2-snapped,
+    so an all-padding shard still has the shared shapes (zero weights and
+    degrees)."""
+    dev = resolve_device(device)
+    src = _host(src).astype(np.int64)
+    dst = _host(dst).astype(np.int64)
+    weight = _host(weight).astype(np.float32)
+    e = src.shape[0]
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if e % num_shards != 0:
+        raise ValueError(
+            f"edge buffer ({e}) does not divide into {num_shards} shards;"
+            " pad with distributed.pad_edges_for_mesh first")
+    per = e // num_shards
+    nb = max((num_nodes + block_n - 1) // block_n, 1)
+    n_pad = nb * block_n
+    sl = [slice(s * per, (s + 1) * per) for s in range(num_shards)]
+    shards = [_block_sorted_half_edges(src[x], dst[x], weight[x], block_n, nb)
+              for x in sl]
+    nc = next_pow2(max(int(_chunk_counts(counts, block_e).sum())
+                       for _, _, _, counts in shards))
+    ul = np.zeros((num_shards, nc * block_e), np.int32)
+    ot = np.zeros((num_shards, nc * block_e), np.int32)
+    wt = np.zeros((num_shards, nc * block_e), np.float32)
+    cb = np.zeros((num_shards, nc + 1), np.int32)
+    deg = np.zeros((num_shards, n_pad), np.float32)
+    bc = np.zeros((num_shards, nb + 1), np.int32)
+    for s, (u, o, w2, counts) in enumerate(shards):
+        ul[s], ot[s], wt[s], cb[s] = _fill_chunked(
+            u, o, w2, counts, nb, nc, block_n, block_e)
+        deg[s] = _weighted_degrees(src[sl[s]], dst[sl[s]], weight[sl[s]], n_pad)
+        bc[s] = block_chunk_offsets(counts, block_e)
+    return ShardedNodeBlocking(
+        u_local=torch.from_numpy(ul).to(dev),
+        other=torch.from_numpy(ot).to(dev),
+        weight=torch.from_numpy(wt).to(dev),
+        chunk_block=torch.from_numpy(cb).to(dev),
+        deg=torch.from_numpy(deg).to(dev),
+        block_n=block_n,
+        block_e=block_e,
+        num_chunks=nc,
+        num_nodes=int(num_nodes),
+        num_shards=int(num_shards),
+        block_chunks=torch.from_numpy(bc).to(dev),
     )
 
 

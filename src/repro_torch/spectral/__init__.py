@@ -26,6 +26,7 @@ from repro_torch.spectral.probes import (  # noqa: F401
     probe_edge_arrays,
     probe_from_eigenvalues,
     probe_graph,
+    probe_sharded_edge_arrays,
     slq_probe,
     spectral_density,
 )

@@ -31,7 +31,8 @@ tests inject the same probe vectors to compare the two.  ``ritz``,
 readouts cast them to float64, so a plan depends on the same values.
 
 Node-padded operators are handled by ``n_real``: probe vectors are
-masked to the first ``n_real`` rows.
+masked to the first ``n_real`` rows.  ``probe_sharded_edge_arrays`` runs
+the same probe over edge buffers sharded across ranks.
 """
 from __future__ import annotations
 
@@ -183,6 +184,41 @@ def probe_edge_arrays(
     matvec = backend_mod.edge_arrays_matvec_fn(src, dst, weight, backend)
     return slq_probe(matvec, num_nodes, generator, num_probes=num_probes,
                      num_steps=num_steps, n_real=n_real)
+
+
+def probe_sharded_edge_arrays(
+    mesh,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    weight: torch.Tensor,
+    generator: torch.Generator | None,
+    n_real: int | torch.Tensor,
+    *,
+    num_nodes: int,
+    edge_axes=("data",),
+    num_probes: int = 4,
+    num_steps: int = 24,
+    backend: str = "auto",
+    v0: torch.Tensor | None = None,
+) -> ProbeResult:
+    """SLQ over edge buffers SHARDED over the mesh's edge axes: the same
+    Lanczos recurrence as :func:`probe_edge_arrays`, each matvec the
+    rank's slice (K1 over its row CSR on the card) and one all_reduce
+    (``core.distributed``), so a sharded service's dilation anchors agree
+    with a one-device service's up to the order of the sums.  Every rank
+    passes the same global buffers (their length divisible by the shard
+    count) and the same ``generator`` state or ``v0``, and gets the same
+    result."""
+    from repro_torch import parallel
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import distributed
+
+    local = distributed._local_fused(
+        mesh, edge_axes, src, dst, weight, num_nodes,
+        backend_mod.resolve_backend(backend, src.device))
+    matvec = distributed._psum_matvec(local, parallel.edge_group(mesh, edge_axes))
+    return slq_probe(matvec, num_nodes, generator, num_probes=num_probes,
+                     num_steps=num_steps, n_real=n_real, v0=v0)
 
 
 def probe_graph(

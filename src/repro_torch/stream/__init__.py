@@ -27,8 +27,12 @@ updates
 tracking
     Stable cluster ids across re-solves: greedy maximum-overlap matching.
 
-The JAX package's sharded ticks (``sharded``) are not ported yet
-(ROADMAP slice 7).
+sharded
+    The edge-sharded serving policy (``ServiceConfig(mesh=...)``): every
+    rank runs the service, ticks and probes shard the edge buffers with
+    one all_reduce per dilation matvec, and ``balanced_capacity`` keeps
+    every capacity a multiple of the shard count.  Panel (model-axis)
+    sharding is ROADMAP slice 7b.
 """
 from repro_torch.stream.graph_store import (  # noqa: F401
     CAPACITY_CLASSES,
@@ -46,7 +50,10 @@ from repro_torch.stream.graph_store import (  # noqa: F401
     make_edge_batch,
     num_edges,
     refresh_degrees,
+    shard_edge_rows,
+    sharded_node_blocking,
 )
+from repro_torch.stream.sharded import balanced_capacity  # noqa: F401
 from repro_torch.stream.service import (  # noqa: F401
     ServiceConfig,
     StreamingService,

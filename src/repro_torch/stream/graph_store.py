@@ -12,8 +12,9 @@ contributes nothing to any edge-wise computation (the contract of
 Degrees are cached and recomputed lazily: mutations only set
 ``deg_dirty``; :func:`refresh_degrees` recomputes the next time degrees
 are needed (spectral-radius bound, dilation scale).  The row CSR the
-kernels read (:func:`edge_rows`) is cached per store the same way; every
-mutation returns a new store whose cache is empty.
+kernels read (:func:`edge_rows`), and the row CSR of a rank's shard of
+the buffer (:func:`shard_edge_rows`), are cached per store the same way;
+every mutation returns a new store whose cache is empty.
 
 :func:`apply_edge_batch` gives the JAX package's results bit for bit
 without its (B, capacity) match: it sorts the live slots' keys
@@ -29,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import parallel
 from repro_torch.core import backend as backend_mod
 from repro_torch.core.laplacian import EdgeList
 from repro_torch.device import resolve_device
@@ -302,6 +304,36 @@ def edge_rows(store: GraphStore) -> es_ops.EdgeRows:
         store._cache["rows"] = es_ops.build_edge_rows(
             store.src, store.dst, store.weight, store.num_nodes)
     return store._cache["rows"]
+
+
+def shard_edge_rows(store: GraphStore, mesh, edge_axes=("data",)
+                    ) -> es_ops.EdgeRows:
+    """The row CSR of this rank's contiguous slice of the store's edge
+    buffer (``parallel.shard_bounds``; the capacity must divide by the
+    mesh's edge shards, as ``stream.sharded.balanced_capacity`` keeps
+    it): what the rank's K1/K2 read in an edge-sharded tick.  Cached on
+    the store like :func:`edge_rows`, so a mutation, which returns a new
+    store, empties it."""
+    lo, hi = parallel.shard_bounds(store.capacity, mesh, edge_axes)
+    key = ("shard_rows", lo, hi)
+    if key not in store._cache:
+        store._cache[key] = es_ops.build_edge_rows(
+            store.src[lo:hi], store.dst[lo:hi], store.weight[lo:hi],
+            store.num_nodes)
+    return store._cache[key]
+
+
+def sharded_node_blocking(store: GraphStore, num_shards: int,
+                          *, block_n: int = 512, block_e: int = 128
+                          ) -> es_ops.ShardedNodeBlocking:
+    """The JAX package's per-shard node blockings of the store's edge
+    buffer (host-side, bitwise), on the store's device.  The capacity
+    must divide into ``num_shards``.  No kernel reads it: the sharded
+    tick reads :func:`shard_edge_rows`."""
+    return es_ops.build_sharded_node_blocking(
+        store.src, store.dst, store.weight, store.num_nodes, num_shards,
+        block_n=min(block_n, store.num_nodes), block_e=block_e,
+        device=store.device)
 
 
 def fused_step(store: GraphStore, backend: str = "auto"

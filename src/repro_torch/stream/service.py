@@ -52,8 +52,14 @@ Random draws (admission panels, probe vectors, cold restarts, k-means)
 come from ``torch.Generator`` s seeded from
 ``SeedSequence([seed + offset, index])``; they differ from the JAX
 package's ``jax.random`` draws, and ``resume_panel`` starts both
-packages from one panel.  The sharded serving modes (``mesh``,
-``model_axes``) are ROADMAP slice 7.
+packages from one panel.
+
+EDGE-SHARDED serving (``ServiceConfig(mesh=...)``, :mod:`.sharded`):
+every rank of the mesh runs this service on the same inputs, with the
+same stores, panels and decisions; each group tick runs on the rank's
+shard of every member's edge buffer with one all_reduce per dilation
+factor, and admission probes run through the same sharded matvec.
+Panel (model-axis) sharding is ROADMAP slice 7b.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.spectral import plan as plan_mod
 from repro_torch.spectral import probes as spectral_probes
 from repro_torch.stream import graph_store as gs
+from repro_torch.stream import sharded as sharded_mod
 from repro_torch.stream import tracking, updates
 
 _next_pow2 = es_ops.next_pow2
@@ -166,9 +173,14 @@ class ServiceConfig:
     # The JAX package's node-block rows per tick; the port's group layout
     # is a row CSR with no node blocks, so only the default is accepted.
     tick_block_n: int = 512
-    # sharded serving (ROADMAP slice 7): must stay at the defaults
+    # EDGE-SHARDED serving: a torch.distributed DeviceMesh (every rank
+    # runs the service); group ticks and admission probes shard the edge
+    # buffers over `edge_axes` with one all_reduce per dilation matvec,
+    # and admission/growth round edge capacities up to a multiple of the
+    # shard count.  None = one-device ticks.
     mesh: object | None = None
     edge_axes: tuple = ("data",)
+    # panel (model-axis) sharding: ROADMAP slice 7b, refused
     model_axes: tuple | None = None
     # "residual_decay" gives each session its own chunk budget when it is
     # forecast to stay above `eval_payoff * steps_per_tick` steps from
@@ -193,11 +205,16 @@ class ServiceConfig:
             raise ValueError(
                 "tick_block_n: the port's tick layout has no node blocks "
                 "(a row CSR); leave it at 512")
-        if (self.mesh is not None or self.model_axes is not None
-                or tuple(self.edge_axes) != ("data",)):
+        if self.model_axes is not None:
             raise NotImplementedError(
-                "sharded serving (mesh / edge_axes / model_axes) is not "
-                "ported yet: ROADMAP slice 7")
+                "panel-sharded serving (model_axes) is not ported yet: "
+                "ROADMAP slice 7b")
+        if self.mesh is not None:
+            names = getattr(self.mesh, "mesh_dim_names", None) or ()
+            missing = [a for a in self.edge_axes if a not in names]
+            if missing:
+                raise ValueError(f"mesh axes {missing} not in mesh axes "
+                                 f"{tuple(names)}")
 
 
 @dataclasses.dataclass
@@ -268,6 +285,9 @@ class StreamingService:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._backend = backend_mod.resolve_backend(cfg.backend, self.device)
+        self._mesh = cfg.mesh
+        self._num_shards = (sharded_mod.num_edge_shards(cfg.mesh, cfg.edge_axes)
+                            if cfg.mesh is not None else 1)
         self._sessions: dict[str, _Session] = {}
         self._compiled: dict[tuple, program.TickProgram] = {}
         self._admitted = 0
@@ -293,6 +313,17 @@ class StreamingService:
     def session_ids(self) -> list[str]:
         return list(self._sessions)
 
+    def _balanced(self, capacity: int) -> int:
+        """Edge capacity rounded up to a shard-balanced size."""
+        return sharded_mod.balanced_capacity(capacity, self._num_shards)
+
+    def _tick_rows(self, store: gs.GraphStore) -> es_ops.EdgeRows:
+        """The row CSR a group tick reads for a member: the store's own,
+        or on a mesh this rank's shard of it."""
+        if self._mesh is None:
+            return gs.edge_rows(store)
+        return gs.shard_edge_rows(store, self._mesh, self.cfg.edge_axes)
+
     def _fused(self, store: gs.GraphStore) -> backend_mod.FusedStep:
         """The store's fused step on the service's backend, over its
         cached row CSR on the kernel path."""
@@ -317,13 +348,22 @@ class StreamingService:
         lam_k = lam_k1 = None
         if cfg.probe_spectrum and n > 1:
             self._probes_run += 1
-            fused = self._fused(store)
-            probe = spectral_probes.slq_probe(
-                lambda v: fused(v, 1.0, 0.0), store.num_nodes,
-                _generator(self.device, cfg.seed + _PROBE_SEED,
-                           self._probes_run),
-                num_probes=cfg.probe_vectors, num_steps=cfg.probe_steps,
-                n_real=n)
+            gen = _generator(self.device, cfg.seed + _PROBE_SEED,
+                             self._probes_run)
+            if self._mesh is not None:
+                # the tick's decomposition: the rank's slice, one
+                # all_reduce per Lanczos matvec
+                probe = spectral_probes.probe_sharded_edge_arrays(
+                    self._mesh, store.src, store.dst, store.weight, gen, n,
+                    num_nodes=store.num_nodes, edge_axes=cfg.edge_axes,
+                    num_probes=cfg.probe_vectors, num_steps=cfg.probe_steps,
+                    backend=self._backend)
+            else:
+                fused = self._fused(store)
+                probe = spectral_probes.slq_probe(
+                    lambda v: fused(v, 1.0, 0.0), store.num_nodes, gen,
+                    num_probes=cfg.probe_vectors, num_steps=cfg.probe_steps,
+                    n_real=n)
             est = float(probe.lambda_max)
             if np.isfinite(est) and est > 0.0:
                 rho = min(est, rho_ub)
@@ -397,7 +437,8 @@ class StreamingService:
         node_cap = node_capacity_class(g.num_nodes)
         cap = (gs.capacity_class(g.num_edges) if edge_capacity is None
                else edge_capacity)
-        store = gs.from_edge_list(g, capacity=cap, num_nodes=node_cap)
+        store = gs.from_edge_list(g, capacity=self._balanced(cap),
+                                  num_nodes=node_cap)
         store, rho, rho_ub, lam_k, lam_k1 = self._rho_estimate(
             store, g.num_nodes)
         index = self._admitted
@@ -477,8 +518,11 @@ class StreamingService:
         while int(stats.dropped) > 0:
             # buffer overflow: grow the ORIGINAL store (apply is
             # functional) and re-apply the whole batch, growing again
-            # until nothing drops; the session changes capacity class
+            # until nothing drops; the session changes capacity class.
+            # Sharded serving keeps the capacity a multiple of the shards.
             base = gs.grow(base)
+            if base.capacity != self._balanced(base.capacity):
+                base = gs.grow(base, self._balanced(base.capacity))
             store, dw, stats = gs.apply_edge_batch(base, batch, mode=mode)
         # Ordinary batches rescale cheaply: track the probed estimate by
         # the Gershgorin bound's relative change, capped by the fresh
@@ -594,7 +638,9 @@ class StreamingService:
             schedule = program.StepSchedule(
                 method=self.cfg.method, degree=key[1],
                 steps=self.cfg.steps_per_tick, backend=self._backend)
-            prog = program.build_tick_program(schedule, self.device)
+            prog = program.build_tick_program(
+                schedule, self.device, mesh=self._mesh,
+                edge_axes=self.cfg.edge_axes)
             self._compiled[(key, occupancy)] = prog
         return prog
 
@@ -603,7 +649,8 @@ class StreamingService:
         """Tick programs built: one per (capacity class, degree) x pow2
         occupancy bucket, so the count stays logarithmic in fleet size.
         On the card each captures its CUDA graphs once, at its first
-        call, so this is also the capture count.  The scheduler's
+        call, so this is also the capture count (edge-sharded programs
+        capture none).  The scheduler's
         multipliers, per-session c and lr, updates and membership
         changes add none."""
         return len(self._compiled)
@@ -684,7 +731,7 @@ class StreamingService:
                 idx = list(range(len(members))) + [0] * (occ - len(members))
                 slots = [members[i] for i in idx]
                 vs, res = step(
-                    [gs.edge_rows(s.store) for s in slots],
+                    [self._tick_rows(s.store) for s in slots],
                     [program.dilation_scale(s.plan, deg) for s in slots],
                     torch.stack([s.v for s in slots]),
                     [s.lr for s in slots], mults[np.asarray(idx)])

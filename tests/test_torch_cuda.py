@@ -919,3 +919,57 @@ def test_http_shell_serves_on_the_card(dev):
         if proc.poll() is None:
             proc.kill()
             proc.communicate(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# the edge-sharded paths: 2 ranks on this card over gloo (NCCL refuses two
+# ranks on one GPU); the rank bodies live in tests/torch_dist_ranks.py
+# ---------------------------------------------------------------------------
+
+def test_sharded_k2_series_on_two_ranks_matches_one_process(dev):
+    import torch_dist_ranks as ranks
+    from repro_torch import parallel
+
+    edges, w = ranks.rand_edges(7, 8192, 60000)
+    v = ranks.panel(8, 8192, 10)
+    g = lap.make_edge_list(edges, 8192, weights=w, device=dev)
+    scale = 4.0 / float(lap.spectral_radius_upper_bound(g))
+    want = operators.edge_series_operator(
+        g, limit_neg_exp(15, scale=scale), backend="kernel")(
+            torch.from_numpy(v).to(dev))
+    results = parallel.run_ranks(2, ranks.card_series, edges, w, 8192, v, 15,
+                                 scale, device=dev, timeout=300.0)
+    got = [r.value for r in results]
+    assert parallel.bitwise_equal(got)
+    assert _rel_err(torch.from_numpy(got[0]).to(dev), want) <= REL
+    for r in results:  # one K2 launch per factor on each rank's shard
+        assert r.launches["edge_spmm_nb"] == 15
+
+
+def test_sharded_kernel_tick_on_two_ranks_matches_one_process(dev):
+    import torch_dist_ranks as ranks
+    from repro_torch import parallel
+    from repro_torch.core import program
+    from repro_torch.stream import graph_store as gs
+
+    graphs_np = [ranks.rand_edges(20 + i, 1024, 6000) for i in range(2)]
+    cs, lrs, chunks = [0.01, 0.02], [0.3, 0.2], (1, 2)
+    vs = np.stack([ranks.panel(30 + i, 1024, 6) for i in range(2)])
+    stores = [gs.from_edge_list(lap.make_edge_list(e, 1024, weights=w_,
+                                                   device=dev), capacity=8192)
+              for e, w_ in graphs_np]
+    prog = program.build_tick_program(
+        program.StepSchedule(degree=7, steps=3, backend="kernel"), dev)
+    want = prog([gs.edge_rows(st) for st in stores], cs,
+                torch.from_numpy(vs).to(dev), lrs, chunks)
+    results = parallel.run_ranks(2, ranks.card_tick, graphs_np, 1024, 8192,
+                                 cs, vs, lrs, chunks, 7, 3, device=dev,
+                                 timeout=300.0)
+    for j in range(2):
+        got = [r.value[j] for r in results]
+        assert parallel.bitwise_equal(got)
+        assert _rel_err(torch.from_numpy(got[0]).to(dev), want[j]) <= REL
+    assert all(r.value[2] == 0 for r in results)  # eager: nothing captured
+    for r in results:  # K1 (2 x 1024 rows) per factor, K3/K4 per member
+        assert r.launches["edge_spmm"] == 7 * (3 * 2 + 1)
+        assert r.launches["gram2k"] == r.launches["panel_mix"] == 3 * 2 * 2

@@ -237,10 +237,13 @@ def test_one_program_refills_its_layout_between_sub_batches():
 
 
 def test_sharded_ticks_raise_naming_slice_7():
+    # the edge-sharded tick (mesh) is tests/test_torch_distributed.py's;
+    # the panel-sharded one is slice 7b
     sched = program.StepSchedule()
-    for kw in ({"mesh": object()}, {"model_axes": ("model",)}):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            program.build_tick_program(sched, CPU, **kw)
+    with pytest.raises(NotImplementedError, match="slice 7b"):
+        program.build_tick_program(sched, CPU, model_axes=("model",))
+    with pytest.raises(AttributeError):  # a mesh must be a DeviceMesh
+        program.build_tick_program(sched, CPU, mesh=object())
 
 
 def test_kernel_tick_refuses_cpu():

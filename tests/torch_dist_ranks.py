@@ -1,0 +1,282 @@
+"""Rank bodies and shared inputs of tests/test_torch_distributed.py.
+
+The test spawns one world per shard count (``parallel.run_ranks``); each
+rank imports this module by name (the spawned interpreter gets the
+test's ``sys.path``), runs :func:`run_all` on the CPU over ``gloo`` and
+returns every case's output as numpy.  The inputs are built from numpy
+seeds by the functions below, which the test also calls to build the
+JAX side's inputs: both packages see the same edges, panels and draws.
+This module imports torch, numpy and the port only.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import parallel
+from repro_torch.core import backend, distributed, graphs, kmeans, metrics
+from repro_torch.core import laplacian as lap
+from repro_torch.core import program, solvers
+from repro_torch.core.series import limit_neg_exp
+from repro_torch.core.walks import WalkBatch
+from repro_torch.spectral import probes
+from repro_torch.stream import graph_store as gs
+from repro_torch.stream.service import ServiceConfig, StreamingService
+
+CPU = "cpu"
+CASE_NAMES = ("capacity_padded", "non_aligned", "weighted")
+
+
+# ---------------------------------------------------------------------------
+# inputs (numpy, shared with the JAX side)
+# ---------------------------------------------------------------------------
+
+def rand_edges(seed: int, n: int, e: int):
+    """tests/test_distributed.py's ``_rand_graph`` as numpy pairs, weights."""
+    rng = np.random.default_rng(seed)
+    edges = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)], axis=1)
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    w = rng.uniform(0.1, 2.0, size=len(edges)).astype(np.float32)
+    return edges, w
+
+
+def case_arrays(name: str):
+    """(edges, weights, n, capacity or None) of tests/test_distributed.py's
+    CASES: weighted / capacity-padded / non-aligned."""
+    if name == "weighted":
+        return (*rand_edges(0, 96, 300), 96, None)
+    if name == "capacity_padded":
+        return (*rand_edges(1, 96, 300), 96, 512)
+    return (*rand_edges(2, 301, 517), 301, None)
+
+
+def panel(seed: int, n: int, k: int) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=(n, k)).astype(np.float32)
+
+
+def service_common() -> dict:
+    return dict(k=5, num_clusters=3, degree=7, steps_per_tick=5, lr=0.3,
+                seed=0, probe_spectrum=False, tick_schedule="round_robin")
+
+
+UPDATE = ([[0, 5], [1, 7]], [1.0, 1.0])
+SCRIPT_TICKS = 3  # ticks after the update batch
+SOLVE_STEPS = 100  # the clique solve
+UNTIL_TICKS = 20  # the service script's last run_until_converged
+TICK_CHUNKS = (1, 2)  # the direct tick's per-member chunk budgets
+
+
+def _graph(name: str) -> lap.EdgeList:
+    edges, w, n, cap = case_arrays(name)
+    g = lap.make_edge_list(edges, n, weights=w, device=CPU)
+    return lap.pad_edge_list(g, cap) if cap else g
+
+
+def service_graphs() -> dict:
+    """tests/test_distributed.py's ``_service_graphs`` in the port."""
+    g_sbm, _ = graphs.sbm_graph(120, 3, p_in=0.35, p_out=0.03, seed=1,
+                                device=CPU)
+    return {"weighted": _graph("weighted"), "capacity_padded": g_sbm,
+            "non_aligned": _graph("non_aligned")}
+
+
+# ---------------------------------------------------------------------------
+# the rank body
+# ---------------------------------------------------------------------------
+
+def _operators(mesh, out: dict) -> None:
+    num_shards = parallel.num_edge_shards(mesh)
+    seg = distributed.sharded_laplacian_matvec(mesh, backend="segment")
+    for name in CASE_NAMES:
+        g = _graph(name)
+        v = torch.from_numpy(panel(6, g.num_nodes, 4))
+        gp = distributed.pad_edges_for_mesh(g, num_shards)
+        out[f"{name}/matvec"] = seg(gp.src, gp.dst, gp.weight, v)
+        sb = backend.sharded_blocking_for(gp, num_shards, block_n=64)
+        out[f"{name}/blocked"] = distributed.sharded_blocked_matvec(mesh, sb)(v)
+        rho = float(lap.spectral_radius_upper_bound(g))
+        with program.count_psums() as stats:
+            out[f"{name}/series"] = distributed.distributed_series_operator(
+                mesh, g, limit_neg_exp(7, scale=1.2 / rho),
+                backend="segment")(v)
+        out[f"{name}/series_psums"] = (stats.plain, stats.fused)
+        out[f"{name}/series_blocked"] = distributed.distributed_series_operator(
+            mesh, g, limit_neg_exp(9, scale=1.0 / rho), block_n=64)(v)
+    # several edge axes: a (2, S/2) or (S, 1) ("pod", "data") mesh
+    world = parallel.num_edge_shards(mesh)
+    shape = (2, world // 2) if world % 2 == 0 else (world, 1)
+    mesh2 = parallel.make_mesh(shape, ("pod", "data"), CPU)
+    g = _graph("non_aligned")
+    v = torch.from_numpy(panel(6, g.num_nodes, 4))
+    rho = float(lap.spectral_radius_upper_bound(g))
+    s7 = limit_neg_exp(7, scale=1.2 / rho)
+    for axes in (("pod", "data"), ("data",)):
+        key = "+".join(axes)
+        out[f"axes/{key}"] = distributed.distributed_series_operator(
+            mesh2, g, s7, edge_axes=axes, backend="segment")(v)
+        out[f"axes/{key}/shards"] = parallel.num_edge_shards(mesh2, axes)
+        out[f"axes/{key}/sidx"] = parallel.shard_index(mesh2, axes)
+
+
+def _solves(mesh, out: dict) -> None:
+    g = _graph("weighted")
+    rho = float(lap.spectral_radius_upper_bound(g))
+    cfg = solvers.SolverConfig(method="mu_eg", lr=0.3, steps=10, eval_every=5,
+                               k=4, seed=0, backend="segment")
+    init = torch.from_numpy(panel(12, g.num_nodes, 4))
+    state, _ = distributed.distributed_solve(
+        mesh, g, limit_neg_exp(7, scale=1.2 / rho), cfg, backend="segment",
+        init_v=init)
+    out["solve/v"] = state.v
+    # the clique solve to its bars: subspace error against dense eigh,
+    # agreement of the labels
+    gc, truth = graphs.clique_graph(120, 3, seed=0, device=CPU)
+    rho = float(lap.spectral_radius_upper_bound(gc))
+    _, v_star = metrics.ground_truth_bottom_k(lap.laplacian_dense(gc), 3)
+    cfg = solvers.SolverConfig(method="mu_eg", lr=0.4, steps=SOLVE_STEPS,
+                               eval_every=100, k=3, seed=0, backend="segment")
+    state, trace = distributed.distributed_solve(
+        mesh, gc, limit_neg_exp(21, scale=8.0 / rho), cfg, backend="segment",
+        v_star=v_star, init_v=torch.from_numpy(panel(13, 120, 3)))
+    emb = state.v[:, 1:3]
+    emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True),
+                            min=1e-12)
+    labels = kmeans.kmeans(torch.Generator().manual_seed(1), emb, 3).labels
+    out["clique/v"] = state.v
+    out["clique/subspace_error"] = trace.subspace_error
+    out["clique/agreement"] = float(kmeans.cluster_agreement(labels, truth, 3))
+
+
+def _probe(mesh, out: dict, probe_v0: np.ndarray) -> None:
+    g = _graph("weighted")
+    gp = distributed.pad_edges_for_mesh(g, parallel.num_edge_shards(mesh))
+    res = probes.probe_sharded_edge_arrays(
+        mesh, gp.src, gp.dst, gp.weight, None, g.num_nodes,
+        num_nodes=g.num_nodes, backend="segment",
+        v0=torch.from_numpy(probe_v0))
+    out["probe/lambda_max"] = float(res.lambda_max)
+    out["probe/trace"] = float(res.trace)
+    out["probe/ritz"] = res.ritz
+    out["probe/weights"] = res.weights
+
+
+def _stochastic(mesh, out: dict, draws: dict) -> None:
+    sidx = parallel.shard_index(mesh)
+    gc, _ = graphs.clique_graph(120, 3, seed=0, device=CPU)
+    rho = float(lap.spectral_radius_upper_bound(gc))
+    v = torch.from_numpy(panel(14, 120, 3))
+    op = distributed.distributed_minibatch_operator(
+        mesh, gc, limit_neg_exp(5, scale=2.0 / rho), draws["batch"],
+        backend="segment")
+    out["minibatch"] = op(None, v, sel=torch.from_numpy(draws["sel"][sidx]))
+    # the ranks' own draws: independent across ranks, equal within a rank
+    gen = torch.Generator().manual_seed(3)
+    out["minibatch/drawn"] = op(gen, v)
+    gr, _ = graphs.ring_of_cliques(3, 4, device=CPU)
+    inc = lap.build_edge_incidence(gr)
+    v = torch.eye(gr.num_nodes)
+    wb = WalkBatch(*(torch.tensor(a) for a in draws["walks"][sidx]))
+    for mode in ("importance", "rejection"):
+        op = distributed.distributed_walk_operator(
+            mesh, gr, inc, draws["coeffs"], 0.7, draws["walkers"], mode=mode)
+        out[f"walks/{mode}"] = op(None, v, walks=wb,
+                                  coins=torch.from_numpy(draws["coins"][sidx]))
+
+
+def _ticks(mesh, out: dict, tick_in: dict) -> None:
+    sched = program.StepSchedule(degree=5, steps=4, backend="segment")
+    stores = [gs.from_edge_list(lap.make_edge_list(e, 96, weights=w,
+                                                   device=CPU), capacity=512)
+              for e, w in tick_in["graphs"]]
+    rows = [gs.shard_edge_rows(st, mesh) for st in stores]
+    prog = program.build_tick_program(sched, CPU, mesh=mesh)
+    with program.count_psums() as stats:
+        vs, res = prog(rows, tick_in["cs"], torch.from_numpy(tick_in["vs"]),
+                       tick_in["lrs"], TICK_CHUNKS)
+    out["tick/vs"], out["tick/res"] = vs, res
+    out["tick/psums"] = (stats.plain, stats.fused)
+    out["tick/captures"] = prog.captures
+    # a tuple is ONE all_reduce of its flat concatenation, counted fused
+    sidx = float(parallel.shard_index(mesh))
+    with program.count_psums() as stats:
+        out["psum/tuple/0"], out["psum/tuple/1"] = program._psum(
+            (torch.full((3,), sidx), torch.full((2, 2), 2 * sidx)),
+            parallel.edge_group(mesh))
+    out["psum/tuple_counts"] = (stats.plain, stats.fused)
+
+
+def _service(mesh, out: dict, resume: dict) -> None:
+    num_shards = parallel.num_edge_shards(mesh)
+    svc = StreamingService(ServiceConfig(mesh=mesh, **service_common()),
+                           device=CPU)
+    for sid, g in service_graphs().items():
+        svc.add_graph(sid, g, resume_panel=resume[sid])
+    out["svc/capacities_balanced"] = all(
+        s.store.capacity % num_shards == 0 for s in svc._sessions.values())
+    out["svc/tick1"] = svc.tick()
+    out["svc/panels1"] = {sid: svc.panel(sid) for sid in svc.session_ids()}
+    stats = svc.apply_updates("weighted", *UPDATE)
+    out["svc/stats"] = tuple(int(x) for x in stats)
+    out["svc/ticks"] = [svc.tick() for _ in range(SCRIPT_TICKS)]
+    summary = svc.evict("non_aligned")
+    out["svc/evicted"] = (summary["residual"], summary["ticks"],
+                          summary["panel"])
+    out["svc/until"] = svc.run_until_converged(max_ticks=UNTIL_TICKS)
+    out["svc/info"] = {sid: svc.session_info(sid)
+                       for sid in svc.session_ids()}
+    out["svc/counters"] = (svc.tick_invocations, svc.device_work,
+                           svc.compile_count,
+                           sum(p.captures for p in svc._compiled.values()))
+    # an edgeless admission: every shard's slice is all padding
+    empty = StreamingService(ServiceConfig(
+        mesh=mesh, **dict(service_common(), k=4, degree=5, steps_per_tick=3)),
+        device=CPU)
+    empty.add_graph("empty", lap.make_edge_list(np.zeros((0, 2), np.int64), 40,
+                                                device=CPU),
+                    resume_panel=resume["empty"])
+    out["empty/tick"] = empty.tick()
+    out["empty/v"] = empty.panel("empty")
+
+
+def run_all(dev, inputs: dict) -> dict:
+    """Every case of the test on this rank; returns {name: output}."""
+    torch.set_num_threads(1)  # several ranks share the test worker's CPU
+    mesh = parallel.default_edge_mesh(device=dev)
+    out: dict = {"sidx": parallel.shard_index(mesh),
+                 "shards": parallel.num_edge_shards(mesh)}
+    _operators(mesh, out)
+    _solves(mesh, out)
+    _probe(mesh, out, inputs["probe_v0"])
+    _stochastic(mesh, out, inputs["draws"])
+    _ticks(mesh, out, inputs["tick"])
+    _service(mesh, out, inputs["resume"])
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# card rank bodies (tests/test_torch_cuda.py): ranks on one card, gloo
+# ---------------------------------------------------------------------------
+
+def card_series(dev, edges, w, n: int, v, degree: int, scale: float):
+    """The edge-sharded series operator (K1/K2 per shard) on ``v``."""
+    mesh = parallel.default_edge_mesh(device=dev)
+    g = lap.make_edge_list(edges, n, weights=w, device=dev)
+    op = distributed.distributed_series_operator(
+        mesh, g, limit_neg_exp(degree, scale=scale), backend="kernel")
+    return op(torch.from_numpy(v).to(dev))
+
+
+def card_tick(dev, graphs_np, n: int, capacity: int, cs, vs, lrs, chunks,
+              degree: int, steps: int):
+    """One edge-sharded kernel tick of a group of stores."""
+    mesh = parallel.default_edge_mesh(device=dev)
+    stores = [gs.from_edge_list(lap.make_edge_list(e, n, weights=w,
+                                                   device=dev),
+                                capacity=capacity) for e, w in graphs_np]
+    prog = program.build_tick_program(
+        program.StepSchedule(degree=degree, steps=steps, backend="kernel"),
+        dev, mesh=mesh)
+    vs, res = prog([gs.shard_edge_rows(st, mesh) for st in stores], cs,
+                   torch.from_numpy(vs).to(dev), lrs, chunks)
+    return vs, res, prog.captures
