@@ -20,6 +20,11 @@ outside a checkout.  Phases, one JSON line each:
              16-byte boundary: error and the bitwise check
    hub     - K2 on power_law_graph(2^20, 8, 2.5, seed=0), whose longest
              rows go to the kernel's hub blocks: error, time, bound
+   check_rectangular - K2's rectangular launch (a panel shard's owned
+             rows, self terms a row range of the panel) on shard 1 of 2
+             of the 2^20 SBM, held to its twin and to the square launch;
+             phase 23 adds both shards of the million-node graph, checked
+             in their ranks
 3. small   - spectral_cluster on a 160-node clique graph (600 mu-EG steps,
              degree-251 limit_neg_exp): agreement with the planted labels
 4. full    - spectral_cluster on a 2^20-node sparse SBM (E ~ 8.9 M, k = 10,
@@ -124,7 +129,27 @@ outside a checkout.  Phases, one JSON line each:
              phase 14's; then one degree-11 tick of phase 15's tenant 0
              (2^20 nodes, capacity 2^24) on 2 ranks held to its one-process
              tick
-22. kernels - per kernel: launches on the main path (phases 3-21 but the
+22. model_sharded_small - benchmarks/bench_distributed.py's model tick
+             shape (sparse_sbm_graph(9216, 4, 3.0, 0.5, seed=0), k = 6,
+             degree 7, 5 steps, c = 0.01, lr 0.3) panel-sharded on 2 ranks
+             of this card, mu-EG and Oja: each rank's K2 on its owned rows
+             per factor, per mu-EG step one fused rows + gram all_reduce;
+             held to one process's kernel tick from the same panel; the
+             run-time plain and fused all_reduce counts; the per-factor
+             split (the owned rows' K2 in CUDA events, the all_reduce by
+             the host clock)
+23. model_sharded_full - phase 21's 2^20 tenant tick panel-sharded on 2
+             ranks, held to the same one-process tick, beside phase 21's
+             edge-sharded seconds; then the README's million-node row:
+             power_law_graph(10^6, 100, 2.5, seed=0, dedup=False) (E ~ 5e7,
+             each rank generating it from its seed) at capacity 2^26 in a
+             panel-sharded StreamingService on 2 ranks (k = 10, phase 15's
+             degree budget): admission with the probe, the plan, one tick
+             (rank 0 holds it to the same tick in one process, from the
+             same panel and plan), peak memory per rank, the split on each
+             rank's owned rows, and K2's rectangular launch there held to
+             its twin in each rank
+24. kernels - per kernel: launches on the main path (phases 3-23 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -236,6 +261,17 @@ SHARDED_SPLIT_REPS = 5
 SHARDED_SERVICE_RANKS = 2
 SHARDED_TENANT_CAPACITY = 1 << 24
 SHARDED_TIMEOUT_S = 400.0
+# the panel-sharded phases: 2 ranks on the card over gloo
+MODEL_RANKS = 2
+# benchmarks/bench_distributed.py's model_tick_warm shape
+MODEL_SMALL_N, MODEL_SMALL_K = 9216, 6
+MODEL_SMALL_DEGREE, MODEL_SMALL_STEPS = 7, 5
+MODEL_SMALL_C, MODEL_SMALL_LR = 0.01, 0.3
+MODEL_SPLIT_REPS = 5
+# the README's million-node row: power_law_graph(1e6, 100, 2.5, seed=0,
+# dedup=False), E ~ 5e7, at the top capacity class
+MILLION_N, MILLION_AVG_DEGREE, MILLION_ALPHA = 1_000_000, 100.0, 2.5
+MILLION_CAPACITY = 1 << 26
 
 
 def emit(obj) -> None:
@@ -946,6 +982,210 @@ def sharded_tick_rank(dev, src, dst, w, n: int, capacity: int, v0, c: float,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
 
 
+def _model_mesh(dev):
+    """The ("data", "model") mesh of shape (1, world size): panels
+    sharded over "model"."""
+    import torch.distributed as dist
+
+    from repro_torch import parallel
+
+    return parallel.make_mesh((1, dist.get_world_size()), ("data", "model"),
+                              dev)
+
+
+def _model_factor_split(dev, rows, v, c: float, mesh, reps: int) -> dict:
+    """One panel-sharded factor's parts in this rank: K2 on the owned
+    rows (the rectangular launch, CUDA events) and the all_reduce of the
+    embedded (n_pad, k) panel (host clock)."""
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.core import program
+    from repro_torch.kernels.edge_spmm import ops as es_ops
+
+    r = rows.row_ptr.shape[0] - 1
+    n_pad = parallel.num_model_shards(mesh) * r
+    start = parallel.model_shard_index(mesh) * r
+    vp = torch.zeros((n_pad, v.shape[1]), dtype=torch.float32, device=dev)
+    vp[:v.shape[0]] = v
+    es_ops.model_local_rows(rows, vp, -c, 1.0, start)
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(reps):
+        es_ops.model_local_rows(rows, vp, -c, 1.0, start)
+    end.record()
+    torch.cuda.synchronize()
+    group = parallel.edge_group(mesh, ("model",))
+    all_reduce_ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program._psum(torch.zeros_like(vp), group)
+        torch.cuda.synchronize()
+        all_reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = rows.row_ptr[1:] - rows.row_ptr[:-1]
+    return {"owned_k2_ms": begin.elapsed_time(end) / reps,
+            "all_reduce_ms": all_reduce_ms, "panel_bytes": n_pad * v.shape[1] * 4,
+            "rows_per_shard": r, "live_half_edges": int(rows.row_ptr[-1]),
+            "longest_row": int(counts.max()),
+            "hub_rows": int((rows.hub_rows < r).sum())}
+
+
+def model_tick_rank(dev, src, dst, w, n: int, capacity: int, v0, c: float,
+                    lr: float, degree: int, steps: int, methods,
+                    reps: int) -> dict:
+    """Panel-sharded kernel ticks of one store in this rank, one per
+    solver method (K2 on the rank's owned rows per factor, per mu-EG step
+    one fused rows + gram all_reduce), then the per-factor split."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import program
+    from repro_torch.stream import graph_store as gstore
+
+    mesh = _model_mesh(dev)
+    store = gstore.from_edge_list(_edge_list(src, dst, w, n, dev),
+                                  capacity=capacity)
+    v = torch.from_numpy(v0).to(dev)[None]
+    out, launches = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = gstore.model_shard_rows(store, mesh)
+    torch.cuda.synchronize()
+    rows_build_s = time.perf_counter() - t0
+    for method in methods:
+        prog = program.build_tick_program(program.StepSchedule(
+            method=method, degree=degree, steps=steps, backend="kernel"), dev,
+            mesh=mesh, model_axes=("model",))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with program.count_psums() as stats:
+            vs, res = prog([rows], [c], v, [lr], 1)
+        torch.cuda.synchronize()
+        out[method] = {"seconds": time.perf_counter() - t0, "panel": vs[0],
+                       "residual": float(res[0]),
+                       "psums": (stats.plain, stats.fused),
+                       "captures": prog.captures}
+        for name, x in kernels.launch_counts().items():
+            launches[name] = launches.get(name, 0) + x
+    peak = torch.cuda.max_memory_allocated(dev)
+    split = _model_factor_split(dev, rows, v[0], c, mesh, reps)
+    return {**out, **split, "launches": launches, "rows_build_s": rows_build_s,
+            "max_memory_allocated": peak}
+
+
+def model_million_rank(dev, n: int, avg_degree: float, alpha: float,
+                       seed: int, capacity: int, cfg, reps: int) -> dict:
+    """The README's million-node row in this rank: the power-law graph
+    generated here from its seed, admitted into a panel-sharded
+    StreamingService (the probe on the owned-rows matvec, the plan) and
+    ticked once; then the probe again on its own, the factor split on
+    the rank's (hub-heavy) owned rows and K2's rectangular launch there
+    held to its twin.  Rank 0 also runs the same tick in one process (a
+    TickProgram with no group over the store's whole row CSR) from the
+    same panel and plan, and holds the sharded tick to it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import graphs, program
+    from repro_torch.kernels.edge_spmm import ref as es_ref
+    from repro_torch.kernels.edge_spmm import ops as es_ops
+    from repro_torch.spectral import probes
+    from repro_torch.stream import graph_store as gstore
+    from repro_torch.stream.service import StreamingService
+
+    mesh = _model_mesh(dev)
+    t0 = time.perf_counter()
+    g = graphs.power_law_graph(n, avg_degree, alpha, seed=seed, dedup=False,
+                               device=dev)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    num_edges = g.num_edges
+    svc = StreamingService(dataclasses.replace(
+        cfg, mesh=mesh, model_axes=("model",)), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    svc.add_graph("web", g, edge_capacity=capacity)
+    torch.cuda.synchronize()
+    admission_s = time.perf_counter() - t0
+    sess = svc._sessions["web"]
+    degree = svc._session_degree(sess)
+    v_before = sess.v.clone()
+    t0 = time.perf_counter()
+    with program.count_psums() as stats:
+        res = svc.tick()["web"]
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del g
+    rows = gstore.model_shard_rows(sess.store, mesh)
+    t0 = time.perf_counter()
+    probe = probes.probe_model_sharded(
+        mesh, rows, n, num_nodes=sess.store.num_nodes,
+        num_probes=cfg.probe_vectors, num_steps=cfg.probe_steps,
+        generator=torch.Generator(device=dev).manual_seed(cfg.seed + 7))
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    c = program.dilation_scale(sess.plan, degree)
+    split = _model_factor_split(dev, rows, v_before, c, mesh, reps)
+    r = rows.row_ptr.shape[0] - 1
+    start = dist.get_rank() * r
+    got = es_ops.model_local_rows(rows, v_before, -c, 1.0, start)
+    want = es_ref.edge_spmm_rows(rows.row_ptr, rows.other, rows.weight,
+                                 v_before, -c, 1.0,
+                                 v_self=v_before[start:start + r])
+    rect = {"max_abs_err": float((got - want).abs().max()),
+            "tolerance": REL_TOL * float(want.abs().max()),
+            "bitwise_repeatable": bool(torch.equal(
+                got, es_ops.model_local_rows(rows, v_before, -c, 1.0, start)))}
+    del got, want
+    one_process = None
+    if dist.get_rank() == 0:
+        prog = program.build_tick_program(program.StepSchedule(
+            degree=degree, steps=cfg.steps_per_tick, backend="kernel"), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_v, want_res = prog([gstore.edge_rows(sess.store)], [c],
+                                v_before[None], [sess.lr], 1)
+        torch.cuda.synchronize()
+        one_process = {"seconds": time.perf_counter() - t0,
+                       "max_abs_err": float((sess.v - want_v[0]).abs().max()),
+                       "tolerance": REL_TOL * float(want_v[0].abs().max()),
+                       "residual": float(want_res[0])}
+    return {"graph_host_s": graph_s, "num_edges": num_edges,
+            "admission_s": admission_s, "probe_s": probe_s,
+            "probe_lambda_max": float(probe.lambda_max),
+            "plan": {"family": sess.plan.family, "degree": degree,
+                     "rho": sess.rho, "rho_ub": sess.rho_ub, "tau": sess.tau,
+                     "lr": sess.lr, "c": c},
+            "tick": {"seconds": tick_s, "panel": sess.v, "residual": res,
+                     "psums": (stats.plain, stats.fused),
+                     "captures": sum(p.captures
+                                     for p in svc._compiled.values())},
+            "one_process": one_process, "rectangular": rect,
+            "node_capacity": sess.store.num_nodes,
+            "edge_capacity": sess.store.capacity,
+            "launches": launches, "max_memory_allocated": peak, **split}
+
+
+def model_full_rank(dev, tenant_args, million_args) -> dict:
+    """Phase model_sharded_full in one world: the 2^20 tenant tick
+    (:func:`model_tick_rank`), then the million-node row
+    (:func:`model_million_rank`)."""
+    import torch
+
+    tenant = model_tick_rank(dev, *tenant_args)
+    torch.cuda.empty_cache()
+    return {"tenant": tenant, "million": model_million_rank(dev, *million_args)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1174,6 +1414,53 @@ def main() -> int:
             + 2 * n * k * 4, 0)[0],
         row_csr_build_ms=rows_ms)
     del lfull, nb
+
+    def rect_check(label, rows_r, v_full, start, c_r, also=()):
+        """K2's rectangular launch on a panel shard's owned rows (R rows
+        whose own terms are v_full[start:start + R], neighbours anywhere
+        in v_full) held to its plain twin and timed, with its bound:
+        the CSR, the live half-edges, V once, the self rows and out."""
+        r_r = rows_r.row_ptr.shape[0] - 1
+
+        def launch():
+            return es_ops.model_local_rows(rows_r, v_full, -c_r, 1.0, start)
+
+        err_r, tol_r = compare(
+            f"edge_spmm_nb (rectangular, {label})", launch,
+            lambda: es_ref.edge_spmm_rows(
+                rows_r.row_ptr, rows_r.other, rows_r.weight, v_full, -c_r,
+                1.0, v_self=v_full[start:start + r_r]))
+        for ref_label, ref_fn in also:
+            compare(f"edge_spmm_nb (rectangular, {label}, {ref_label})",
+                    launch, ref_fn)
+        live = int(rows_r.row_ptr[-1])
+        kk = v_full.shape[1]
+        b_ms, b_by = bound((r_r + 1) * 4 + live * 8
+                           + v_full.shape[0] * kk * 4 + 2 * r_r * kk * 4,
+                           live * kk * 2 + 4 * r_r * kk)
+        counts_r = rows_r.row_ptr[1:] - rows_r.row_ptr[:-1]
+        out = {"shape": label, "rows": r_r, "panel_rows": v_full.shape[0],
+               "k": kk, "live_half_edges": live,
+               "longest_row": int(counts_r.max()),
+               "hub_rows": int((rows_r.hub_rows < r_r).sum()),
+               "max_abs_err": err_r, "tolerance": tol_r,
+               "ms": cuda_ms(launch, 20), "bound_ms": b_ms,
+               "bound_by": b_by,
+               "bitwise_repeatable": bool(torch.equal(launch(), launch()))}
+        emit({"phase": "check_rectangular", **out})
+        if not out["bitwise_repeatable"]:
+            raise AssertionError(f"edge_spmm_nb (rectangular, {label}): two "
+                                 "calls differ")
+        return out
+
+    # K2's rectangular launch: the owned rows of shard 1 of 2 of this graph
+    # (its self rows start at row 2^19), held also to the square launch
+    rows_r1 = es_ops.build_model_shard_rows(g.src, g.dst, g.weight, n, 2, 1)
+    kernels["edge_spmm_nb"]["rectangular"] = [rect_check(
+        "sparse SBM 2^20, shard 1 of 2", rows_r1, v, n // 2, c,
+        also=[("square launch",
+               lambda: es_ops.edge_spmm_rows_nb(rows, v, -c, 1.0)[n // 2:])])]
+    del rows_r1
 
     # K2 on a power-law graph whose longest rows take the hub blocks
     (gp, _), hub_graph_s = host_s(lambda: (graphs.power_law_graph(
@@ -2439,16 +2726,189 @@ def main() -> int:
     for name in ("edge_spmm", "edge_spmm_nb", "gram2k", "panel_mix"):
         if counts_sharded_service[name] <= 0:
             raise AssertionError(f"sharded_service launched no {name}")
-    del want_t0, outs_t0, res_t0, arrays_t0
+    edge_sharded_tick_s = [o["seconds"] for o in outs_t0]
+    del outs_t0, res_t0
 
-    # ---- 22. kernel list -------------------------------------------------
+    def psums_want(method, degree, steps):
+        """Run-time all_reduces of one panel-sharded tick of `steps` steps:
+        per mu-EG step degree - 1 plain and 1 fused (Oja degree plain),
+        then degree plain for the residual."""
+        if method == "mu_eg":
+            return ((degree - 1) * steps + degree, steps)
+        return (degree * steps + degree, 0)
+
+    def check_model_tick(label, outs, method, want, want_ps):
+        """Hold the ranks' panel-sharded tick of ``method`` to the
+        one-process ``want`` (panels, residual) and to the run-time
+        all_reduce budget; returns the phase's numbers for it."""
+        if not parallel.bitwise_equal([o[method]["panel"] for o in outs]):
+            raise AssertionError(f"{label} {method}: the ranks' panels differ")
+        err_m = compare(f"{label} {method} ({len(outs)} ranks) vs one process",
+                        lambda: torch.from_numpy(outs[0][method]["panel"])
+                        .to(dev), lambda: want[0][0])
+        want_res = float(want[1][0])
+        gap = abs(outs[0][method]["residual"] - want_res)
+        if any(o[method]["psums"] != want_ps for o in outs):
+            raise AssertionError(f"{label} {method}: all_reduces "
+                                 f"{[o[method]['psums'] for o in outs]}, "
+                                 f"want {want_ps}")
+        if any(o[method]["captures"] != 0 for o in outs):
+            raise AssertionError(f"{label}: an eager program captured")
+        if not gap <= REL_TOL * want_res:
+            raise AssertionError(f"{label} {method}: residual gap {gap}")
+        return {"seconds": [o[method]["seconds"] for o in outs],
+                "psums_plain_fused": outs[0][method]["psums"],
+                "psums_want": want_ps, "captures": 0,
+                "max_abs_err": err_m[0], "tolerance": err_m[1],
+                "residual": outs[0][method]["residual"], "residual_gap": gap}
+
+    def split_of(outs):
+        return {"rows_per_shard": outs[0]["rows_per_shard"],
+                "live_half_edges": [o["live_half_edges"] for o in outs],
+                "longest_row": [o["longest_row"] for o in outs],
+                "hub_rows": [o["hub_rows"] for o in outs],
+                "owned_k2_ms": [o["owned_k2_ms"] for o in outs],
+                "all_reduce_ms": [o["all_reduce_ms"] for o in outs],
+                "panel_bytes": outs[0]["panel_bytes"],
+                "max_memory_allocated": [o["max_memory_allocated"]
+                                         for o in outs]}
+
+    # ---- 22. panel sharding: bench_distributed's model tick on 2 ranks -----
+    gm_s, _ = graphs.sparse_sbm_graph(MODEL_SMALL_N, 4, avg_degree_in=3.0,
+                                      avg_degree_out=0.5, seed=0, device=dev)
+    cap_ms = gstore.capacity_class(gm_s.num_edges)
+    v0_ms = panel(MODEL_SMALL_N, MODEL_SMALL_K, 8)
+    store_ms = gstore.from_edge_list(gm_s, capacity=cap_ms)
+    want_ms = {}
+    for method in ("mu_eg", "oja"):
+        prog_1p = program.build_tick_program(program.StepSchedule(
+            method=method, degree=MODEL_SMALL_DEGREE, steps=MODEL_SMALL_STEPS,
+            backend="kernel"))
+        want_ms[method] = prog_1p([gstore.edge_rows(store_ms)],
+                                  [MODEL_SMALL_C], v0_ms[None],
+                                  [MODEL_SMALL_LR], 1)
+    arrays_ms = tuple(t.cpu().numpy() for t in (gm_s.src, gm_s.dst,
+                                                gm_s.weight))
+    res_ms, ms_wall = host_s(lambda: parallel.run_ranks(
+        MODEL_RANKS, model_tick_rank, *arrays_ms, MODEL_SMALL_N, cap_ms,
+        v0_ms.cpu().numpy(), MODEL_SMALL_C, MODEL_SMALL_LR, MODEL_SMALL_DEGREE,
+        MODEL_SMALL_STEPS, ("mu_eg", "oja"), MODEL_SPLIT_REPS,
+        timeout=SHARDED_TIMEOUT_S))
+    outs_ms = [r.value for r in res_ms]
+    counts_model_small = parallel.sum_launches(o["launches"] for o in outs_ms)
+    emit({"phase": "model_sharded_small", "ranks": MODEL_RANKS,
+          "backend": "gloo", "n": MODEL_SMALL_N, "num_edges": gm_s.num_edges,
+          "edge_capacity": cap_ms, "k": MODEL_SMALL_K,
+          "degree": MODEL_SMALL_DEGREE, "steps": MODEL_SMALL_STEPS,
+          "c": MODEL_SMALL_C, "lr": MODEL_SMALL_LR, "world_wall_s": ms_wall,
+          **{method: check_model_tick(
+              "model_sharded_small", outs_ms, method, want_ms[method],
+              psums_want(method, MODEL_SMALL_DEGREE, MODEL_SMALL_STEPS))
+             for method in ("mu_eg", "oja")},
+          **split_of(outs_ms),
+          "rows_build_s": [o["rows_build_s"] for o in outs_ms],
+          "launches": counts_model_small})
+    for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_model_small[name] <= 0:
+            raise AssertionError(f"model_sharded_small launched no {name}")
+    del outs_ms, res_ms, want_ms, store_ms, gm_s
+
+    # ---- 23. panel sharding at full width: a 2^20 tenant, a 10^6 graph ------
+    # one world of 2 ranks: (1) sharded_service's tenant-0 tick,
+    # panel-sharded; (2) the million-node row, each rank generating the
+    # graph itself: admission with the probe and one tick of a
+    # panel-sharded service, rank 0 holding the tick to one process's and
+    # each rank K2's rectangular launch on its owned rows to the twin
+    torch.cuda.empty_cache()
+    res_mf, mf_wall = host_s(lambda: parallel.run_ranks(
+        MODEL_RANKS, model_full_rank,
+        (*arrays_t0, n, SHARDED_TENANT_CAPACITY, v_t0, c_t0, lr_t0, deg_t0,
+         cfg_svc.steps_per_tick, ("mu_eg",), MODEL_SPLIT_REPS),
+        (MILLION_N, MILLION_AVG_DEGREE, MILLION_ALPHA, 0, MILLION_CAPACITY,
+         cfg_svc, MODEL_SPLIT_REPS), timeout=SHARDED_TIMEOUT_S))
+    outs_mt = [r.value["tenant"] for r in res_mf]
+    outs_mm = [r.value["million"] for r in res_mf]
+    tenant_tick = {
+        "n": n, "edge_capacity": SHARDED_TENANT_CAPACITY, "degree": deg_t0,
+        "steps": cfg_svc.steps_per_tick,
+        **check_model_tick("model_sharded_full tenant", outs_mt, "mu_eg",
+                           want_t0, psums_want("mu_eg", deg_t0,
+                                               cfg_svc.steps_per_tick)),
+        "edge_sharded_seconds": edge_sharded_tick_s,
+        "rows_build_s": [o["rows_build_s"] for o in outs_mt],
+        **split_of(outs_mt)}
+    counts_model_tenant = parallel.sum_launches(o["launches"] for o in outs_mt)
+    del want_t0, outs_mt, arrays_t0
+
+    mm, one_p = outs_mm[0], outs_mm[0]["one_process"]
+    mm_psums = psums_want("mu_eg", mm["plan"]["degree"],
+                          cfg_svc.steps_per_tick)
+    if not parallel.bitwise_equal([o["tick"]["panel"] for o in outs_mm]):
+        raise AssertionError("model_sharded_full million: the ranks' panels "
+                             "differ")
+    if any(o["tick"]["psums"] != mm_psums or o["tick"]["captures"] != 0
+           for o in outs_mm):
+        raise AssertionError(f"model_sharded_full million: all_reduces "
+                             f"{[o['tick']['psums'] for o in outs_mm]} (want "
+                             f"{mm_psums}), captures "
+                             f"{[o['tick']['captures'] for o in outs_mm]}")
+    mm_gap = abs(mm["tick"]["residual"] - one_p["residual"])
+    if not (one_p["max_abs_err"] <= one_p["tolerance"]
+            and mm_gap <= REL_TOL * one_p["residual"]):
+        raise AssertionError(f"model_sharded_full million tick vs one "
+                             f"process: {one_p}, residual gap {mm_gap}")
+    million = {
+        "n": MILLION_N, "num_edges": mm["num_edges"],
+        "node_capacity": mm["node_capacity"],
+        "edge_capacity": mm["edge_capacity"], "k": cfg_svc.k,
+        "steps_per_tick": cfg_svc.steps_per_tick,
+        "graph_host_s": [o["graph_host_s"] for o in outs_mm],
+        "admission_s": [o["admission_s"] for o in outs_mm],
+        "probe_s": [o["probe_s"] for o in outs_mm],
+        "probe_lambda_max": mm["probe_lambda_max"], "plan": mm["plan"],
+        "tick_s": [o["tick"]["seconds"] for o in outs_mm],
+        "psums_plain_fused": mm["tick"]["psums"], "psums_want": mm_psums,
+        "captures": 0, "residual": mm["tick"]["residual"],
+        "one_process": one_p, "residual_gap": mm_gap, **split_of(outs_mm),
+        "launches": parallel.sum_launches(o["launches"] for o in outs_mm)}
+    # K2's rectangular launch on the million-node shards' owned rows, held
+    # to its twin in each rank; the bound of this run's rows
+    for s_r, o in enumerate(outs_mm):
+        rect = o["rectangular"]
+        if not (rect["max_abs_err"] <= rect["tolerance"]
+                and rect["bitwise_repeatable"]):
+            raise AssertionError(f"edge_spmm_nb (rectangular, million shard "
+                                 f"{s_r}): {rect}")
+        r_m, live, kk = o["rows_per_shard"], o["live_half_edges"], cfg_svc.k
+        b_ms, b_by = bound((r_m + 1) * 4 + live * 8
+                           + mm["node_capacity"] * kk * 4 + 2 * r_m * kk * 4,
+                           live * kk * 2 + 4 * r_m * kk)
+        row = {"shape": f"power law 10^6, shard {s_r} of {MODEL_RANKS}",
+               "rows": r_m, "panel_rows": mm["node_capacity"], "k": kk,
+               "live_half_edges": live, "longest_row": o["longest_row"],
+               "hub_rows": o["hub_rows"], **rect, "ms": o["owned_k2_ms"],
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit({"phase": "check_rectangular", **row})
+        kernels["edge_spmm_nb"]["rectangular"].append(row)
+    counts_model_full = parallel.sum_launches(
+        [counts_model_tenant, million["launches"]])
+    emit({"phase": "model_sharded_full", "ranks": MODEL_RANKS,
+          "backend": "gloo", "world_wall_s": mf_wall,
+          "tenant_tick": tenant_tick, "million": million,
+          "launches": counts_model_full})
+    for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts_model_full[name] <= 0:
+            raise AssertionError(f"model_sharded_full launched no {name}")
+    del outs_mm, res_mf, mm, one_p
+
+    # ---- 24. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
                  counts_stream_full, counts_service_small,
                  counts_service_full, counts_serve_small, counts_serve_http,
                  counts_serve_full, counts_sharded_small, counts_sharded_full,
-                 counts_sharded_service)
+                 counts_sharded_service, counts_model_small, counts_model_full)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

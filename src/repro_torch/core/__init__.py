@@ -30,8 +30,11 @@ from repro_torch.core.series import (  # noqa: F401
 )
 from repro_torch.core.backend import (  # noqa: F401
     BACKENDS,
+    ModelShardedBlocking,
     NodeBlocking,
+    build_model_sharded_blocking,
     build_node_blocking,
+    model_blocking_for,
     resolve_backend,
 )
 from repro_torch.core.solvers import (  # noqa: F401
@@ -58,6 +61,7 @@ from repro_torch.core.clustering import (  # noqa: F401
 )
 from repro_torch.core.program import (  # noqa: F401
     apply_solver_step,
+    build_tick_model_sharded,
     run_chunk,
     run_program,
 )

@@ -23,8 +23,10 @@ import torch
 from repro_torch.core import laplacian as lap
 from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.kernels.edge_spmm.ops import (  # noqa: F401  (re-exported)
+    ModelShardedBlocking,
     NodeBlocking,
     ShardedNodeBlocking,
+    build_model_sharded_blocking,
     build_node_blocking,
     build_sharded_node_blocking,
 )
@@ -75,6 +77,17 @@ def sharded_blocking_for(g: lap.EdgeList, num_shards: int,
     EdgeList (built on the host), on the graph's device: the layout of
     ``distributed.sharded_blocked_matvec``."""
     return build_sharded_node_blocking(
+        g.src, g.dst, g.weight, g.num_nodes, num_shards,
+        block_n=block_n or DEFAULT_BLOCK_N, block_e=block_e, device=g.device)
+
+
+def model_blocking_for(g: lap.EdgeList, num_shards: int,
+                       *, block_n: int | None = None,
+                       block_e: int = 128) -> ModelShardedBlocking:
+    """The JAX package's destination-aligned (panel-sharded) layouts of an
+    EdgeList (built on the host), on the graph's device.  A shard's K2
+    reads the row CSR of its ``shard(s)`` (``ops.blocking_rows``)."""
+    return build_model_sharded_blocking(
         g.src, g.dst, g.weight, g.num_nodes, num_shards,
         block_n=block_n or DEFAULT_BLOCK_N, block_e=block_e, device=g.device)
 

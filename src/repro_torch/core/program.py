@@ -27,6 +27,10 @@ built.  On it stand:
   all_reduce of the stacked panel per dilation factor, eager (see
   :mod:`repro_torch.parallel` for the one-rank-one-shard design), and
   the collective accounting :func:`count_psums` over :func:`_psum`;
+* the panel-sharded group tick (``build_tick_program(mesh=...,
+  model_axes=...)``, :class:`ModelShardedTickProgram`): each rank owns a
+  row range of the panels, one rectangular K2 launch per factor on its
+  owned rows, and per mu-EG step one fused rows + gram all_reduce;
 * the schedule helpers (:class:`StepSchedule`, :func:`session_lr`,
   :func:`dilation_scale`, :func:`schedule_degrees`) and the
   residual-decay forecasts (:func:`contraction_rate`,
@@ -54,6 +58,8 @@ from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.kernels.edge_spmm import ref as es_ref
 
 MatVec = Callable[[torch.Tensor], torch.Tensor]
+
+num_model_shards = parallel.num_model_shards
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +295,8 @@ def run_program(operator: MatVec | solvers.StochMatVec, n: int,
 # ---------------------------------------------------------------------------
 
 def group_edge_rows(member_rows: Sequence[es_ops.EdgeRows], cs,
-                    out: es_ops.EdgeRows | None = None) -> es_ops.EdgeRows:
+                    out: es_ops.EdgeRows | None = None,
+                    other_stride: int | None = None) -> es_ops.EdgeRows:
     """The block-diagonal row CSR of a session group, written into
     ``out`` (or new tensors).
 
@@ -303,9 +310,15 @@ def group_edge_rows(member_rows: Sequence[es_ops.EdgeRows], cs,
     result equals ``build_edge_rows`` of the block-diagonal c-scaled edge
     list bitwise on the live entries and the hub list, without its sort:
     a fill is copies only, plus one host read of every member's live and
-    hub counts.  The shapes depend only on (G, n, S)."""
+    hub counts.  The shapes depend only on (G, n, S).
+
+    ``other_stride`` offsets member i's neighbours by ``i other_stride``
+    instead: the members' rows are then a panel shard's R owned rows
+    (``graph_store.model_shard_rows``, n = R) whose neighbours index the
+    members' stacked (G, other_stride, k) replicated panels."""
     g = len(member_rows)
     n = member_rows[0].row_ptr.shape[0] - 1
+    stride = n if other_stride is None else other_stride
     slots = member_rows[0].other.shape[0]
     dev = member_rows[0].row_ptr.device
     if out is None:
@@ -322,7 +335,7 @@ def group_edge_rows(member_rows: Sequence[es_ops.EdgeRows], cs,
     live = hubs = 0
     for i, (r, (nl, nh)) in enumerate(zip(member_rows, counts)):
         torch.add(r.row_ptr[:n], live, out=out.row_ptr[i * n:(i + 1) * n])
-        torch.add(r.other[:nl], i * n, out=out.other[live:live + nl])
+        torch.add(r.other[:nl], i * stride, out=out.other[live:live + nl])
         torch.mul(r.weight[:nl], cs[i], out=out.weight[live:live + nl])
         torch.add(r.hub_rows[:nh], i * n, out=out.hub_rows[hubs:hubs + nh])
         live, hubs = live + nl, hubs + nh
@@ -376,14 +389,15 @@ def _step_all(step_fn, vs: torch.Tensor, avs: torch.Tensor,
                           avs[i], lrs[i]).v for i in range(vs.shape[0])])
 
 
-def _group_chunk(opv_all: MatVec, step_fn, vs, lrs, budget, steps: int):
-    """``steps`` solver steps of every member, then the freeze: a member
-    whose chunk budget is spent (``budget <= 0``) keeps its panel.
-    Returns (vs, budget - 1)."""
+def _group_chunk(step_all: MatVec, vs, budget, steps: int):
+    """``steps`` solver steps of every member (``step_all``: (G, n, k)
+    panels -> the stepped panels), then the freeze: a member whose chunk
+    budget is spent (``budget <= 0``) keeps its panel.  Returns
+    (vs, budget - 1)."""
     live = budget > 0
     v = vs
     for _ in range(steps):
-        v = _step_all(step_fn, v, opv_all(v), lrs)
+        v = step_all(v)
     return torch.where(live[:, None, None], v, vs), budget - 1
 
 
@@ -455,6 +469,7 @@ class TickProgram:
         # weak, so the program keeps no evicted or replaced store alive
         self._filled: list[tuple] = []
         self._static = None
+        self._other_stride: int | None = None  # group_edge_rows' stride
 
     def _fill_layout(self, member_rows, cs) -> es_ops.EdgeRows:
         cs = [float(c) for c in cs]
@@ -471,7 +486,8 @@ class TickProgram:
             if got != want:
                 raise ValueError(f"tick program: (G, n, slots) {got} != "
                                  f"{want} of its layout")
-        self._layout = group_edge_rows(member_rows, cs, out=self._layout)
+        self._layout = group_edge_rows(member_rows, cs, out=self._layout,
+                                       other_stride=self._other_stride)
         self._filled = [(weakref.ref(r.weight), c)
                         for r, c in zip(member_rows, cs)]
         self.layout_fills += 1
@@ -481,8 +497,9 @@ class TickProgram:
         opv_all = group_operator(rows, self.schedule.degree, self.kind,
                                  self.group)
         for _ in range(num_chunks):
-            vs, budget = _group_chunk(opv_all, self.step_fn, vs, lrs, budget,
-                                      self.schedule.steps)
+            vs, budget = _group_chunk(
+                lambda v: _step_all(self.step_fn, v, opv_all(v), lrs), vs,
+                budget, self.schedule.steps)
         return vs, _group_residuals(opv_all, vs)
 
     def __call__(self, member_rows: Sequence[es_ops.EdgeRows], cs,
@@ -505,8 +522,9 @@ class TickProgram:
         opv_all = group_operator(rows, self.schedule.degree, "kernel")
 
         def chunk():
-            v, left = _group_chunk(opv_all, self.step_fn, st["v"], st["lrs"],
-                                   st["budget"], self.schedule.steps)
+            v, left = _group_chunk(
+                lambda u: _step_all(self.step_fn, u, opv_all(u), st["lrs"]),
+                st["v"], st["budget"], self.schedule.steps)
             st["v"].copy_(v)
             st["budget"].copy_(left)
 
@@ -555,6 +573,129 @@ def build_tick_sharded_pallas(schedule: StepSchedule, mesh,
                        device, group=parallel.edge_group(mesh, edge_axes))
 
 
+class ModelShardedTickProgram(TickProgram):
+    """The PANEL-sharded group tick (the JAX package's
+    ``build_tick_model_sharded``): ``prog(member_rows, cs, vs, lrs,
+    chunks) -> (vs, res)`` on every rank of the mesh's model axes.
+
+    Rank s owns the rows ``[s R, (s + 1) R)`` of every member's panel,
+    padded to ``n_pad = S R`` rows, and ``member_rows`` are its members'
+    OWNED-ROW CSRs (``graph_store.model_shard_rows``: every half-edge
+    destined to those rows, local rows, global neighbours).  Its group
+    layout puts member i's rows at ``i R`` and its neighbours at ``i
+    n_pad`` of the flattened (G n_pad, k) replicated panels, weights times
+    c_i, so each dilation factor ``u - c_i L_i u`` is ONE rectangular K2
+    launch (``v_self`` the owned rows; the plain twin on segment) at
+    ``alpha = -1, beta = 1``: the owned rows are final, so the AXPY stays
+    in the epilogue.  Collectives only assemble disjoint row ranges:
+
+    * every factor but the last: one plain all_reduce of the embedded
+      (G, n_pad, k) panels;
+    * mu-EG: the last factor's rows and the per-member 2k x 2k grams of
+      [V | AV] over the owned rows (K3) in ONE tuple all_reduce, then
+      every rank steps the replicated panels row-locally from the summed
+      gram (``apply_solver_step(..., gram=)``; K4);
+    * Oja (no gram form): the last factor assembled plainly too, then
+      the replicated step.
+
+    A step is ``degree - 1`` plain and 1 fused all_reduce (Oja: ``degree``
+    plain); a residual evaluation is ``degree`` plain.  Members freeze
+    past their chunk budgets as in :class:`TickProgram`.  Each rank's
+    owned rows are sliced from the stepped replicated panel, which is
+    the same on every rank, so the panels stay bitwise equal across
+    ranks.  Gloo collectives are host work: the program runs eagerly and
+    captures nothing.
+    """
+
+    def __init__(self, schedule: StepSchedule, mesh, model_axes=("model",),
+                 device=None):
+        num_shards = parallel.num_model_shards(mesh, model_axes)
+        super().__init__(schedule, device,
+                         group=parallel.edge_group(mesh, model_axes))
+        self.num_shards = num_shards
+        self.shard = parallel.model_shard_index(mesh, model_axes)
+
+    def __call__(self, member_rows: Sequence[es_ops.EdgeRows], cs,
+                 vs: torch.Tensor, lrs, chunks
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        g, n, k = vs.shape
+        r = member_rows[0].row_ptr.shape[0] - 1
+        n_pad = self.num_shards * r
+        if n_pad < n:
+            raise ValueError(f"tick program: {self.num_shards} shards of {r} "
+                             f"rows cannot hold {n}-row panels")
+        self._other_stride = n_pad
+        rows = self._fill_layout(member_rows, cs)
+        budget, num_chunks = _budgets(chunks, g, vs.device)
+        lrs = torch.as_tensor(lrs, dtype=torch.float32, device=vs.device)
+        full = torch.zeros((g, n_pad, k), dtype=torch.float32,
+                           device=vs.device)
+        full[:, :n] = vs
+        start = self.shard * r
+        spmm = (es_ops.edge_spmm_rows_nb if self.kind == "kernel"
+                else lambda rw, x, a, b, v_self: es_ref.edge_spmm_rows(
+                    rw.row_ptr, rw.other, rw.weight, x, a, b, v_self))
+
+        def owned(full):
+            # (G, n_pad, k) replicated -> (G, R, k) final owned rows of
+            # every member's (I - c_i L_i)
+            return spmm(rows, full.reshape(g * n_pad, k), -1.0, 1.0,
+                        v_self=full[:, start:start + r].reshape(g * r, k)
+                        ).reshape(g, r, k)
+
+        def embed(ys):
+            z = torch.zeros((g, n_pad, k), dtype=ys.dtype, device=ys.device)
+            z[:, start:start + r] = ys
+            return z
+
+        def dilated_local(full):
+            # degree - 1 factors with plain row assembly; the last
+            # factor's rows stay local, for the caller's reduction
+            for _ in range(self.schedule.degree - 1):
+                full = _psum(embed(owned(full)), self.group)
+            return owned(full)
+
+        def assembled(full):
+            return _psum(embed(dilated_local(full)), self.group)
+
+        zero = torch.zeros((), dtype=torch.int32, device=vs.device)
+
+        def mu_eg_all(full):
+            av_loc = dilated_local(full)
+            grams = torch.stack([
+                solvers.panel_gram2k(full[i, start:start + r], av_loc[i])
+                for i in range(g)])
+            # THE fused collective: row assembly + gram reduction
+            av_full, grams = _psum((embed(av_loc), grams), self.group)
+            return torch.stack([
+                apply_solver_step(self.step_fn,
+                                  solvers.SolverState(v=full[i], step=zero),
+                                  av_full[i], lrs[i], gram=grams[i]).v
+                for i in range(g)])
+
+        if self.schedule.method == "mu_eg":
+            step_all = mu_eg_all
+        else:
+            def step_all(full):
+                return _step_all(self.step_fn, full, assembled(full), lrs)
+        for _ in range(num_chunks):
+            full, budget = _group_chunk(step_all, full, budget,
+                                        self.schedule.steps)
+        return full[:, :n].contiguous(), _group_residuals(assembled, full)
+
+
+def build_tick_model_sharded(schedule: StepSchedule, mesh,
+                             model_axes=("model",),
+                             device=None) -> ModelShardedTickProgram:
+    """Panel-sharded tick (the JAX package's ``build_tick_model_sharded``):
+    each rank owns a row range of every member's panel, one rectangular
+    K2 launch per dilation factor on its owned rows, and per mu-EG step
+    ``degree - 1`` plain all_reduces plus ONE fused rows + gram all_reduce
+    (see :class:`ModelShardedTickProgram`).  The port's layout is a row
+    CSR, so there are no blocking statics to pass."""
+    return ModelShardedTickProgram(schedule, mesh, model_axes, device)
+
+
 def build_tick_program(schedule: StepSchedule, device=None, *, mesh=None,
                        edge_axes=("data",), model_axes=None) -> TickProgram:
     """One batched tick program for a session group on ``device``
@@ -563,12 +704,13 @@ def build_tick_program(schedule: StepSchedule, device=None, *, mesh=None,
     one per (capacity class, degree, occupancy bucket); per-session c,
     lr and chunk budgets are inputs, so the adaptive layer moves under
     one program.  ``mesh`` makes it edge-sharded over ``edge_axes``
-    (one all_reduce per dilation factor); the panel-sharded tick
-    (``model_axes``) is ROADMAP slice 7b."""
+    (one all_reduce per dilation factor), or with ``model_axes``
+    panel-sharded over those axes (:func:`build_tick_model_sharded`), which
+    needs a mesh."""
     if model_axes is not None:
-        raise NotImplementedError(
-            "panel-sharded tick programs (model_axes) are not ported yet: "
-            "ROADMAP slice 7b")
+        if mesh is None:
+            raise ValueError("model_axes (a panel-sharded tick) needs a mesh")
+        return build_tick_model_sharded(schedule, mesh, model_axes, device)
     if mesh is not None:
         return TickProgram(schedule, device,
                            group=parallel.edge_group(mesh, edge_axes))

@@ -89,21 +89,25 @@ def mu_eg_step_fused(state: SolverState, av: torch.Tensor,
 
 
 def panel_gram2k(v: torch.Tensor, av: torch.Tensor) -> torch.Tensor:
-    """2k x 2k gram of [V | AV]; row-decomposable (a sum over row slices)."""
-    x = torch.cat([v, av], dim=1)
-    return x.T @ x
+    """2k x 2k gram of [V | AV]; row-decomposable (a sum over row
+    slices).  K3 on the card, the plain product on the CPU."""
+    from repro_torch.kernels.eg_update import ops as eg_ops
+
+    return eg_ops.gram2k(v, av)
 
 
 def mu_eg_step_from_gram(state: SolverState, av: torch.Tensor,
                          gram: torch.Tensor, lr) -> SolverState:
-    """mu-EG update from a precomputed 2k x 2k gram of [V | AV]: the step
-    is then row-local."""
+    """mu-EG update from a precomputed 2k x 2k gram of [V | AV]: the k x k
+    coefficient algebra, then the row-local mix (K4 on the card, the
+    plain products on the CPU)."""
+    from repro_torch.kernels.eg_update import ops as eg_ops
     from repro_torch.kernels.eg_update import ref as eg_ref
 
     k = state.v.shape[1]
     m1, m2, colscale = eg_ref.coefficient_matrices(gram, k, lr)
-    vn = (state.v @ m1 + av @ m2) * colscale[None, :]
-    return SolverState(v=vn, step=state.step + 1)
+    return SolverState(v=eg_ops.panel_mix(state.v, av, m1, m2, colscale),
+                       step=state.step + 1)
 
 
 STEP_FNS = {"oja": oja_step, "mu_eg": mu_eg_step}

@@ -1,11 +1,15 @@
 // Incidence SpMM kernels of the dilated Laplacian matvec, fp32, sm_90a.
 //
 // One row-gather body computes the fused series step
-//     out[i, :] = alpha * (deg_i * V[i, :] - sum_j w_ij V[j, :]) + beta * V[i, :]
-// with L = X^T W X of an edge list and V an (n, k) row-major panel, over a
-// destination-sorted half-edge CSR (row_ptr (n+1,), other, weight): row i
+//     out[i, :] = alpha * (deg_i * Vs[i, :] - sum_j w_ij V[j, :]) + beta * Vs[i, :]
+// with L = X^T W X of an edge list and V an (n_in, k) row-major panel, over
+// a destination-sorted half-edge CSR (row_ptr (n+1,), other, weight): row i
 // lists every live half-edge (i <- j, w_ij) of the edge list, so deg_i is
-// the sum of the row's own weights.  Both kernels launch it:
+// the sum of the row's own weights.  Vs is the (n, k) panel of the rows'
+// own ("self") terms: V itself for a whole graph (n_in = n), or a row
+// range of V for a panel shard, whose n owned rows start at row_start
+// (Vs = V + row_start * k) while their neighbours index all of V.  Both
+// kernels launch it:
 //
 // K1  edge_spmm  replaces repro/kernels/edge_spmm/kernel.py:94 `edge_spmm`
 //     (pallas_call at :106), the one-hot incidence SpMM of small graphs and
@@ -122,14 +126,14 @@ __device__ __forceinline__ void gather(const int* __restrict__ other,
   }
 }
 
-// out[r, col:col+VW] = alpha * (dsum * V[r] - acc) + beta * V[r]
+// out[r, col:col+VW] = alpha * (dsum * Vs[r] - acc) + beta * Vs[r]
 template <int VW>
-__device__ __forceinline__ void epilogue(const float* __restrict__ v,
+__device__ __forceinline__ void epilogue(const float* __restrict__ v_self,
                                          float* __restrict__ out, long long o,
                                          const float (&acc)[VW], float dsum,
                                          float alpha, float beta) {
   float vi[VW], y[VW];
-  load_row<VW>(v + o, vi);
+  load_row<VW>(v_self + o, vi);
 #pragma unroll
   for (int q = 0; q < VW; ++q) {
     y[q] = alpha * (dsum * vi[q] - acc[q]) + beta * vi[q];
@@ -143,9 +147,11 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ other,
                       const float* __restrict__ weight,
                       const int* __restrict__ hub_rows,
-                      const float* __restrict__ v, float* __restrict__ out,
-                      float alpha, float beta, int n, int k, int hub_slots,
-                      int hub_threshold, int hub_blocks) {
+                      const float* __restrict__ v,
+                      const float* __restrict__ v_self,
+                      float* __restrict__ out, float alpha, float beta,
+                      int n, int k, int hub_slots, int hub_threshold,
+                      int hub_blocks) {
   // per-group partials of a hub row: kMaxCols sums, then the weight sum
   __shared__ float part[kThreads][kMaxCols + 1];
   const int c0 = blockIdx.y * kMaxCols;
@@ -183,7 +189,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       if ((int)threadIdx.x < cw) {
         const long long o = (long long)r * k + c0 + threadIdx.x;
-        const float vi = v[o];
+        const float vi = v_self[o];
         out[o] = alpha * (part[0][kMaxCols] * vi - part[0][threadIdx.x]) +
                  beta * vi;
       }
@@ -206,14 +212,14 @@ __global__ void __launch_bounds__(kThreads)
   float acc[VW] = {};
   float dsum = 0.f;
   gather<VW>(other, weight, v, k, col, p0, p1, 1, acc, dsum);
-  epilogue<VW>(v, out, row * k + col, acc, dsum, alpha, beta);
+  epilogue<VW>(v_self, out, row * k + col, acc, dsum, alpha, beta);
 }
 
 template <int VW>
 cudaError_t launch(const int* row_ptr, const int* other, const float* weight,
-                   const int* hub_rows, const float* v, float* out,
-                   float alpha, float beta, int n, int k, int hub_slots,
-                   int hub_threshold, cudaStream_t s) {
+                   const int* hub_rows, const float* v, const float* v_self,
+                   float* out, float alpha, float beta, int n, int k,
+                   int hub_slots, int hub_threshold, cudaStream_t s) {
   const int lpr = min(kMaxCols, k) / VW;
   const long long rows_per_block = (long long)kWarps * (32 / lpr);
   const long long light = (n + rows_per_block - 1) / rows_per_block;
@@ -222,35 +228,39 @@ cudaError_t launch(const int* row_ptr, const int* other, const float* weight,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, (k + kMaxCols - 1) / kMaxCols);
   row_gather_kernel<VW><<<grid, kThreads, 0, s>>>(
-      row_ptr, other, weight, hub_rows, v, out, alpha, beta, n, k, hub_slots,
-      hub_threshold, hub_blocks > 0 ? hub_blocks : 0);
+      row_ptr, other, weight, hub_rows, v, v_self, out, alpha, beta, n, k,
+      hub_slots, hub_threshold, hub_blocks > 0 ? hub_blocks : 0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The one entry of both K1 and K2: hub_slots is the length of hub_rows
-// (at least 1: the list ends with n).  An empty panel launches nothing.
+// The one entry of both K1 and K2: n is the number of output rows (the
+// rows of row_ptr and v_self; v has any number of rows the CSR indexes),
+// hub_slots the length of hub_rows (at least 1: the list ends with n).
+// An empty panel launches nothing.
 extern "C" int edge_spmm_rows_launch(const int* row_ptr, const int* other,
                                      const float* weight, const int* hub_rows,
-                                     const float* v, float* out, float alpha,
-                                     float beta, int n, int k, int hub_slots,
+                                     const float* v, const float* v_self,
+                                     float* out, float alpha, float beta,
+                                     int n, int k, int hub_slots,
                                      int hub_threshold, void* stream) {
   if (n <= 0 || k <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned long long align =
       reinterpret_cast<unsigned long long>(v) |
+      reinterpret_cast<unsigned long long>(v_self) |
       reinterpret_cast<unsigned long long>(out);
   // a column group's first column is a multiple of 16, so with k a
   // multiple of VW every row slice a lane reads is VW-aligned
   if (k % 4 == 0 && align % 16 == 0) {
-    return (int)launch<4>(row_ptr, other, weight, hub_rows, v, out, alpha,
-                          beta, n, k, hub_slots, hub_threshold, s);
+    return (int)launch<4>(row_ptr, other, weight, hub_rows, v, v_self, out,
+                          alpha, beta, n, k, hub_slots, hub_threshold, s);
   }
   if (k % 2 == 0 && align % 8 == 0) {
-    return (int)launch<2>(row_ptr, other, weight, hub_rows, v, out, alpha,
-                          beta, n, k, hub_slots, hub_threshold, s);
+    return (int)launch<2>(row_ptr, other, weight, hub_rows, v, v_self, out,
+                          alpha, beta, n, k, hub_slots, hub_threshold, s);
   }
-  return (int)launch<1>(row_ptr, other, weight, hub_rows, v, out, alpha, beta,
-                        n, k, hub_slots, hub_threshold, s);
+  return (int)launch<1>(row_ptr, other, weight, hub_rows, v, v_self, out,
+                        alpha, beta, n, k, hub_slots, hub_threshold, s);
 }

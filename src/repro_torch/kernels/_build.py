@@ -35,9 +35,9 @@ F = ctypes.c_float
 
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # row_ptr, other, weight, hub_rows, v, out, alpha, beta, n, k,
-    # hub_slots, hub_threshold, stream (K1 and K2)
-    "edge_spmm_rows_launch": [P, P, P, P, P, P, F, F, I, I, I, I, P],
+    # row_ptr, other, weight, hub_rows, v, v_self, out, alpha, beta, n,
+    # k, hub_slots, hub_threshold, stream (K1 and K2)
+    "edge_spmm_rows_launch": [P, P, P, P, P, P, P, F, F, I, I, I, I, P],
     # v, av, partial, out, n, k, num_parts, rows_per_part, tile_rows, stream
     "gram2k_launch": [P, P, P, P, I, I, I, I, I, P],
     # v, av, m1, m2, colscale, out, n, k, stream

@@ -31,6 +31,13 @@ n), and the kernel splits each of them over a whole thread block.
   slice (:func:`build_edge_rows`), whose rows give ``deg_s v - A_s v``.
   ``build_sharded_node_blocking`` is the JAX package's per-shard chunk
   layout, bitwise, whose ``shard(s)`` rows give the same matvec.
+* Panel shards (``core.program.build_tick_model_sharded``): shard s owns
+  the rows ``[s R, (s + 1) R)`` and every half-edge destined there.
+  ``build_model_sharded_blocking`` is the JAX package's layout, bitwise;
+  :func:`build_model_shard_rows` builds a shard's row CSR on the card,
+  and :func:`model_local_rows` runs K2 over it as a RECTANGULAR launch:
+  R output rows whose own terms are a row range of the panel
+  (``v_self``) and whose neighbours index all of it.
 """
 from __future__ import annotations
 
@@ -90,35 +97,43 @@ def build_edge_rows(src: torch.Tensor, dst: torch.Tensor,
                         torch.cat([weight, weight]), int(num_nodes))
 
 
-def _row_spmm(launch, rows: EdgeRows, v: torch.Tensor, alpha,
-              beta) -> torch.Tensor:
+def _row_spmm(launch, rows: EdgeRows, v: torch.Tensor, alpha, beta,
+              v_self: torch.Tensor | None = None) -> torch.Tensor:
     """``launch`` (K1 or K2) on a CUDA panel, the plain twin on a CPU one;
-    (n,) panels round-trip through a column."""
+    (n,) panels (and their ``v_self``) round-trip through a column."""
     squeeze = v.dim() == 1
     if squeeze:
         v = v[:, None]
+        v_self = None if v_self is None else v_self[:, None]
     if v.device.type == "cuda":
         out = launch(rows.row_ptr, rows.other, rows.weight, rows.hub_rows,
                      v.float().contiguous(), alpha, beta,
-                     hub_threshold=HUB_THRESHOLD)
+                     hub_threshold=HUB_THRESHOLD,
+                     v_self=None if v_self is None
+                     else v_self.float().contiguous())
     else:
         out = ref.edge_spmm_rows(rows.row_ptr, rows.other, rows.weight,
-                                 v.float(), alpha, beta)
+                                 v.float(), alpha, beta,
+                                 None if v_self is None else v_self.float())
     return out[:, 0] if squeeze else out
 
 
-def edge_spmm_rows(rows: EdgeRows, v: torch.Tensor,
-                   alpha=1.0, beta=0.0) -> torch.Tensor:
+def edge_spmm_rows(rows: EdgeRows, v: torch.Tensor, alpha=1.0, beta=0.0,
+                   v_self: torch.Tensor | None = None) -> torch.Tensor:
     """alpha * (L V) + beta * V over a row CSR: K1 on the card, the plain
-    twin on the CPU.  Accepts (n,) or (n, k) panels."""
-    return _row_spmm(kernel.edge_spmm, rows, v, alpha, beta)
+    twin on the CPU.  Accepts (n,) or (n, k) panels.  ``v_self`` makes
+    the launch rectangular (see :func:`edge_spmm_rows_nb`)."""
+    return _row_spmm(kernel.edge_spmm, rows, v, alpha, beta, v_self)
 
 
-def edge_spmm_rows_nb(rows: EdgeRows, v: torch.Tensor,
-                      alpha=1.0, beta=0.0) -> torch.Tensor:
+def edge_spmm_rows_nb(rows: EdgeRows, v: torch.Tensor, alpha=1.0, beta=0.0,
+                      v_self: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`edge_spmm_rows` launched as K2, the node-blocked SpMM's
-    counterpart (same body, its own launch count)."""
-    return _row_spmm(kernel.edge_spmm_nb, rows, v, alpha, beta)
+    counterpart (same body, its own launch count).  With ``v_self`` the
+    CSR's R rows are a panel shard's owned rows: ``v_self`` (R, k) holds
+    their own terms and ``v`` is the whole panel their neighbours index
+    (:func:`model_local_rows`)."""
+    return _row_spmm(kernel.edge_spmm_nb, rows, v, alpha, beta, v_self)
 
 
 def edge_spmm(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
@@ -392,6 +407,186 @@ def build_sharded_node_blocking(src, dst, weight, num_nodes: int,
         num_shards=int(num_shards),
         block_chunks=torch.from_numpy(bc).to(dev),
     )
+
+
+class ModelShardedBlocking(NamedTuple):
+    """DESTINATION-aligned per-shard layouts of the JAX package, for
+    panel (model-axis) sharding.
+
+    Where :class:`ShardedNodeBlocking` splits the edge buffer, this splits
+    the node range: shard s owns panel rows ``[s R, (s + 1) R)`` and every
+    live half-edge whose destination is one of them, so its rows of ``L
+    v`` are final and a collective only assembles disjoint row ranges.
+    ``u_local`` and ``chunk_block`` are local to the shard's own blocks,
+    ``other`` stays global, ``deg`` holds the full degrees of the shard's
+    rows, and all shards share one pow2-snapped chunk count.  No kernel
+    reads it: a shard's K2 runs over ``blocking_rows(mb.shard(s))`` (or
+    :func:`build_model_shard_rows`, the same rows built on the card).
+    """
+
+    u_local: torch.Tensor  # (S, NC*BE) int32 - dest local to its block
+    other: torch.Tensor  # (S, NC*BE) int32 - GLOBAL source node
+    weight: torch.Tensor  # (S, NC*BE) float32 - 0 => padding slot
+    chunk_block: torch.Tensor  # (S, NC+1) int32 - shard-local block map
+    deg: torch.Tensor  # (S, R) float32 - full degrees of the shard's rows
+    block_n: int
+    block_e: int
+    num_chunks: int  # NC, shared across shards
+    num_nodes: int  # real node count n
+    num_shards: int  # S
+    block_chunks: torch.Tensor  # (S, NBs+1) int32 - first real chunk per block
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.deg.shape[1]
+
+    @property
+    def padded_nodes(self) -> int:
+        return self.num_shards * self.deg.shape[1]
+
+    @property
+    def num_blocks(self) -> int:
+        """Blocks per shard."""
+        return self.deg.shape[1] // self.block_n
+
+    @property
+    def padded_half_edges(self) -> int:
+        """Half-edge slots across shards."""
+        return self.num_shards * self.num_chunks * self.block_e
+
+    def shard(self, s: int) -> NodeBlocking:
+        """Shard s's layout in its LOCAL node coordinates (``num_nodes``
+        is its row count R)."""
+        return model_shard_local_blocking(
+            self.u_local[s:s + 1], self.other[s:s + 1], self.weight[s:s + 1],
+            self.chunk_block[s:s + 1], self.deg[s:s + 1],
+            self.block_chunks[s:s + 1], **self.statics)
+
+    @property
+    def statics(self) -> dict:
+        """The layout's ints, as kwargs for :func:`model_shard_local_blocking`."""
+        return dict(block_n=self.block_n, block_e=self.block_e,
+                    num_chunks=self.num_chunks, num_nodes=self.num_nodes,
+                    num_shards=self.num_shards)
+
+
+def model_shard_local_blocking(u_local, other, weight, chunk_block, deg,
+                               block_chunks, *, block_n: int, block_e: int,
+                               num_chunks: int, num_nodes: int,
+                               num_shards: int) -> NodeBlocking:
+    """One shard's local-coordinate NodeBlocking from (1, ...) slices of a
+    :class:`ModelShardedBlocking`'s stacked arrays; ``num_nodes`` of the
+    result is the shard's ROW count, not the global n."""
+    del num_nodes, num_shards  # the statics travel for key symmetry only
+    return NodeBlocking(
+        u_local=u_local[0], other=other[0], weight=weight[0],
+        chunk_block=chunk_block[0], deg=deg[0], block_n=block_n,
+        block_e=block_e, num_chunks=num_chunks, num_nodes=deg.shape[1],
+        block_chunks=block_chunks[0])
+
+
+def model_rows_per_shard(num_nodes: int, num_shards: int,
+                         block_n: int = 512) -> int:
+    """R, the panel rows each of ``num_shards`` shards owns: the node
+    blocks, padded to a multiple of the shards, split evenly."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    nb_real = max((num_nodes + block_n - 1) // block_n, 1)
+    return (nb_real + num_shards - 1) // num_shards * block_n
+
+
+def build_model_sharded_blocking(src, dst, weight, num_nodes: int,
+                                 num_shards: int, *, block_n: int = 512,
+                                 block_e: int = 128, device=None
+                                 ) -> ModelShardedBlocking:
+    """Host-side destination-aligned layouts, bitwise the JAX package's,
+    on ``device`` (``None`` = the card).  The node blocks are padded to a
+    multiple of ``num_shards`` and assigned contiguously; every live
+    half-edge lands on the shard owning its destination row.  Any edge
+    buffer works (zero-weight slots are dropped)."""
+    dev = resolve_device(device)
+    src, dst, weight = _host(src), _host(dst), _host(weight)
+    rows = model_rows_per_shard(num_nodes, num_shards, block_n)
+    nb_per = rows // block_n
+    nb_total = nb_per * num_shards
+    n_pad = nb_total * block_n
+    u, o, w2, counts = _block_sorted_half_edges(src, dst, weight, block_n,
+                                                nb_total)
+    deg_full = _weighted_degrees(src, dst, weight, n_pad)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    per = [counts[s * nb_per:(s + 1) * nb_per] for s in range(num_shards)]
+    nc = next_pow2(max(int(_chunk_counts(c, block_e).sum()) for c in per))
+    ul = np.zeros((num_shards, nc * block_e), np.int32)
+    ot = np.zeros((num_shards, nc * block_e), np.int32)
+    wt = np.zeros((num_shards, nc * block_e), np.float32)
+    cb = np.zeros((num_shards, nc + 1), np.int32)
+    bc = np.zeros((num_shards, nb_per + 1), np.int32)
+    for s in range(num_shards):
+        lo, hi = offs[s * nb_per], offs[(s + 1) * nb_per]
+        ul[s], ot[s], wt[s], cb[s] = _fill_chunked(
+            u[lo:hi] - s * rows, o[lo:hi], w2[lo:hi], per[s], nb_per, nc,
+            block_n, block_e)
+        bc[s] = block_chunk_offsets(per[s], block_e)
+    return ModelShardedBlocking(
+        u_local=torch.from_numpy(ul).to(dev),
+        other=torch.from_numpy(ot).to(dev),
+        weight=torch.from_numpy(wt).to(dev),
+        chunk_block=torch.from_numpy(cb).to(dev),
+        deg=torch.from_numpy(deg_full.reshape(num_shards, rows)).to(dev),
+        block_n=block_n,
+        block_e=block_e,
+        num_chunks=nc,
+        num_nodes=int(num_nodes),
+        num_shards=int(num_shards),
+        block_chunks=torch.from_numpy(bc).to(dev),
+    )
+
+
+def build_model_shard_rows(src: torch.Tensor, dst: torch.Tensor,
+                           weight: torch.Tensor, num_nodes: int,
+                           num_shards: int, shard: int, *,
+                           block_n: int = 512) -> EdgeRows:
+    """The row CSR of shard ``shard``'s owned rows, built on the edge
+    list's device with no host round trip: the half-edges whose
+    destination lies in ``[shard R, (shard + 1) R)``
+    (:func:`model_rows_per_shard`), in local row coordinates, with global
+    neighbours.  Its live entries equal ``blocking_rows`` of the JAX
+    layout's ``shard(shard)``; the other half-edges sort past the last
+    row as dead slots."""
+    rows = model_rows_per_shard(num_nodes, num_shards, block_n)
+    start = shard * rows
+    u = torch.cat([src, dst]).long()
+    w = torch.cat([weight, weight])
+    owned = (u >= start) & (u < start + rows)
+    return _sorted_rows(u - start, torch.cat([dst, src]),
+                        torch.where(owned, w, torch.zeros_like(w)), rows)
+
+
+def model_local_rows(rows: EdgeRows, v_full: torch.Tensor, alpha, beta,
+                     row_start: int, *, use_kernel: bool = True
+                     ) -> torch.Tensor:
+    """This shard's (R, k) OWNED rows of ``alpha * (L V) + beta * V``.
+
+    ``rows`` is the shard's row CSR (local rows, global neighbours:
+    ``blocking_rows(mb.shard(s))`` or :func:`build_model_shard_rows`),
+    ``v_full`` the whole replicated panel and ``row_start`` the first
+    global row the shard owns (rows past ``v_full``'s end are zero
+    padding).  The rows are final, so the epilogue's AXPY applies here:
+    on the card one rectangular K2 launch with ``v_self =
+    v_full[row_start : row_start + R]``, as the JAX package always takes
+    its node-blocked kernel here; on the CPU, or with ``use_kernel=False``
+    (the JAX package's segment form) on any device, the plain twin."""
+    r = rows.row_ptr.shape[0] - 1
+    short = row_start + r - v_full.shape[0]
+    if short > 0:
+        v_full = torch.cat([v_full, v_full.new_zeros(
+            (short,) + tuple(v_full.shape[1:]))])
+    v_self = v_full[row_start:row_start + r]
+    if not use_kernel:
+        return ref.edge_spmm_rows(rows.row_ptr, rows.other, rows.weight,
+                                  v_full.float(), alpha, beta,
+                                  v_self.float())
+    return edge_spmm_rows_nb(rows, v_full, alpha, beta, v_self=v_self)
 
 
 def blocking_rows(nb: NodeBlocking) -> EdgeRows:

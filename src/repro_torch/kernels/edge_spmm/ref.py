@@ -44,18 +44,23 @@ def edge_spmm_blocked(u_local: torch.Tensor, other: torch.Tensor,
 
 def edge_spmm_rows(row_ptr: torch.Tensor, other: torch.Tensor,
                    w: torch.Tensor, v: torch.Tensor, alpha,
-                   beta) -> torch.Tensor:
+                   beta, v_self: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of the row-gather kernel over the SAME row CSR:
-    out = alpha * (deg * V - A V) + beta * V, where row i's entries
+    out = alpha * (deg * Vs - A V) + beta * Vs, where row i's entries
     ``[row_ptr[i], row_ptr[i+1])`` give both A V (w * V[other] summed into
-    row i) and deg_i (their weights summed).  Entries past ``row_ptr[n]``
-    are never read."""
-    n = v.shape[0]
+    row i) and deg_i (their weights summed).  Vs is ``v_self``, the (n, k)
+    rows' own terms of a rectangular CSR (a panel shard's owned rows,
+    whose neighbours index the whole panel V), or V itself.  Entries past
+    ``row_ptr[n]`` are never read."""
+    if v_self is None:
+        v_self = v
+    n = v_self.shape[0]
     live = int(row_ptr[-1])
     rows = torch.repeat_interleave(
         torch.arange(n, device=v.device), (row_ptr[1:] - row_ptr[:-1]).long(),
         output_size=live)
     wt = w[:live]
-    av = torch.zeros_like(v).index_add_(0, rows, wt[:, None] * v[other[:live].long()])
+    av = torch.zeros_like(v_self).index_add_(
+        0, rows, wt[:, None] * v[other[:live].long()])
     deg = torch.zeros((n,), dtype=v.dtype, device=v.device).index_add_(0, rows, wt)
-    return alpha * (deg[:, None] * v - av) + beta * v
+    return alpha * (deg[:, None] * v_self - av) + beta * v_self

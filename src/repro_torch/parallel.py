@@ -18,6 +18,11 @@ replicated result.
 * A rank's shard index, :func:`shard_index`, is its coordinate along the
   edge axes read row-major, as the JAX package's tick programs compute
   ``sidx``.
+* Panel (model-axis) sharding splits the (n, k) panel's ROWS over the
+  ``"model"`` axes instead: :func:`num_model_shards` and
+  :func:`model_shard_index` read them, and its collectives reduce in
+  ``edge_group(mesh, model_axes)`` (the ranks that differ only along
+  those axes).
 
 :func:`run_ranks` spawns a world on this host, runs one function in
 every rank and hands each rank's result and kernel launch counts back to
@@ -71,6 +76,9 @@ def num_edge_shards(mesh: DeviceMesh, edge_axes=("data",)) -> int:
     """Product of the mesh's edge-axis sizes: the shard count every edge
     buffer (and per-shard layout) must divide into."""
     names = mesh.mesh_dim_names
+    missing = [a for a in edge_axes if a not in names]
+    if missing:
+        raise ValueError(f"mesh axes {missing} not in mesh axes {names}")
     return math.prod(mesh.size(names.index(a)) for a in edge_axes)
 
 
@@ -84,6 +92,19 @@ def shard_index(mesh: DeviceMesh, edge_axes=("data",)) -> int:
         d = names.index(a)
         sidx = sidx * mesh.size(d) + coord[d]
     return sidx
+
+
+def num_model_shards(mesh: DeviceMesh, model_axes=("model",)) -> int:
+    """Product of the mesh's panel-sharding (model) axis sizes: the number
+    of row ranges the (n, k) panel splits into."""
+    return num_edge_shards(mesh, model_axes)
+
+
+def model_shard_index(mesh: DeviceMesh, model_axes=("model",)) -> int:
+    """This rank's panel shard along the model axes: it owns rows
+    ``[s R, (s + 1) R)``.  A psum over the model axes reduces in
+    ``edge_group(mesh, model_axes)``."""
+    return shard_index(mesh, model_axes)
 
 
 def edge_group(mesh: DeviceMesh, edge_axes=("data",)):

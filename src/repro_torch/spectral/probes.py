@@ -32,7 +32,8 @@ readouts cast them to float64, so a plan depends on the same values.
 
 Node-padded operators are handled by ``n_real``: probe vectors are
 masked to the first ``n_real`` rows.  ``probe_sharded_edge_arrays`` runs
-the same probe over edge buffers sharded across ranks.
+the same probe over edge buffers sharded across ranks, and
+``probe_model_sharded`` over panel shards (each rank's owned rows).
 """
 from __future__ import annotations
 
@@ -217,6 +218,58 @@ def probe_sharded_edge_arrays(
         mesh, edge_axes, src, dst, weight, num_nodes,
         backend_mod.resolve_backend(backend, src.device))
     matvec = distributed._psum_matvec(local, parallel.edge_group(mesh, edge_axes))
+    return slq_probe(matvec, num_nodes, generator, num_probes=num_probes,
+                     num_steps=num_steps, n_real=n_real, v0=v0)
+
+
+def probe_model_sharded(
+    mesh,
+    rows,
+    n_real: int | torch.Tensor,
+    *,
+    num_nodes: int | None = None,
+    model_axes=("model",),
+    num_probes: int = 4,
+    num_steps: int = 24,
+    generator: torch.Generator | None = None,
+    v0: torch.Tensor | None = None,
+    backend: str = "auto",
+) -> ProbeResult:
+    """SLQ over a PANEL-sharded layout: the Lanczos recurrence of
+    :func:`probe_edge_arrays`, each matvec this rank's OWNED rows of
+    ``L v`` (``ops.model_local_rows`` at ``alpha = 1, beta = 0``: K2 on
+    the card) and one all_reduce that assembles the disjoint row ranges,
+    as the panel-sharded tick decomposes its operator.
+
+    ``rows`` is the JAX package's layout (``ModelShardedBlocking``; the
+    rank reads the row CSR of its ``shard(s)``) or this rank's own
+    owned-row CSR (``graph_store.model_shard_rows``), which then needs
+    ``num_nodes``.  Every rank passes the same ``generator`` state or
+    ``v0`` (num_nodes, num_probes) and gets the same result."""
+    from repro_torch import parallel
+    from repro_torch.core import backend as backend_mod
+    from repro_torch.core import program
+    from repro_torch.kernels.edge_spmm import ops as es_ops
+
+    sidx = parallel.model_shard_index(mesh, model_axes)
+    if isinstance(rows, es_ops.ModelShardedBlocking):
+        num_nodes = rows.num_nodes
+        rows = es_ops.blocking_rows(rows.shard(sidx))
+    if num_nodes is None:
+        raise ValueError("probe_model_sharded: owned-row CSRs need num_nodes")
+    r = rows.row_ptr.shape[0] - 1
+    n_pad = parallel.num_model_shards(mesh, model_axes) * r
+    start = sidx * r
+    group = parallel.edge_group(mesh, model_axes)
+    use_kernel = backend_mod.resolve_backend(
+        backend, rows.row_ptr.device) == "kernel"
+
+    def matvec(v):
+        z = v.new_zeros((n_pad,) + tuple(v.shape[1:]))
+        z[start:start + r] = es_ops.model_local_rows(
+            rows, v, 1.0, 0.0, start, use_kernel=use_kernel)
+        return program._psum(z, group)[:num_nodes]
+
     return slq_probe(matvec, num_nodes, generator, num_probes=num_probes,
                      num_steps=num_steps, n_real=n_real, v0=v0)
 

@@ -28,11 +28,13 @@ tracking
     Stable cluster ids across re-solves: greedy maximum-overlap matching.
 
 sharded
-    The edge-sharded serving policy (``ServiceConfig(mesh=...)``): every
-    rank runs the service, ticks and probes shard the edge buffers with
+    The sharded serving policies (``ServiceConfig(mesh=...)``): every
+    rank runs the service.  Edge sharding splits the edge buffers, with
     one all_reduce per dilation matvec, and ``balanced_capacity`` keeps
-    every capacity a multiple of the shard count.  Panel (model-axis)
-    sharding is ROADMAP slice 7b.
+    every capacity a multiple of the shard count.  Panel sharding
+    (``model_axes=...``) splits the panels' rows: one K2 launch per
+    factor on the rank's owned rows and one fused rows + gram all_reduce
+    per mu-EG step.
 """
 from repro_torch.stream.graph_store import (  # noqa: F401
     CAPACITY_CLASSES,
@@ -48,12 +50,18 @@ from repro_torch.stream.graph_store import (  # noqa: F401
     fused_step,
     grow,
     make_edge_batch,
+    model_shard_rows,
+    model_sharded_blocking,
     num_edges,
     refresh_degrees,
     shard_edge_rows,
     sharded_node_blocking,
 )
-from repro_torch.stream.sharded import balanced_capacity  # noqa: F401
+from repro_torch.stream.sharded import (  # noqa: F401
+    balanced_capacity,
+    build_tick_model_sharded,
+    num_model_shards,
+)
 from repro_torch.stream.service import (  # noqa: F401
     ServiceConfig,
     StreamingService,

@@ -12,9 +12,10 @@ contributes nothing to any edge-wise computation (the contract of
 Degrees are cached and recomputed lazily: mutations only set
 ``deg_dirty``; :func:`refresh_degrees` recomputes the next time degrees
 are needed (spectral-radius bound, dilation scale).  The row CSR the
-kernels read (:func:`edge_rows`), and the row CSR of a rank's shard of
-the buffer (:func:`shard_edge_rows`), are cached per store the same way;
-every mutation returns a new store whose cache is empty.
+kernels read (:func:`edge_rows`), the row CSR of a rank's shard of the
+buffer (:func:`shard_edge_rows`) and of a rank's owned panel rows
+(:func:`model_shard_rows`), are cached per store the same way; every
+mutation returns a new store whose cache is empty.
 
 :func:`apply_edge_batch` gives the JAX package's results bit for bit
 without its (B, capacity) match: it sorts the live slots' keys
@@ -334,6 +335,39 @@ def sharded_node_blocking(store: GraphStore, num_shards: int,
         store.src, store.dst, store.weight, store.num_nodes, num_shards,
         block_n=min(block_n, store.num_nodes), block_e=block_e,
         device=store.device)
+
+
+def model_sharded_blocking(store: GraphStore, num_shards: int,
+                           *, block_n: int = 512, block_e: int = 128
+                           ) -> es_ops.ModelShardedBlocking:
+    """The JAX package's destination-aligned (panel-sharded) layouts of
+    the store's live edges (host-side, bitwise), on the store's device.
+    Any capacity works on any shard count.  No kernel reads it: the
+    panel-sharded tick reads :func:`model_shard_rows`."""
+    return es_ops.build_model_sharded_blocking(
+        store.src, store.dst, store.weight, store.num_nodes, num_shards,
+        block_n=min(block_n, store.num_nodes), block_e=block_e,
+        device=store.device)
+
+
+def model_shard_rows(store: GraphStore, mesh, model_axes=("model",),
+                     *, block_n: int = 512) -> es_ops.EdgeRows:
+    """The row CSR of this rank's OWNED panel rows
+    (``ops.build_model_shard_rows``: every half-edge destined to the
+    rank's row range of :func:`model_sharded_blocking`'s split, local
+    rows, global neighbours), built on the store's device: what the
+    rank's K2 reads in a panel-sharded tick and probe.  Cached on the store like
+    :func:`edge_rows`, so a mutation, which returns a new store, empties
+    it."""
+    num_shards = parallel.num_model_shards(mesh, model_axes)
+    sidx = parallel.model_shard_index(mesh, model_axes)
+    bn = min(block_n, store.num_nodes)
+    key = ("model_rows", num_shards, sidx, bn)
+    if key not in store._cache:
+        store._cache[key] = es_ops.build_model_shard_rows(
+            store.src, store.dst, store.weight, store.num_nodes, num_shards,
+            sidx, block_n=bn)
+    return store._cache[key]
 
 
 def fused_step(store: GraphStore, backend: str = "auto"

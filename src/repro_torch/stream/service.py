@@ -59,7 +59,14 @@ every rank of the mesh runs this service on the same inputs, with the
 same stores, panels and decisions; each group tick runs on the rank's
 shard of every member's edge buffer with one all_reduce per dilation
 factor, and admission probes run through the same sharded matvec.
-Panel (model-axis) sharding is ROADMAP slice 7b.
+
+PANEL-SHARDED serving (``ServiceConfig(mesh=..., model_axes=...)``):
+every rank owns a row range of every session's panel instead; a group
+tick runs one rectangular K2 launch per dilation factor on the rank's
+owned rows (``graph_store.model_shard_rows``) and ships each mu-EG
+step's row assembly and gram in one fused all_reduce
+(``program.ModelShardedTickProgram``); admission probes run through the
+same owned-rows matvec (``probes.probe_model_sharded``).
 """
 from __future__ import annotations
 
@@ -180,7 +187,12 @@ class ServiceConfig:
     # shard count.  None = one-device ticks.
     mesh: object | None = None
     edge_axes: tuple = ("data",)
-    # panel (model-axis) sharding: ROADMAP slice 7b, refused
+    # PANEL sharding (with a mesh): every rank owns the rows [s R, (s+1) R)
+    # of every session's panel and the half-edges destined there
+    # (graph_store.model_shard_rows); group ticks run one K2 launch per
+    # factor on the owned rows and ship each mu-EG step's rows and gram
+    # in ONE fused all_reduce, and admission probes run over the same
+    # owned-rows matvec.  None = replicated panels.
     model_axes: tuple | None = None
     # "residual_decay" gives each session its own chunk budget when it is
     # forecast to stay above `eval_payoff * steps_per_tick` steps from
@@ -205,16 +217,15 @@ class ServiceConfig:
             raise ValueError(
                 "tick_block_n: the port's tick layout has no node blocks "
                 "(a row CSR); leave it at 512")
-        if self.model_axes is not None:
-            raise NotImplementedError(
-                "panel-sharded serving (model_axes) is not ported yet: "
-                "ROADMAP slice 7b")
         if self.mesh is not None:
             names = getattr(self.mesh, "mesh_dim_names", None) or ()
-            missing = [a for a in self.edge_axes if a not in names]
+            axes = tuple(self.edge_axes) + tuple(self.model_axes or ())
+            missing = [a for a in axes if a not in names]
             if missing:
                 raise ValueError(f"mesh axes {missing} not in mesh axes "
                                  f"{tuple(names)}")
+        elif self.model_axes is not None:
+            raise ValueError("model_axes requires a mesh")
 
 
 @dataclasses.dataclass
@@ -286,6 +297,10 @@ class StreamingService:
         self.device = resolve_device(device)
         self._backend = backend_mod.resolve_backend(cfg.backend, self.device)
         self._mesh = cfg.mesh
+        # panel sharding re-buckets half-edges by destination itself, so
+        # the edge-balance contract (_num_shards) stays on edge_axes
+        self._model_axes = (tuple(cfg.model_axes) if cfg.mesh is not None
+                            and cfg.model_axes is not None else None)
         self._num_shards = (sharded_mod.num_edge_shards(cfg.mesh, cfg.edge_axes)
                             if cfg.mesh is not None else 1)
         self._sessions: dict[str, _Session] = {}
@@ -319,7 +334,11 @@ class StreamingService:
 
     def _tick_rows(self, store: gs.GraphStore) -> es_ops.EdgeRows:
         """The row CSR a group tick reads for a member: the store's own,
-        or on a mesh this rank's shard of it."""
+        on a mesh this rank's shard of it, or with model axes this rank's
+        owned panel rows."""
+        if self._model_axes is not None:
+            return gs.model_shard_rows(store, self._mesh, self._model_axes,
+                                       block_n=self.cfg.tick_block_n)
         if self._mesh is None:
             return gs.edge_rows(store)
         return gs.shard_edge_rows(store, self._mesh, self.cfg.edge_axes)
@@ -350,7 +369,16 @@ class StreamingService:
             self._probes_run += 1
             gen = _generator(self.device, cfg.seed + _PROBE_SEED,
                              self._probes_run)
-            if self._mesh is not None:
+            if self._model_axes is not None:
+                # the panel-sharded tick's decomposition: the rank's owned
+                # rows (cached on the store for its ticks), one all_reduce
+                # assembling them per Lanczos matvec
+                probe = spectral_probes.probe_model_sharded(
+                    self._mesh, self._tick_rows(store), n,
+                    num_nodes=store.num_nodes, model_axes=self._model_axes,
+                    num_probes=cfg.probe_vectors, num_steps=cfg.probe_steps,
+                    generator=gen, backend=self._backend)
+            elif self._mesh is not None:
                 # the tick's decomposition: the rank's slice, one
                 # all_reduce per Lanczos matvec
                 probe = spectral_probes.probe_sharded_edge_arrays(
@@ -627,7 +655,8 @@ class StreamingService:
                    ) -> tuple:
         """Sessions sharing a group share one tick program: capacity
         class + scheduled degree (the layout's shapes depend only on the
-        capacities)."""
+        capacities; a panel-sharded layout is a row CSR too, with no
+        chunk statics to key on)."""
         key = (self._class_key(sess), self._session_degree(sess, degrees))
         sess.group_key = key
         return key
@@ -640,7 +669,7 @@ class StreamingService:
                 steps=self.cfg.steps_per_tick, backend=self._backend)
             prog = program.build_tick_program(
                 schedule, self.device, mesh=self._mesh,
-                edge_axes=self.cfg.edge_axes)
+                edge_axes=self.cfg.edge_axes, model_axes=self._model_axes)
             self._compiled[(key, occupancy)] = prog
         return prog
 
@@ -649,8 +678,8 @@ class StreamingService:
         """Tick programs built: one per (capacity class, degree) x pow2
         occupancy bucket, so the count stays logarithmic in fleet size.
         On the card each captures its CUDA graphs once, at its first
-        call, so this is also the capture count (edge-sharded programs
-        capture none).  The scheduler's
+        call, so this is also the capture count (edge- and panel-sharded
+        programs capture none).  The scheduler's
         multipliers, per-session c and lr, updates and membership
         changes add none."""
         return len(self._compiled)

@@ -1,4 +1,4 @@
-"""Edge-sharded serving: the mesh policy of ``ServiceConfig(mesh=...)``.
+"""Sharded serving: the mesh policies of ``ServiceConfig(mesh=...)``.
 
 Every rank of the mesh runs the same ``StreamingService`` on the same
 inputs (one rank is one shard, :mod:`repro_torch.parallel`): the host
@@ -17,13 +17,23 @@ round edge capacities up to a multiple of the shard count
 The kernel-epilogue AXPY of a one-device tick is traded for the
 collective: the factor ``u - c L u`` applies after the all_reduce.
 
-Panel (model-axis) sharding is ROADMAP slice 7b.
+PANEL sharding (``ServiceConfig(model_axes=...)``) is the second mesh
+policy: the (n, k) panel itself splits by row range.  Shard s owns rows
+``[s R, (s + 1) R)`` and every half-edge destined there
+(``graph_store.model_shard_rows``), so its rows of each dilation factor
+are final (the AXPY stays in K2's epilogue), the collectives only
+assemble disjoint rows, and a mu-EG step ships its row assembly and
+2k x 2k gram in ONE fused all_reduce (``build_tick_model_sharded``).
+There is no edge-balance contract to keep: the layout re-buckets edges
+by destination, so any capacity works on any shard count.
 """
 from __future__ import annotations
 
 from repro_torch.core.program import (  # noqa: F401  (re-exported tick builders)
+    build_tick_model_sharded,
     build_tick_sharded_pallas,
     build_tick_sharded_segment,
+    num_model_shards,
 )
 from repro_torch.parallel import num_edge_shards  # noqa: F401
 
@@ -38,7 +48,9 @@ def balanced_capacity(capacity: int, num_shards: int) -> int:
 
 __all__ = [
     "balanced_capacity",
+    "build_tick_model_sharded",
     "build_tick_sharded_pallas",
     "build_tick_sharded_segment",
     "num_edge_shards",
+    "num_model_shards",
 ]

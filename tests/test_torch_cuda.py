@@ -121,6 +121,43 @@ def test_k2_refuses_too_wide_panels(dev):
     assert _rel_err(got, -0.3 * lap.laplacian_matvec(g, v) + v) <= REL
 
 
+@pytest.mark.parametrize("k", [1, 4, 10, 37])
+@pytest.mark.parametrize("num_shards", [2, 3])
+def test_k2_rectangular_launch_matches_twin(dev, num_shards, k):
+    """K2 over a panel shard's owned rows: R output rows whose own terms
+    are ``v_self`` (a row range of V, so its alignment moves with the
+    shard's first row) and whose neighbours index all of V.  Shard by
+    shard the rows concatenate to alpha L V + beta V."""
+    g = _power_law(dev, 9216)
+    v = _panel(42, g.num_nodes, k, dev)
+    parts = []
+    for s in range(num_shards):
+        rows = es_ops.build_model_shard_rows(g.src, g.dst, g.weight,
+                                             g.num_nodes, num_shards, s,
+                                             block_n=64)
+        r = rows.row_ptr.shape[0] - 1
+        reset_launch_counts()
+        got = es_ops.model_local_rows(rows, v, -0.05, 1.0, s * r)
+        assert launch_counts()["edge_spmm_nb"] == 1
+        vp = torch.cat([v, v.new_zeros((num_shards * r - g.num_nodes, k))])
+        want = es_ref.edge_spmm_rows(rows.row_ptr, rows.other, rows.weight,
+                                     vp, -0.05, 1.0,
+                                     v_self=vp[s * r:(s + 1) * r])
+        assert _rel_err(got, want) <= REL
+        torch.testing.assert_close(
+            es_ops.model_local_rows(rows, v, -0.05, 1.0, s * r), got,
+            atol=0, rtol=0)
+        parts.append(got)
+    full = torch.cat(parts)[:g.num_nodes]
+    assert _rel_err(full, es_ref.edge_spmm_affine(
+        g.src, g.dst, g.weight, v, -0.05, 1.0)) <= REL
+    # v_self = v is the square launch, bit for bit
+    rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, g.num_nodes)
+    torch.testing.assert_close(
+        es_ops.edge_spmm_rows_nb(rows, v, -0.05, 1.0, v_self=v),
+        es_ops.edge_spmm_rows_nb(rows, v, -0.05, 1.0), atol=0, rtol=0)
+
+
 def _power_law(dev, n=4096):
     return graphs.power_law_graph(n, avg_degree=8, alpha=2.5, seed=0,
                                   device=dev)
@@ -972,4 +1009,36 @@ def test_sharded_kernel_tick_on_two_ranks_matches_one_process(dev):
     assert all(r.value[2] == 0 for r in results)  # eager: nothing captured
     for r in results:  # K1 (2 x 1024 rows) per factor, K3/K4 per member
         assert r.launches["edge_spmm"] == 7 * (3 * 2 + 1)
+        assert r.launches["gram2k"] == r.launches["panel_mix"] == 3 * 2 * 2
+
+
+def test_panel_sharded_kernel_tick_on_two_ranks_matches_one_process(dev):
+    import torch_dist_ranks as ranks
+    from repro_torch import parallel
+    from repro_torch.core import program
+    from repro_torch.stream import graph_store as gs
+
+    graphs_np = [ranks.rand_edges(20 + i, 1024, 6000) for i in range(2)]
+    cs, lrs, chunks = [0.01, 0.02], [0.3, 0.2], (1, 2)
+    vs = np.stack([ranks.panel(30 + i, 1024, 6) for i in range(2)])
+    stores = [gs.from_edge_list(lap.make_edge_list(e, 1024, weights=w_,
+                                                   device=dev), capacity=8192)
+              for e, w_ in graphs_np]
+    prog = program.build_tick_program(
+        program.StepSchedule(degree=7, steps=3, backend="kernel"), dev)
+    want = prog([gs.edge_rows(st) for st in stores], cs,
+                torch.from_numpy(vs).to(dev), lrs, chunks)
+    results = parallel.run_ranks(2, ranks.card_model_tick, graphs_np, 1024,
+                                 8192, cs, vs, lrs, chunks, 7, 3, 128,
+                                 device=dev, timeout=300.0)
+    for j in range(2):
+        got = [r.value[j] for r in results]
+        assert parallel.bitwise_equal(got)
+        assert _rel_err(torch.from_numpy(got[0]).to(dev), want[j]) <= REL
+    for r in results:
+        assert r.value[2] == 0  # eager: nothing captured
+        assert r.value[3] == (6 * 6 + 7, 6)  # per step 6 plain + 1 fused
+        # K2 on the owned rows per factor, K3 per member per step, K4 per
+        # member per step on the replicated panel
+        assert r.launches["edge_spmm_nb"] == 7 * (3 * 2 + 1)
         assert r.launches["gram2k"] == r.launches["panel_mix"] == 3 * 2 * 2

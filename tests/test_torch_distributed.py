@@ -499,8 +499,25 @@ def test_balanced_capacity_equals_jax():
 
 
 def test_panel_sharding_refused_naming_slice_7b():
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    """Panel sharding is ported (tests/test_torch_model_sharded.py); what
+    it still refuses: model_axes without a mesh, and axes the mesh lacks.
+    A mesh with model_axes builds the panel-sharded program."""
+    with pytest.raises(ValueError, match="requires a mesh"):
         ServiceConfig(model_axes=("model",))
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         program.build_tick_program(program.StepSchedule(), CPU,
                                    model_axes=("model",))
+    with pytest.raises(ValueError, match="mesh axes"):
+        ServiceConfig(mesh=SimpleNamespace(mesh_dim_names=("data",)),
+                      model_axes=("model",))
+    with ranks.one_rank_world() as mesh:
+        data_only = parallel.make_mesh((1,), ("data",), CPU)
+        with pytest.raises(ValueError, match="mesh axes"):
+            program.build_tick_program(program.StepSchedule(), CPU,
+                                       mesh=data_only, model_axes=("model",))
+        prog = program.build_tick_program(program.StepSchedule(), CPU,
+                                          mesh=mesh, model_axes=("model",))
+        assert isinstance(prog, program.ModelShardedTickProgram)
+        assert (prog.num_shards, prog.shard, prog.captures) == (1, 0, 0)
+        assert ServiceConfig(mesh=mesh, model_axes=("model",)).model_axes == \
+            ("model",)

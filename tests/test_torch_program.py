@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_ranks
 from repro.core import laplacian as jlap
 from repro.core import program as jprogram
 from repro.spectral import plan as jplan
@@ -237,13 +238,29 @@ def test_one_program_refills_its_layout_between_sub_batches():
 
 
 def test_sharded_ticks_raise_naming_slice_7():
-    # the edge-sharded tick (mesh) is tests/test_torch_distributed.py's;
-    # the panel-sharded one is slice 7b
+    # the edge-sharded tick (mesh) is tests/test_torch_distributed.py's and
+    # the panel-sharded one (mesh, model_axes) tests/test_torch_model_
+    # sharded.py's; here: what build_tick_program refuses and builds
     sched = program.StepSchedule()
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         program.build_tick_program(sched, CPU, model_axes=("model",))
     with pytest.raises(AttributeError):  # a mesh must be a DeviceMesh
         program.build_tick_program(sched, CPU, mesh=object())
+    with pytest.raises(AttributeError):
+        program.build_tick_program(sched, CPU, mesh=object(),
+                                   model_axes=("model",))
+    with torch_dist_ranks.one_rank_world() as mesh:
+        with pytest.raises(ValueError, match="mesh axes"):
+            program.build_tick_program(sched, CPU, mesh=mesh,
+                                       model_axes=("pod",))
+        prog = program.build_tick_program(sched, CPU, mesh=mesh,
+                                          model_axes=("model",))
+        assert isinstance(prog, program.ModelShardedTickProgram)
+        assert isinstance(program.build_tick_model_sharded(sched, mesh,
+                                                           device=CPU),
+                          program.ModelShardedTickProgram)
+        assert not isinstance(program.build_tick_program(sched, CPU, mesh=mesh),
+                              program.ModelShardedTickProgram)
 
 
 def test_kernel_tick_refuses_cpu():

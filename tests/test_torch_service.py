@@ -464,12 +464,18 @@ def test_residual_decay_scheduler_beats_round_robin():
 
 
 def test_service_config_refuses_mesh_and_unknown_backend():
-    # a mesh must be a DeviceMesh naming the edge axes (edge sharding is
-    # tests/test_torch_distributed.py's); panel sharding is slice 7b
+    # a mesh must be a DeviceMesh naming the edge and model axes (edge
+    # sharding is tests/test_torch_distributed.py's, panel sharding
+    # tests/test_torch_model_sharded.py's); model_axes need a mesh
     with pytest.raises(ValueError, match="mesh axes"):
         ServiceConfig(mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 7b"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         ServiceConfig(model_axes=("model",))
+    with pytest.raises(ValueError, match=r"\['model'\] not in mesh axes"):
+        ServiceConfig(mesh=SimpleNamespace(mesh_dim_names=("data",)),
+                      model_axes=("model",))
+    ServiceConfig(mesh=SimpleNamespace(mesh_dim_names=("data", "model")),
+                  model_axes=("model",))
     ServiceConfig(edge_axes=("data", "model"))  # without a mesh: unused
     with pytest.raises(ValueError, match="tick_block_n"):
         ServiceConfig(tick_block_n=256)

@@ -1,8 +1,10 @@
-"""Rank bodies and shared inputs of tests/test_torch_distributed.py.
+"""Rank bodies and shared inputs of tests/test_torch_distributed.py and
+tests/test_torch_model_sharded.py.
 
 The test spawns one world per shard count (``parallel.run_ranks``); each
 rank imports this module by name (the spawned interpreter gets the
-test's ``sys.path``), runs :func:`run_all` on the CPU over ``gloo`` and
+test's ``sys.path``), runs :func:`run_all` (edge sharding) or
+:func:`run_model` (panel sharding) on the CPU over ``gloo`` and
 returns every case's output as numpy.  The inputs are built from numpy
 seeds by the functions below, which the test also calls to build the
 JAX side's inputs: both packages see the same edges, panels and draws.
@@ -10,8 +12,13 @@ This module imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import contextlib
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import parallel
 from repro_torch.core import backend, distributed, graphs, kmeans, metrics
@@ -19,6 +26,7 @@ from repro_torch.core import laplacian as lap
 from repro_torch.core import program, solvers
 from repro_torch.core.series import limit_neg_exp
 from repro_torch.core.walks import WalkBatch
+from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.spectral import probes
 from repro_torch.stream import graph_store as gs
 from repro_torch.stream.service import ServiceConfig, StreamingService
@@ -255,6 +263,160 @@ def run_all(dev, inputs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# panel (model-axis) sharding: tests/test_torch_model_sharded.py
+# ---------------------------------------------------------------------------
+
+MODEL_AXES = ("model",)
+MODEL_BLOCK_N = 32  # several owned row ranges on the 96-node tick graphs
+MODEL_DEGREE, MODEL_STEPS = 5, 4
+# (method, group size) of the direct ticks, and each size's chunk budgets
+MODEL_TICKS = (("mu_eg", 1), ("mu_eg", 2), ("oja", 1), ("oja", 2))
+MODEL_CHUNKS = {1: 2, 2: (1, 2)}
+MODEL_AB = {"plain": (1.0, 0.0), "step": (-0.03, 1.0)}  # (alpha, beta)
+MODEL_PROBE_STEPS = 12
+
+
+def model_mesh(dev, num_shards: int):
+    """The JAX package's ("data", "model") mesh of shape (1, S)."""
+    return parallel.make_mesh((1, num_shards), ("data", "model"), dev)
+
+
+def _model_ticks(mesh, out: dict, tick_in: dict) -> None:
+    stores = [gs.from_edge_list(lap.make_edge_list(e, 96, weights=w,
+                                                   device=CPU), capacity=512)
+              for e, w in tick_in["graphs"]]
+    rows = [gs.model_shard_rows(st, mesh, block_n=MODEL_BLOCK_N)
+            for st in stores]
+    out["model/rows_per_shard"] = rows[0].row_ptr.shape[0] - 1
+    for method, g in MODEL_TICKS:
+        prog = program.build_tick_program(
+            program.StepSchedule(method=method, degree=MODEL_DEGREE,
+                                 steps=MODEL_STEPS, backend="segment"),
+            CPU, mesh=mesh, model_axes=MODEL_AXES)
+        key = f"model_tick/{method}/{g}"
+        with program.count_psums() as stats:
+            vs, res = prog(rows[:g], tick_in["cs"][:g],
+                           torch.from_numpy(tick_in["vs"][:g]),
+                           tick_in["lrs"][:g], MODEL_CHUNKS[g])
+        out[f"{key}/vs"], out[f"{key}/res"] = vs, res
+        out[f"{key}/psums"] = (stats.plain, stats.fused)
+        out[f"{key}/captures"] = prog.captures
+        out[f"{key}/program"] = type(prog).__name__
+
+
+def _model_rows(mesh, out: dict) -> None:
+    """This rank's owned rows of every case graph, from its row CSR built
+    in place and from the JAX-equal layout's shard."""
+    num_shards = parallel.num_model_shards(mesh, MODEL_AXES)
+    sidx = parallel.model_shard_index(mesh, MODEL_AXES)
+    out["model/sidx"], out["model/shards"] = sidx, num_shards
+    for name in CASE_NAMES:
+        g = _graph(name)
+        v = torch.from_numpy(panel(6, g.num_nodes, 4))
+        mb = backend.model_blocking_for(g, num_shards, block_n=MODEL_BLOCK_N)
+        rows = es_ops.build_model_shard_rows(
+            g.src, g.dst, g.weight, g.num_nodes, num_shards, sidx,
+            block_n=MODEL_BLOCK_N)
+        start = sidx * mb.rows_per_shard
+        for tag, (alpha, beta) in MODEL_AB.items():
+            out[f"model_rows/{name}/{tag}"] = es_ops.model_local_rows(
+                rows, v, alpha, beta, start)
+        out[f"model_rows/{name}/blocking"] = es_ops.model_local_rows(
+            es_ops.blocking_rows(mb.shard(sidx)), v, 1.0, 0.0, start)
+
+
+def _model_probe(mesh, out: dict, probe_v0: np.ndarray) -> None:
+    g = _graph("weighted")
+    num_shards = parallel.num_model_shards(mesh, MODEL_AXES)
+    v0 = torch.from_numpy(probe_v0)
+    mb = backend.model_blocking_for(g, num_shards, block_n=MODEL_BLOCK_N)
+    store = gs.from_edge_list(g, capacity=512)
+    with program.count_psums() as stats:
+        by_blocking = probes.probe_model_sharded(
+            mesh, mb, g.num_nodes, num_steps=MODEL_PROBE_STEPS, v0=v0)
+    out["model_probe/psums"] = (stats.plain, stats.fused)
+    by_rows = probes.probe_model_sharded(
+        mesh, gs.model_shard_rows(store, mesh, block_n=MODEL_BLOCK_N),
+        g.num_nodes, num_nodes=store.num_nodes, num_steps=MODEL_PROBE_STEPS,
+        v0=v0)
+    gp = distributed.pad_edges_for_mesh(g, num_shards)
+    by_edges = probes.probe_sharded_edge_arrays(
+        mesh, gp.src, gp.dst, gp.weight, None, g.num_nodes,
+        num_nodes=g.num_nodes, edge_axes=MODEL_AXES,
+        num_steps=MODEL_PROBE_STEPS, v0=v0)
+    for tag, res in (("blocking", by_blocking), ("rows", by_rows),
+                     ("edges", by_edges)):
+        out[f"model_probe/{tag}"] = {
+            "lambda_max": float(res.lambda_max), "trace": float(res.trace),
+            "ritz": res.ritz, "weights": res.weights}
+
+
+def _model_rows_cached(store) -> bool:
+    return any(isinstance(key, tuple) and key[0] == "model_rows"
+               for key in store._cache)
+
+
+def _model_service(mesh, out: dict, resume: dict) -> None:
+    svc = StreamingService(ServiceConfig(mesh=mesh, model_axes=MODEL_AXES,
+                                         **service_common()), device=CPU)
+    for sid, g in service_graphs().items():
+        svc.add_graph(sid, g, resume_panel=resume[sid])
+    out["msvc/tick1"] = svc.tick()
+    out["msvc/panels1"] = {sid: svc.panel(sid) for sid in svc.session_ids()}
+    out["msvc/cached_after_tick"] = _model_rows_cached(
+        svc._sessions["weighted"].store)
+    svc.apply_updates("weighted", *UPDATE)
+    out["msvc/cached_after_update"] = _model_rows_cached(
+        svc._sessions["weighted"].store)
+    out["msvc/tick2"] = svc.tick()
+    out["msvc/cached_after_tick2"] = _model_rows_cached(
+        svc._sessions["weighted"].store)
+    out["msvc/panels2"] = {sid: svc.panel(sid) for sid in svc.session_ids()}
+    out["msvc/programs"] = svc.compile_count
+    out["msvc/group_keys"] = len({s.group_key
+                                  for s in svc._sessions.values()})
+    out["msvc/captures"] = sum(p.captures for p in svc._compiled.values())
+    out["msvc/program_types"] = sorted({type(p).__name__
+                                        for p in svc._compiled.values()})
+    # admission probes through the owned-rows matvec plan as one device's
+    plans = {}
+    for tag, kw in (("model", dict(mesh=mesh, model_axes=MODEL_AXES)),
+                    ("one_device", {})):
+        probed = StreamingService(ServiceConfig(
+            **kw, **dict(service_common(), probe_spectrum=True)), device=CPU)
+        for sid, g in service_graphs().items():
+            probed.add_graph(sid, g)
+        plans[tag] = {sid: (s.rho, s.plan_degree, s.lr, s.plan.family)
+                      for sid, s in probed._sessions.items()}
+    out["msvc/plans"] = plans
+
+
+def run_model(dev, inputs: dict) -> dict:
+    """Every panel-sharded case on this rank; returns {name: output}."""
+    torch.set_num_threads(1)  # several ranks share the test worker's CPU
+    mesh = model_mesh(dev, dist.get_world_size())
+    out: dict = {}
+    _model_rows(mesh, out)
+    _model_ticks(mesh, out, inputs["tick"])
+    _model_probe(mesh, out, inputs["probe_v0"])
+    _model_service(mesh, out, inputs["resume"])
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """A gloo world of this one process (file rendezvous in a temporary
+    directory) and its (1, 1) ("data", "model") mesh, destroyed on exit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=(Path(tmp) / "init").as_uri(),
+                                rank=0, world_size=1)
+        try:
+            yield model_mesh(torch.device(CPU), 1)
+        finally:
+            dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # card rank bodies (tests/test_torch_cuda.py): ranks on one card, gloo
 # ---------------------------------------------------------------------------
 
@@ -280,3 +442,23 @@ def card_tick(dev, graphs_np, n: int, capacity: int, cs, vs, lrs, chunks,
     vs, res = prog([gs.shard_edge_rows(st, mesh) for st in stores], cs,
                    torch.from_numpy(vs).to(dev), lrs, chunks)
     return vs, res, prog.captures
+
+
+def card_model_tick(dev, graphs_np, n: int, capacity: int, cs, vs, lrs, chunks,
+                    degree: int, steps: int, block_n: int):
+    """One panel-sharded kernel tick of a group of stores: K2 on the
+    rank's owned rows per factor, one fused rows + gram all_reduce per
+    mu-EG step."""
+    mesh = model_mesh(dev, dist.get_world_size())
+    stores = [gs.from_edge_list(lap.make_edge_list(e, n, weights=w,
+                                                   device=dev),
+                                capacity=capacity) for e, w in graphs_np]
+    prog = program.build_tick_program(
+        program.StepSchedule(degree=degree, steps=steps, backend="kernel"),
+        dev, mesh=mesh, model_axes=MODEL_AXES)
+    with program.count_psums() as stats:
+        vs, res = prog([gs.model_shard_rows(st, mesh, MODEL_AXES,
+                                            block_n=block_n)
+                        for st in stores], cs,
+                       torch.from_numpy(vs).to(dev), lrs, chunks)
+    return vs, res, prog.captures, (stats.plain, stats.fused)
