@@ -149,7 +149,35 @@ outside a checkout.  Phases, one JSON line each:
              same panel and plan), peak memory per rank, the split on each
              rank's owned rows, and K2's rectangular launch there held to
              its twin in each rank
-24. kernels - per kernel: launches on the main path (phases 3-23 but the
+24. mdp     - paper Figs. 1-3 (bench_mdp.py): three_room_mdp(s=1, h=10)
+             (n = 341, E = 622), k = 6, 1500 steps, the transform suite at
+             degree 151 over the dense L (each series one CUDA graph) for
+             mu-EG and Oja from one seed-0 panel: steps to a full streak
+             and to 1 % subspace error, ms per step, wall to 1 %; the limit
+             series again on K1 from the same panel; the proto-value
+             functions of three_room_mdp(s=2) through spectral_cluster
+             (agreement with the rooms, examples/mdp_protovalues.py's sign
+             correlation)
+25. mdp_full - three_room_mdp(s=59) (n = 1,046,661, E = 2,089,898, rows of
+             at most 4 entries, no hub rows): K2 on its row CSR held to
+             its twins and timed (ms, graph_ms) against its bound, then
+             spectral_cluster(num_clusters=3, transform="auto"), 10 steps:
+             host generation s, probe s, the plan, ms per step, peak memory
+26. cliques - Fig. 4 (bench_cliques.py): clique_graph(300, 3) and (400, 4),
+             the suite at degree 251, mu-EG, 1200 steps
+27. series_degree - Fig. 6 (bench_series_degree.py): limit and Taylor
+             series at degrees 11/51/151/251 and two beyond-paper series
+             on clique_graph(300, 3), k = 3, 900 steps
+28. transforms - Table 2 (bench_transforms.py): convergence ratio and
+             dilation per transform on the synthetic spectrum, the apply
+             at n = 512, k = 8, and both degree-251 limit rows through K5
+             held to the series apply
+29. linkpred - Fig. 5 (bench_linkpred.py): the link-predicted completion of
+             clique_graph(300, 3, seed=1), the suite, 1000 steps
+30. walks_paper - Sec. 4.3 (bench_walks.py): 20,000 walks of length 3 on
+             clique_graph(200, 4): walks/s, the L^2 estimate's relative
+             error (importance vs rejection), mean acceptance
+31. kernels - per kernel: launches on the main path (phases 3-30 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -272,6 +300,25 @@ MODEL_SPLIT_REPS = 5
 # dedup=False), E ~ 5e7, at the top capacity class
 MILLION_N, MILLION_AVG_DEGREE, MILLION_ALPHA = 1_000_000, 100.0, 2.5
 MILLION_CAPACITY = 1 << 26
+# the paper's figures: benchmarks/common.py's eval cadence; operator +
+# solver step pairs timed per row; bench_mdp.py (k, steps, degree), the
+# proto-value solve of examples/mdp_protovalues.py (1200 steps) on the
+# s = 2 grid, the full-width grid (s = 59: n = 1,046,661, E = 2,089,898);
+# bench_cliques.py, bench_series_degree.py, bench_linkpred.py steps;
+# bench_transforms.py's spectrum k and apply shape; bench_walks.py's walks
+FIG_EVAL_EVERY = 25
+FIG_STEP_REPS = 20
+MDP_K, MDP_STEPS, MDP_DEGREE = 6, 1500, 151
+# the 1 % assert of phase mdp holds over draws, not one: seed 0's row is
+# the figure, and at least MDP_SEEDS_REACHED of MDP_SEEDS draws must reach
+# 1 % (the steps to it move with the draw and with cuBLAS's rounding)
+MDP_SEEDS, MDP_SEEDS_REACHED = 8, 6
+PVF_STEPS = 1200
+MDP_FULL_S = 59
+CLIQUE_GRAPHS = ((300, 3), (400, 4))
+CLIQUE_STEPS, SERIES_STEPS, LINKPRED_STEPS = 1200, 900, 1000
+TABLE2_K, TABLE2_N, TABLE2_PANEL = 4, 512, 8
+WALKS_PAPER_W = 20_000
 
 
 def emit(obj) -> None:
@@ -289,6 +336,56 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` over ``reps`` calls, in CUDA events."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_s(fn):
+    """(fn(), seconds on the host clock between two synchronizes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, reps: int = 5) -> float:
+    """ms per call of ``calls`` calls captured in one CUDA graph."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def _latency(snap: dict) -> dict:
@@ -1186,6 +1283,632 @@ def model_full_rank(dev, tenant_args, million_args) -> dict:
     return {"tenant": tenant, "million": model_million_rank(dev, *million_args)}
 
 
+# ---- the paper's figures (phases 24-30) ------------------------------------
+# benchmarks/common.py's protocol and the benches' settings, copied: this
+# script imports nothing of benchmarks/ (it imports JAX)
+
+
+def paper_transform_suite(rho_ub: float, degree: int = 251) -> dict:
+    """benchmarks/common.py's paper_transform_suite: identity | limit
+    series | the limit series scaled to radius 8 | chebyshev-log
+    (beyond the paper)."""
+    from repro_torch.core import (cheb_log, identity_series, limit_neg_exp,
+                                  with_lambda_star)
+
+    return {
+        "identity": with_lambda_star(identity_series(), rho_ub * 1.01),
+        "limit_neg_exp": limit_neg_exp(degree),
+        "limit_neg_exp_scaled": limit_neg_exp(degree, scale=8.0 / rho_ub),
+        "cheb_log(beyond)": cheb_log(64, rho=rho_ub),
+    }
+
+
+def dense_series_operator(l_mat, series):
+    """V -> (lambda* I - S(L)) V over a dense L, the benches' operator; on
+    the card its launches replay from one CUDA graph per panel shape."""
+    from repro_torch.core import operators
+
+    fn = operators.series_operator(series, operators.dense_matvec(l_mat))
+    return operators.CapturedOperator(fn) if l_mat.is_cuda else fn
+
+
+def convergence_run(g, transform, method: str, lr: float, steps: int, k: int,
+                    v_star=None, eval_every: int = FIG_EVAL_EVERY, *,
+                    init_v=None, device=None, operator=None) -> dict:
+    """benchmarks/common.py's convergence_run on the port: run the solver
+    on the dense L's series (or on ``operator``) from seed 0 or from
+    ``init_v``, and report steps to a full streak and to 1 % subspace
+    error.  ``device=None`` is the card.  The result also holds the
+    trace, the final state and the operator."""
+    from repro_torch.core import laplacian as lap
+    from repro_torch.core import metrics, solvers
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    l_mat = lap.laplacian_dense(g).to(dev)
+    if v_star is None:
+        _, v_star = metrics.ground_truth_bottom_k(l_mat, k)
+    op = operator if operator is not None else dense_series_operator(
+        l_mat, transform)
+    cfg = solvers.SolverConfig(method=method, lr=lr, steps=steps,
+                               eval_every=eval_every, k=k, seed=0)
+    t0 = time.perf_counter()
+    state, trace = solvers.run_solver(op, g.num_nodes, cfg, v_star=v_star,
+                                      init_v=init_v, device=dev)
+    final_err = float(trace.subspace_error[-1])
+    wall = time.perf_counter() - t0
+    return {
+        "steps_to_streak": solvers.steps_to_streak(trace, k),
+        "steps_to_1pct": solvers.steps_to_tolerance(trace, 0.01),
+        "final_err": final_err,
+        "final_streak": int(trace.streak[-1]),
+        "wall_s": wall,
+        "trace": trace, "state": state, "operator": op,
+    }
+
+
+def table2_suite(rho: float) -> dict:
+    """bench_transforms.py's transforms (paper Table 2 and beyond)."""
+    from repro_torch.core import (cheb_log, cheb_neg_exp, identity_series,
+                                  limit_neg_exp, taylor_log, taylor_neg_exp,
+                                  with_lambda_star)
+
+    return {
+        "identity": with_lambda_star(identity_series(), rho * 1.01),
+        "taylor_log_d51": taylor_log(51, eps=0.05),
+        "taylor_neg_exp_d51": taylor_neg_exp(51),
+        "limit_neg_exp_d251": limit_neg_exp(251),
+        "limit_neg_exp_d251_s8": limit_neg_exp(251, scale=8.0 / rho),
+        "cheb_log_d64": cheb_log(64, rho=rho),
+        "cheb_neg_exp_d32": cheb_neg_exp(32, rho=rho, tau=8.0 / rho),
+    }
+
+
+def table2_ratios(device) -> dict:
+    """Per transform of :func:`table2_suite`, bench_transforms.py's
+    convergence ratio on its synthetic spectrum (4 bottom eigenvalues far
+    below a bulk on [20, 60]) and the dilation factor over the identity's
+    ratio: {name: (ratio, dilation)}, NaN where the series diverges."""
+    import math
+
+    import torch
+
+    lam = torch.cat([
+        torch.tensor([0.0, 0.05, 0.08, 0.12], device=device),
+        torch.linspace(20.0, 60.0, 60, device=device)])
+
+    def conv_ratio(f_vals) -> float:
+        # spectral range over the least gap among the bottom k + 1 values
+        f_vals = torch.sort(f_vals).values
+        gaps = torch.diff(f_vals[: TABLE2_K + 1])
+        rng = f_vals[-1] - f_vals[0]
+        return float(rng / torch.clamp(torch.min(gaps), min=1e-30))
+
+    base = conv_ratio(lam)
+    out = {}
+    for name, s in table2_suite(float(lam[-1])).items():
+        ratio = conv_ratio(s.scalar(lam))
+        dil = (base / ratio if math.isfinite(ratio) and ratio > 0
+               else float("nan"))
+        out[name] = (ratio, dil)
+    return out
+
+
+def _fig_row(name: str, method: str, r: dict, ms: float) -> dict:
+    """One figure row: the protocol's summary, ms per solver step and the
+    wall time to 1 % error (steps x ms per step)."""
+    return {"transform": name, "method": method,
+            "steps_to_streak": r["steps_to_streak"],
+            "steps_to_1pct": r["steps_to_1pct"], "final_err": r["final_err"],
+            "final_streak": r["final_streak"], "run_s": r["wall_s"],
+            "ms_per_step": ms,
+            "wall_to_1pct_s": (r["steps_to_1pct"] * ms / 1e3
+                               if r["steps_to_1pct"] >= 0 else None)}
+
+
+def _step_ms(r: dict, method: str, lr: float) -> float:
+    """ms of one operator call plus one solver step on the run's final
+    panel, in CUDA events."""
+    from repro_torch.core import program, solvers
+
+    st, op = r["state"], r["operator"]
+    step_fn = solvers.make_step_fn(method, "auto", st.v.device)
+    return cuda_ms(lambda: program.apply_solver_step(
+        step_fn, st, op(st.v), lr), FIG_STEP_REPS)
+
+
+def _figure_start(g, k: int, dev, seed: int = 0):
+    """(v_star, the initial panel drawn with ``seed``) of a figure's graph:
+    every run of the figure starts from the seed-0 panel."""
+    import torch
+
+    from repro_torch.core import laplacian as lap
+    from repro_torch.core import metrics, solvers
+
+    _, v_star = metrics.ground_truth_bottom_k(lap.laplacian_dense(g), k)
+    init = solvers.init_state(torch.Generator(device=dev).manual_seed(seed),
+                              g.num_nodes, k).v
+    return v_star, init
+
+
+def _held(name: str, got, want) -> tuple[float, float]:
+    """(max |got - want|, its tolerance REL_TOL * max |want|); raises past
+    the tolerance."""
+    err = float((got - want).abs().max())
+    tol = REL_TOL * float(want.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    return err, tol
+
+
+def _held_eg(label: str, v, av, lr: float) -> dict:
+    """K3 and K4 against their twins on a run's panel V and AV = op(V), at
+    the shapes the run gave them: {kernel: max_abs_err}."""
+    from repro_torch.kernels.eg_update import ops as eg_ops
+    from repro_torch.kernels.eg_update import ref as eg_ref
+
+    errs = {"gram2k": _held(f"{label}: gram2k", eg_ops.gram2k(v, av),
+                            eg_ref.gram2k(v, av))[0]}
+    m1, m2, cs = eg_ref.coefficient_matrices(eg_ref.gram2k(v, av),
+                                             v.shape[1], lr)
+    errs["panel_mix"] = _held(f"{label}: panel_mix",
+                              eg_ops.panel_mix(v, av, m1, m2, cs),
+                              eg_ref.panel_mix(v, av, m1, m2, cs))[0]
+    return errs
+
+
+def _held_edge_path(label: str, g, series, op, c: float, v,
+                    rows=None) -> dict:
+    """``op``, the kernel path's operator of ``series`` (K1 up to 4096
+    nodes, K2 past them), against the segment operator, and one factor's
+    launch (alpha = -c, beta = 1) against its row twin, on a run's panel
+    V: {check: max_abs_err}."""
+    from repro_torch.core import backend, operators
+    from repro_torch.kernels.edge_spmm import ops as es_ops
+    from repro_torch.kernels.edge_spmm import ref as es_ref
+
+    if rows is None:
+        rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, g.num_nodes)
+    one_hot = g.num_nodes <= backend.ONE_HOT_NODE_LIMIT
+    name = "edge_spmm" if one_hot else "edge_spmm_nb"
+    spmm = es_ops.edge_spmm_rows if one_hot else es_ops.edge_spmm_rows_nb
+    return {
+        "operator": _held(f"{label}: series operator vs segment", op(v),
+                          operators.edge_series_operator(
+                              g, series, backend="segment")(v))[0],
+        name: _held(f"{label}: {name}", spmm(rows, v, -c, 1.0),
+                    es_ref.edge_spmm_rows(rows.row_ptr, rows.other,
+                                          rows.weight, v, -c, 1.0))[0]}
+
+
+def _suite_runs(phase: str, g, suite: dict, methods, steps: int, k: int,
+                dev) -> tuple[list, dict]:
+    """Every (transform, method) of a figure from the seed-0 panel: rows,
+    and the launches of the runs alone.  After each mu-EG run that stayed
+    finite, K3 and K4 are held to their twins on its final panel."""
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.eg_update import ref as eg_ref
+
+    v_star, init = _figure_start(g, k, dev)
+    rows, runs = [], []
+    for name, tf in suite.items():
+        for method in methods:
+            lr = 2e-2 if name == "identity" else 0.4
+            reset_launch_counts()
+            r = convergence_run(g, tf, method, lr, steps, k, v_star,
+                                init_v=init, device=dev)
+            runs.append(launch_counts())
+            rows.append(_fig_row(name, method, r, _step_ms(r, method, lr)))
+            if method == "mu_eg":
+                v = r["state"].v
+                av = r["operator"](v)
+                # a diverged series (Taylor past d11) leaves no finite Gram
+                if bool(torch.isfinite(eg_ref.gram2k(v, av)).all()):
+                    rows[-1]["max_abs_err"] = _held_eg(f"{phase} {name}", v,
+                                                       av, lr)
+            emit({"phase": phase, "row": rows[-1]})
+    return rows, parallel.sum_launches(runs)
+
+
+def _row(rows, transform: str, method: str = "mu_eg") -> dict:
+    return next(r for r in rows
+                if r["transform"] == transform and r["method"] == method)
+
+
+def mdp_phase(dev) -> dict:
+    """Figs. 1-3 (bench_mdp.py): the s = 1 three-room MDP, the transform
+    suite at degree 151 for mu-EG and Oja, the limit series' mu-EG run
+    again from the panels of seeds 1 .. MDP_SEEDS - 1, limit_neg_exp(151)
+    on K1 from the seed-0 panel, then the proto-value functions of s = 2
+    through spectral_cluster.  K1, K3 and K4 are held to their twins on
+    the K1 run's and the proto-value solve's final panels.  Returns the
+    phase's launches."""
+    import numpy as np
+
+    from repro_torch import parallel
+    from repro_torch.core import (ClusteringConfig, SolverConfig, clustering,
+                                  graphs, limit_neg_exp, operators,
+                                  spectral_cluster)
+    from repro_torch.core import kmeans as km
+    from repro_torch.core import laplacian as lap
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    g, _ = graphs.three_room_mdp(s=1, h=10, device=dev)
+    rho = float(lap.spectral_radius_upper_bound(g))
+    suite = paper_transform_suite(rho, degree=MDP_DEGREE)
+    rows, counts_suite = _suite_runs("mdp", g, suite, ("mu_eg", "oja"),
+                                     MDP_STEPS, MDP_K, dev)
+    dense = _row(rows, "limit_neg_exp")
+    # the limit series' mu-EG run from other draws' panels
+    op_dense = dense_series_operator(lap.laplacian_dense(g),
+                                     suite["limit_neg_exp"])
+    sweep, counts_sweep = [dense["steps_to_1pct"]], []
+    for seed in range(1, MDP_SEEDS):
+        v_star, init_s = _figure_start(g, MDP_K, dev, seed=seed)
+        reset_launch_counts()
+        r_s = convergence_run(g, None, "mu_eg", 0.4, MDP_STEPS, MDP_K, v_star,
+                              init_v=init_s, device=dev, operator=op_dense)
+        counts_sweep.append(launch_counts())
+        sweep.append(r_s["steps_to_1pct"])
+    # the same limit series on the edge path (K1, captured), seed-0 panel
+    v_star, init = _figure_start(g, MDP_K, dev)
+    op_k1 = operators.edge_series_operator(g, limit_neg_exp(MDP_DEGREE),
+                                           backend="kernel")
+    reset_launch_counts()
+    r_k1 = convergence_run(g, None, "mu_eg", 0.4, MDP_STEPS, MDP_K, v_star,
+                           init_v=init, device=dev, operator=op_k1)
+    counts_k1 = launch_counts()
+    k1_row = _fig_row("limit_neg_exp (K1)", "mu_eg", r_k1,
+                      _step_ms(r_k1, "mu_eg", 0.4))
+    v = r_k1["state"].v
+    k1_row["max_abs_err"] = {
+        **_held_edge_path("mdp K1 run", g, limit_neg_exp(MDP_DEGREE), op_k1,
+                          1.0 / MDP_DEGREE, v),
+        **_held_eg("mdp K1 run", v, op_k1(v), 0.4)}
+    # proto-value functions: examples/mdp_protovalues.py's solve and sign
+    # check, on the s = 2 grid through the pipeline
+    gp, rooms = graphs.three_room_mdp(s=2, h=10, device=dev)
+    cfg = ClusteringConfig(
+        num_clusters=3, degree=251,
+        solver=SolverConfig(method="mu_eg", lr=0.4, steps=PVF_STEPS,
+                            eval_every=50), seed=0)
+    reset_launch_counts()
+    (labels, info), pvf_s = host_s(lambda: spectral_cluster(gp, cfg))
+    counts_pvf = launch_counts()
+    eig = info["eigvecs"]
+    fiedler = eig[:, 1].cpu().numpy()
+    outer = np.where(rooms == 1, 0.0, np.sign(rooms - 1))
+    corr = abs(float(np.corrcoef(np.sign(fiedler), outer)[0, 1]))
+    s_pvf = clustering.build_series(cfg, info["rho_ub"])
+    op_pvf = operators.edge_series_operator(gp, s_pvf, backend="kernel")
+    pvf = {"n": gp.num_nodes, "num_edges": gp.num_edges, "k": eig.shape[1],
+           "degree": 251, "solver_steps": PVF_STEPS, "seconds": pvf_s,
+           "final_err": float(info["trace"].subspace_error[-1]),
+           "agreement": float(km.cluster_agreement(labels, rooms, 3)),
+           "sign_corr": corr,
+           "max_abs_err": {
+               **_held_edge_path("mdp proto-value solve", gp, s_pvf, op_pvf,
+                                 cfg.dilation_strength / info["rho_ub"] / 251,
+                                 eig),
+               **_held_eg("mdp proto-value solve", eig, op_pvf(eig),
+                          cfg.solver.lr)}}
+    counts = parallel.sum_launches([counts_suite, *counts_sweep, counts_k1,
+                                    counts_pvf])
+    reached = sum(st >= 0 for st in sweep)
+    emit({"phase": "mdp", "n": g.num_nodes, "num_edges": g.num_edges,
+          "k": MDP_K, "degree": MDP_DEGREE, "steps": MDP_STEPS, "rho_ub": rho,
+          "seeds_steps_to_1pct": sweep, "seeds_reached_1pct": reached,
+          "k1_row": k1_row, "protovalue": pvf, "launches": counts})
+    if reached < MDP_SEEDS_REACHED:
+        raise AssertionError(
+            f"mdp: mu-EG with limit_neg_exp(151) reached 1 % error from "
+            f"{reached} of {MDP_SEEDS} panels (want {MDP_SEEDS_REACHED}): "
+            f"{sweep}")
+    for method in ("mu_eg", "oja"):
+        if _row(rows, "identity", method)["steps_to_1pct"] >= 0:
+            raise AssertionError(f"mdp: identity reached 1 % error ({method})")
+    # the edge path follows the dense run from the same panel: both reach
+    # 1 % within one eval interval of each other, or neither does
+    k1_1pct, dense_1pct = k1_row["steps_to_1pct"], dense["steps_to_1pct"]
+    if not ((k1_1pct < 0 and dense_1pct < 0) or (
+            k1_1pct >= 0 and dense_1pct >= 0
+            and abs(k1_1pct - dense_1pct) <= FIG_EVAL_EVERY)):
+        raise AssertionError(f"mdp: K1 run to 1 % at {k1_1pct}, dense at "
+                             f"{dense_1pct}")
+    for name in ("edge_spmm", "gram2k", "panel_mix"):
+        if counts[name] <= 0:
+            raise AssertionError(f"mdp launched no {name}")
+    return counts
+
+
+def mdp_full_phase(dev) -> tuple[dict, dict]:
+    """The grid world at full width: three_room_mdp(s = 59), n = 1,046,661,
+    rows of at most 4 entries.  K2 on its row CSR against its twin, timed
+    against its bound; spectral_cluster(transform="auto") for 10 steps,
+    then the planned operator (K2), K3 and K4 held to their twins on the
+    solve's k = 5 panel.  Returns (launches, K2's grid row for the kernels
+    line)."""
+    import torch
+
+    from repro_torch import spectral
+    from repro_torch.core import (ClusteringConfig, SolverConfig, graphs,
+                                  operators, solvers, spectral_cluster)
+    from repro_torch.core import kmeans as km
+    from repro_torch.core import laplacian as lap
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.edge_spmm import ops as es_ops
+    from repro_torch.kernels.edge_spmm import ref as es_ref
+
+    (g, rooms), gen_s = host_s(lambda: graphs.three_room_mdp(
+        s=MDP_FULL_S, h=10, device=dev))
+    n, e, k = g.num_nodes, g.num_edges, 10
+    rows = es_ops.build_edge_rows(g.src, g.dst, g.weight, n)
+    rows_ms = cuda_ms(lambda: es_ops.build_edge_rows(g.src, g.dst, g.weight,
+                                                     n), 3)
+    longest = int((rows.row_ptr[1:] - rows.row_ptr[:-1]).max())
+    hub_rows = int((rows.hub_rows < n).sum())
+    rho = float(lap.spectral_radius_upper_bound(g))
+    c = 8.0 / rho / 251
+    v = solvers.init_state(torch.Generator(device=dev).manual_seed(8), n, k).v
+
+    def k2():
+        return es_ops.edge_spmm_rows_nb(rows, v, -c, 1.0)
+
+    got = k2()
+    errs = {}
+    for label, plain in (
+            ("row twin", lambda: es_ref.edge_spmm_rows(
+                rows.row_ptr, rows.other, rows.weight, v, -c, 1.0)),
+            ("edge-list twin", lambda: es_ref.edge_spmm_affine(
+                g.src, g.dst, g.weight, v, -c, 1.0))):
+        want = plain()
+        errs[label] = (float((got - want).abs().max()),
+                       REL_TOL * float(want.abs().max()))
+        if not errs[label][0] <= errs[label][1]:
+            raise AssertionError(f"edge_spmm_nb (grid, {label}): max_abs_err "
+                                 f"{errs[label]}")
+    del got, want
+    b_ms, b_by = bound(e * 12 + 2 * n * k * 4, 2 * e * k * 2 + 4 * n * k)
+    grid = {"n": n, "num_edges": e, "k": k,
+            "max_abs_err": errs["row twin"][0],
+            "edge_list_twin_max_abs_err": errs["edge-list twin"][0],
+            "tolerance": errs["row twin"][1], "ms": cuda_ms(k2, 20),
+            "graph_ms": graph_ms(k2),
+            "bound_ms": b_ms, "bound_by": b_by, "longest_row": longest,
+            "hub_rows": hub_rows, "hub_threshold": es_ops.HUB_THRESHOLD,
+            "bitwise_repeatable": bool(torch.equal(k2(), k2())),
+            "row_csr_build_ms": rows_ms}
+    emit({"phase": "mdp_full_k2", **grid})
+    if not grid["bitwise_repeatable"]:
+        raise AssertionError("edge_spmm_nb on the grid: two calls differ")
+    if hub_rows != 0:
+        raise AssertionError(f"the grid has {hub_rows} hub rows, want 0")
+    del v
+    cfg = ClusteringConfig(num_clusters=3, transform="auto", degree=251,
+                           solver=SolverConfig(steps=10, eval_every=10),
+                           seed=0)
+    k_solve = 5  # num_clusters + extra_eigvecs + the trivial vector
+    _, probe_s = host_s(lambda: spectral.probe_and_plan(
+        g, k=k_solve, generator=torch.Generator(device=dev).manual_seed(3),
+        budget=251))
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()  # earlier phases' tensors
+    reset_launch_counts()
+    (labels, info), solve_s = host_s(lambda: spectral_cluster(g, cfg))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plan = info["plan"]
+    eig = info["eigvecs"]
+    if not (labels.shape == (n,) and eig.shape == (n, k_solve)
+            and bool(torch.isfinite(eig).all())
+            and int(labels.min()) >= 0 and int(labels.max()) < 3):
+        raise AssertionError("mdp_full gave malformed output")
+    series = spectral.series_from_plan(plan)
+    op = operators.edge_series_operator(g, series, backend="kernel")
+    st = solvers.init_from_panel(eig)
+    lr = plan.suggested_lr(cfg.solver.lr)
+    step_fn = solvers.make_step_fn("mu_eg", "kernel", dev)
+    step_ms = cuda_ms(lambda: step_fn(st, op(st.v), lr), 3)
+    held = {**_held_edge_path("mdp_full solve", g, series, op,
+                              plan.scale / plan.degree, eig, rows=rows),
+            **_held_eg("mdp_full solve", eig, op(eig), lr)}
+    del rows
+    emit({"phase": "mdp_full", "s": MDP_FULL_S, "n": n, "num_edges": e,
+          "k": k_solve, "budget": 251, "solver_steps": 10,
+          "graph_host_s": gen_s, "probe_s": probe_s,
+          "plan": {"family": plan.family, "degree": plan.degree,
+                   "tau": plan.tau, "rho": plan.rho, "gamma": plan.gamma,
+                   "lam_k": plan.lam_k, "lam_k1": plan.lam_k1},
+          "rho_ub": rho, "spectral_cluster_s": solve_s,
+          "solver_step_ms": step_ms, "hub_rows": hub_rows,
+          "max_memory_allocated": peak,
+          "memory_allocated_at_start": start_bytes,
+          "agreement": float(km.cluster_agreement(labels, rooms, 3)),
+          "max_abs_err": held, "k2": grid, "launches": counts})
+    for name in ("edge_spmm", "edge_spmm_nb", "gram2k", "panel_mix"):
+        if counts[name] <= 0:
+            raise AssertionError(f"mdp_full launched no {name}")
+    return counts, grid
+
+
+def cliques_phase(dev) -> dict:
+    """Fig. 4 (bench_cliques.py): clique_graph(300, 3) and (400, 4), the
+    suite at degree 251, mu-EG, 1200 steps."""
+    from repro_torch import parallel
+    from repro_torch.core import graphs
+    from repro_torch.core import laplacian as lap
+
+    out, runs = {}, []
+    for n_c, k_c in CLIQUE_GRAPHS:
+        g, _ = graphs.clique_graph(n_c, k_c, seed=0, device=dev)
+        rho = float(lap.spectral_radius_upper_bound(g))
+        rows, counts = _suite_runs(f"cliques_n{n_c}_k{k_c}", g,
+                                   paper_transform_suite(rho), ("mu_eg",),
+                                   CLIQUE_STEPS, k_c, dev)
+        out[f"n{n_c}_k{k_c}"] = {"rho_ub": rho, "num_edges": g.num_edges}
+        runs.append(counts)
+        if _row(rows, "limit_neg_exp")["steps_to_streak"] < 0:
+            raise AssertionError(f"cliques n{n_c}_k{k_c}: limit_neg_exp "
+                                 "reached no full streak")
+        if _row(rows, "identity")["steps_to_streak"] >= 0:
+            raise AssertionError(f"cliques n{n_c}_k{k_c}: identity reached a "
+                                 "full streak")
+    counts = parallel.sum_launches(runs)
+    emit({"phase": "cliques", "steps": CLIQUE_STEPS, "degree": 251,
+          "graphs": out, "launches": counts})
+    return counts
+
+
+def series_degree_phase(dev) -> dict:
+    """Fig. 6 (bench_series_degree.py): ten series on clique_graph(300, 3),
+    k = 3, mu-EG, 900 steps."""
+    from repro_torch.core import (cheb_neg_exp, graphs, limit_neg_exp,
+                                  taylor_neg_exp)
+    from repro_torch.core import laplacian as lap
+
+    g, _ = graphs.clique_graph(300, 3, seed=0, device=dev)
+    rho = float(lap.spectral_radius_upper_bound(g))
+    suite = {}
+    for d in (11, 51, 151, 251):
+        suite[f"limit_neg_exp_d{d}"] = limit_neg_exp(d)
+        suite[f"taylor_neg_exp_d{d}"] = taylor_neg_exp(d)
+    suite["limit_d51_scaled(beyond)"] = limit_neg_exp(51, scale=8.0 / rho)
+    suite["cheb_d16(beyond)"] = cheb_neg_exp(16, rho=rho, tau=8.0 / rho)
+    # every series takes mu-EG's lr 0.4, as in the bench (no identity row)
+    rows, counts = _suite_runs("series_degree", g, suite, ("mu_eg",),
+                               SERIES_STEPS, 3, dev)
+    emit({"phase": "series_degree", "steps": SERIES_STEPS, "rho_ub": rho,
+          "launches": counts})
+    for d in (151, 251):
+        if _row(rows, f"limit_neg_exp_d{d}")["steps_to_streak"] < 0:
+            raise AssertionError(f"series_degree: limit d{d} reached no "
+                                 "full streak")
+    for d in (11, 51):
+        if _row(rows, f"limit_neg_exp_d{d}")["steps_to_streak"] >= 0:
+            raise AssertionError(f"series_degree: limit d{d} reached a "
+                                 "full streak")
+    return counts
+
+
+def transforms_phase(dev) -> dict:
+    """Table 2 (bench_transforms.py): ratio and dilation per transform on
+    the synthetic spectrum; the apply at n = 512, k = 8 per transform, and
+    for both degree-251 limit rows the apply through K5
+    (limit_series_apply) held to the series apply."""
+    import torch
+
+    from repro_torch.core import operators
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.laplacian_poly import ops as lp_ops
+
+    ratios = table2_ratios(dev)
+    rho = 60.0  # the synthetic spectrum's top
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((TABLE2_N, TABLE2_N), generator=gen, device=dev) \
+        / TABLE2_N ** 0.5
+    l_mat = a @ a.T * (rho / 4)
+    v = torch.randn((TABLE2_N, TABLE2_PANEL), generator=gen, device=dev)
+    suite = table2_suite(rho)
+    scales = {"limit_neg_exp_d251": 1.0, "limit_neg_exp_d251_s8": 8.0 / rho}
+    reset_launch_counts()
+    k5_out = {name: lp_ops.limit_series_apply(l_mat, v, degree=251,
+                                              scale=sc)
+              for name, sc in scales.items()}
+    counts = launch_counts()
+    for name, s in suite.items():
+        op = dense_series_operator(l_mat, s)
+        ratio, dil = ratios[name]
+        row = {"transform": name, "ratio": ratio, "dilation_x": dil,
+               "apply_ms": cuda_ms(lambda: op(v), 10)}
+        if name in scales:
+            want = s.apply(operators.dense_matvec(l_mat), v)
+            err = float((k5_out[name] - want).abs().max())
+            tol = DENSE_TOL * float(want.abs().max())
+            if not err <= tol:
+                raise AssertionError(f"transforms {name}: K5 apply off the "
+                                     f"series by {err} > {tol}")
+            row.update(k5_apply_ms=cuda_ms(lambda: lp_ops.limit_series_apply(
+                l_mat, v, degree=251, scale=scales[name]), 10),
+                k5_max_abs_err=err, k5_tolerance=tol)
+        emit({"phase": "transforms", "row": row})
+    emit({"phase": "transforms", "n": TABLE2_N, "k": TABLE2_PANEL,
+          "spectrum_k": TABLE2_K, "launches": counts})
+    if counts["poly_step"] != 2 * 251:
+        raise AssertionError(f"transforms launched poly_step "
+                             f"{counts['poly_step']} times, not {2 * 251}")
+    return counts
+
+
+def linkpred_phase(dev) -> dict:
+    """Fig. 5 (bench_linkpred.py): clique_graph(300, 3, seed=1) with 20 %
+    of its edges dropped and predicted back by common neighbours
+    (weighted), the suite, mu-EG, 1000 steps."""
+    from repro_torch.core import graphs, linkpred
+    from repro_torch.core import laplacian as lap
+
+    g, _ = graphs.clique_graph(300, 3, seed=1, device=dev)
+    gw = linkpred.complete_graph(g, drop_prob=0.2, seed=2)
+    rho = float(lap.spectral_radius_upper_bound(gw))
+    rows, counts = _suite_runs("linkpred", gw, paper_transform_suite(rho),
+                               ("mu_eg",), LINKPRED_STEPS, 3, dev)
+    emit({"phase": "linkpred", "steps": LINKPRED_STEPS, "rho_ub": rho,
+          "num_edges": gw.num_edges, "launches": counts})
+    if _row(rows, "limit_neg_exp")["steps_to_streak"] < 0:
+        raise AssertionError("linkpred: limit_neg_exp reached no full streak")
+    return counts
+
+
+def walks_paper_phase(dev) -> dict:
+    """Sec. 4.3 (bench_walks.py): 20,000 walks of length 3 on
+    clique_graph(200, 4): walks/s, the L^2 estimate's relative error by
+    importance weighting and by the paper's rejection coin, and the
+    coin's mean acceptance."""
+    import math
+
+    import torch
+
+    from repro_torch.core import graphs, walks
+    from repro_torch.core import laplacian as lap
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    g, _ = graphs.clique_graph(200, 4, seed=0, device=dev)
+    inc, inc_s = host_s(lambda: lap.build_edge_incidence(g))
+    l_mat = lap.laplacian_dense(g)
+    want = l_mat @ l_mat
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sample_ms = cuda_ms(lambda: walks.sample_walks(gen, inc, WALKS_PAPER_W, 3),
+                        5)
+    reset_launch_counts()
+    wb = walks.sample_walks(torch.Generator(device=dev).manual_seed(1), inc,
+                            WALKS_PAPER_W, 3)
+    rel, est_ms = {}, {}
+    ones = torch.ones((g.num_nodes, 8), device=dev)
+    for mode in ("importance", "rejection"):
+        coin = torch.Generator(device=dev).manual_seed(2)
+        est = walks.estimate_power_dense(wb, g, inc, 2, g.num_nodes,
+                                         mode=mode, generator=coin)
+        rel[mode] = float(torch.linalg.norm(est - want)
+                          / torch.linalg.norm(want))
+        est_ms[mode] = cuda_ms(lambda m=mode: walks.estimate_power_matvec(
+            wb, g, inc, 2, ones, mode=m, generator=coin), 10)
+    counts = launch_counts()
+    log_pmin = -2 * math.log(inc.deg_star_inc) - math.log(g.num_edges)
+    p_acc = torch.exp(torch.clamp(log_pmin - wb.logp[:, 1], max=0.0))
+    emit({"phase": "walks_paper", "n": g.num_nodes, "num_edges": g.num_edges,
+          "walks": WALKS_PAPER_W, "length": 3, "incidence_host_s": inc_s,
+          "sample_ms": sample_ms,
+          "walks_per_s": WALKS_PAPER_W / sample_ms * 1e3,
+          "rel_err": rel, "estimate_ms": est_ms,
+          "mean_acceptance": float(p_acc.mean()), "launches": counts})
+    if not rel["importance"] < rel["rejection"]:
+        raise AssertionError(f"walks_paper: importance {rel['importance']} "
+                             f"does not beat rejection {rel['rejection']}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1225,45 +1948,6 @@ def main() -> int:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
 
-    def cuda_ms(fn, reps: int) -> float:
-        fn()
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        sync()
-        return start.elapsed_time(end) / reps
-
-    def host_s(fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        return out, time.perf_counter() - t0
-
-    def graph_ms(fn, calls: int = GRAPH_CALLS, reps: int = 5) -> float:
-        """ms per call of ``calls`` calls captured in one CUDA graph."""
-        fn()
-        sync()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(calls):
-                fn()
-        graph.replay()
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        sync()
-        del graph
-        return start.elapsed_time(end) / (reps * calls)
-
     def library_graph_ms(fn) -> tuple[float | None, str | None]:
         try:
             return graph_ms(fn), None
@@ -1281,14 +1965,7 @@ def main() -> int:
     kernels = {}
 
     def compare(name, kernel_fn, plain_fn) -> tuple[float, float]:
-        got = kernel_fn()
-        want = plain_fn()
-        sync()
-        err = float((got - want).abs().max())
-        tol = REL_TOL * float(want.abs().max())
-        if not err <= tol:
-            raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
-        return err, tol
+        return _held(name, kernel_fn(), plain_fn())
 
     def check(name, kernel_fn, plain_fn, library_fn, nbytes, flops, reps,
               replaces, source, matvec_pair=None, also=(), graphs=False):
@@ -2096,15 +2773,7 @@ def main() -> int:
             lambda: operators.dilated_operator_arrays(
                 store.src, store.dst, store.weight, c_st, STREAM_DEGREE,
                 backend="segment")(v))[0]}
-        av = op(v)
-        errs["gram2k"] = compare(f"{label}: gram2k", lambda: eg_ops.gram2k(v, av),
-                                 lambda: eg_ref.gram2k(v, av))[0]
-        m1_s, m2_s, cs_s = eg_ref.coefficient_matrices(
-            eg_ref.gram2k(v, av), v.shape[1], lr)
-        errs["panel_mix"] = compare(
-            f"{label}: panel_mix", lambda: eg_ops.panel_mix(v, av, m1_s, m2_s, cs_s),
-            lambda: eg_ref.panel_mix(v, av, m1_s, m2_s, cs_s))[0]
-        return errs
+        return {**errs, **_held_eg(label, v, op(v), lr)}
 
     n_ss, k_ss = 10_000, 8
     g_ss, _ = graphs.sparse_sbm_graph(n_ss, 10, avg_degree_in=10.0,
@@ -2901,14 +3570,27 @@ def main() -> int:
             raise AssertionError(f"model_sharded_full launched no {name}")
     del outs_mm, res_mf, mm, one_p
 
-    # ---- 24. kernel list -------------------------------------------------
+    # ---- 24-30. the paper's figures ---------------------------------------
+    counts_mdp = mdp_phase(dev)
+    counts_mdp_full, kernels["edge_spmm_nb"]["grid_graph"] = \
+        mdp_full_phase(dev)
+    counts_cliques = cliques_phase(dev)
+    counts_series_degree = series_degree_phase(dev)
+    counts_transforms = transforms_phase(dev)
+    counts_linkpred = linkpred_phase(dev)
+    counts_walks_paper = walks_paper_phase(dev)
+
+    # ---- 31. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
                  counts_stream_full, counts_service_small,
                  counts_service_full, counts_serve_small, counts_serve_http,
                  counts_serve_full, counts_sharded_small, counts_sharded_full,
-                 counts_sharded_service, counts_model_small, counts_model_full)
+                 counts_sharded_service, counts_model_small, counts_model_full,
+                 counts_mdp, counts_mdp_full, counts_cliques,
+                 counts_series_degree, counts_transforms, counts_linkpred,
+                 counts_walks_paper)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

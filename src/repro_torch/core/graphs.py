@@ -1,5 +1,13 @@
 """Graph generators of the paper's experiments (Sec. 5, App. A).
 
+- three_room_mdp: Fig. 1 grid world (3 rooms joined by small doors) whose
+  state-transition graph yields proto-value functions (Sec. 5.3).
+- clique_graph: k cliques joined by 0..25 random short-circuit edges
+  (Sec. 5.4).
+- sbm_graph, sparse_sbm_graph: stochastic block models.
+- power_law_graph: Chung-Lu power-law degrees (the skewed regime).
+- ring_of_cliques: a deterministic well-clustered graph for exact tests.
+
 Host-side numpy, a copy of the JAX package's generators: the same seed
 gives the same edges, node for node.  Each returns an EdgeList on the
 requested device (``None`` = the CUDA card) plus the ground-truth labels
@@ -10,6 +18,39 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.laplacian import EdgeList, make_edge_list
+
+
+def three_room_mdp(s: int = 2, h: int = 10, *, device=None):
+    """3-room grid world, 10s+1 cells tall, 30s+1 cells wide (paper Fig. 1).
+
+    Two interior walls split the width into 3 equal rooms; each wall has a
+    door of height ceil((10s+1)/h) centered vertically.  Nodes are cells
+    (row-major), undirected edges the 4-neighbour transitions, listed cell
+    by cell as the JAX package's loop lists them: a cell's edge down, then
+    its edge right.  Returns (EdgeList, labels) with labels = room index
+    per cell (numpy int32).
+    """
+    height = 10 * s + 1
+    width = 30 * s + 1
+    room_w = width // 3  # wall sits between columns room_w-1 / room_w (x2)
+    door_h = max(1, (height + h - 1) // h)
+    door_lo = (height - door_h) // 2
+    door_hi = door_lo + door_h  # exclusive
+    r, c = np.meshgrid(np.arange(height, dtype=np.int64),
+                       np.arange(width, dtype=np.int64), indexing="ij")
+    node = r * width + c
+    down_ok = r + 1 < height
+    crossing_wall = (((c + 1) % room_w == 0)
+                     & np.isin((c + 1) // room_w, (1, 2)) & (c + 1 < width))
+    in_door = (door_lo <= r) & (r < door_hi)
+    right_ok = (c + 1 < width) & ~(crossing_wall & ~in_door)
+    # (cell, {down, right}, endpoint) in the loop's order, then the valid ones
+    pairs = np.stack([np.stack([node, node + width], axis=-1),
+                      np.stack([node, node + 1], axis=-1)], axis=2)
+    ok = np.stack([down_ok, right_ok], axis=-1)
+    edges = pairs[ok].astype(np.int32)
+    labels = np.minimum(c // room_w, 2).astype(np.int32).ravel()
+    return make_edge_list(edges, height * width, device=device), labels
 
 
 def clique_graph(num_nodes: int, num_cliques: int, seed: int = 0,

@@ -110,6 +110,20 @@ def with_lambda_star(s: SpectralSeries, lambda_star: float) -> SpectralSeries:
     return dataclasses.replace(s, lambda_star=float(lambda_star))
 
 
+def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
+    """x ** y by square-and-multiply, the order in which the JAX package's
+    ``x ** y`` (lax.integer_pow) rounds: torch.pow rounds otherwise, and
+    at y = 251 the two differ by ~5e-6 relative in fp32."""
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc
+
+
 def limit_neg_exp(degree: int, scale: float = 1.0) -> SpectralSeries:
     """-(I - s L/l)^l  (Table 2, l odd): u <- u - s (L u)/l, l times."""
     if degree % 2 == 0:
@@ -129,7 +143,7 @@ def limit_neg_exp(degree: int, scale: float = 1.0) -> SpectralSeries:
         return -u
 
     def scalar_fn(lam):
-        return -((1.0 - c * lam) ** degree)
+        return -_integer_pow(1.0 - c * lam, degree)
 
     return SpectralSeries(
         name=f"limit_neg_exp_d{degree}" + ("" if scale == 1.0 else f"_s{scale:g}"),

@@ -207,6 +207,24 @@ def _block_sorted_half_edges(src, dst, weight, block_n: int, nb: int):
     return u[order], o[order], w2[order], counts
 
 
+def uniform_chunks_for_counts(counts, block_e: int,
+                              snap_chunks: bool = True) -> int:
+    """Chunks per block under the LEGACY uniform layout (every block
+    pays the worst bucket, pow2-snapped), the JAX package's comparison
+    baseline for the skew property tests."""
+    c = max(int(np.ceil(counts.max(initial=0) / block_e)), 1)
+    return next_pow2(c) if snap_chunks else c
+
+
+def uniform_padded_half_edges(counts, block_e: int,
+                              snap_chunks: bool = True) -> int:
+    """Half-edge slots the legacy uniform layout would walk:
+    num_blocks * max-chunks * block_e."""
+    nb = int(np.asarray(counts).shape[0])
+    return nb * uniform_chunks_for_counts(counts, block_e, snap_chunks) \
+        * block_e
+
+
 def _chunk_counts(counts, block_e: int):
     """Per-block chunk counts: ceil(bucket / BE), min 1."""
     counts = np.asarray(counts, np.int64)

@@ -261,12 +261,15 @@ def test_captured_operator_raises_without_fallback(dev):
 # n = 1 and below one K3 tile (128 rows at k = 10), n a multiple of neither
 # 4 nor a tile, k from 1 to K3's widest; offset 1 takes the row slice
 # [1:] of a larger panel, whose rows start 4k bytes past the allocation,
-# off any 16-byte boundary unless 4 divides k
+# off any 16-byte boundary unless 4 divides k; the paper's figures add
+# their panels: the MDP at s = 1, 2 and 59 (k = 6, 5, 5), the cliques'
+# 400 x 4
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("n,k", [(1, 3), (1, 10), (100, 10), (300, 6),
                                  (1001, 1), (301, 3), (4097, 4), (5000, 10),
                                  (5003, 7), (70000, 16), (70001, 10),
-                                 (3001, 64), (2000, 192)])
+                                 (3001, 64), (2000, 192), (341, 6), (1281, 5),
+                                 (400, 4), (1046661, 5)])
 def test_k3_k4_match_plain(dev, n, k, offset):
     v = _panel(13, n + offset, k, dev)[offset:]
     av = _panel(14, n + offset, k, dev)[offset:]

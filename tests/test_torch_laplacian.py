@@ -55,6 +55,9 @@ GENERATORS = {
     "power_law": ("power_law_graph", (4096,),
                   dict(avg_degree=8, alpha=2.5, seed=0)),
     "ring_of_cliques": ("ring_of_cliques", (4, 8), {}),
+    "three_room_mdp_s1_h10": ("three_room_mdp", (1, 10), {}),
+    "three_room_mdp_s2_h10": ("three_room_mdp", (2, 10), {}),
+    "three_room_mdp_s3_h7": ("three_room_mdp", (3, 7), {}),
 }
 
 
