@@ -177,7 +177,23 @@ outside a checkout.  Phases, one JSON line each:
 30. walks_paper - Sec. 4.3 (bench_walks.py): 20,000 walks of length 3 on
              clique_graph(200, 4): walks/s, the L^2 estimate's relative
              error (importance vs rejection), mean acceptance
-31. kernels - per kernel: launches on the main path (phases 3-30 but the
+31. lm_serve - the LM substrate's serving path (no kernel of the port
+             runs on it): qwen3-4b at full width and depth (36 layers,
+             4.06 B parameters stored f32, drawn on the card from a seeded
+             generator) through repro_torch.launch.serve.generate: run 1
+             TokenPipeline prompts 4 x 512, 32 greedy steps, bf16 cache;
+             run 2 1 x 4096 (chunked attention), 8 steps; run 3 the
+             int8-cache variant of run 1, 8 steps, its token agreement;
+             one train_loss forward on 2 x 1024 beside ln(vocab); prefill
+             ms and decode ms per step in CUDA events, tok/s, peak bytes,
+             the bounds (decode: the f32 weights read once; prefill:
+             2 x non-embedding params x tokens at the bf16 peak).  Holds:
+             (a) finite logits and loss; (b) the first 8 decode steps'
+             logits against a prefill of prompt + generated tokens at
+             rtol = atol = 6e-2 (the gap printed at depths 4, 12, 36,
+             asserted at LM_HOLD_DEPTH); (c) smoke_config(qwen3-4b) on the
+             card against the CPU from one set of weights, f32 and bf16
+32. kernels - per kernel: launches on the main path (phases 3-31 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -185,7 +201,8 @@ outside a checkout.  Phases, one JSON line each:
 
 The card's name and power limit are printed as nvidia-smi gives them, and
 the last line is {"ok": true, "device": {...}}.  Numbers are fp32 with
-TF32 off.  This script imports torch and the port, never JAX.
+TF32 off (lm_serve computes in bf16, its logits in fp32).  This script
+imports torch and the port, never JAX.
 """
 from __future__ import annotations
 
@@ -198,9 +215,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s and fp32 (non-tensor) FLOP/s
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, fp32 (non-tensor) and dense
+# bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 # K1/K2/K4 are held to 1e-5 of the plain twin's largest magnitude: K1 and
 # K2 sum each row in registers in another order than the twins'
@@ -319,6 +338,32 @@ CLIQUE_GRAPHS = ((300, 3), (400, 4))
 CLIQUE_STEPS, SERIES_STEPS, LINKPRED_STEPS = 1200, 900, 1000
 TABLE2_K, TABLE2_N, TABLE2_PANEL = 4, 512, 8
 WALKS_PAPER_W = 20_000
+
+# the LM substrate's serving path (lm_serve): qwen3-4b at full width and
+# depth; run 1 (batch, prompt, decode steps) with a bf16 cache, run 2 past
+# the 2048-position switch to chunked attention, the int8-cache variant of
+# run 1, one train_loss forward; hold (b) compares the first
+# LM_HOLD_STEPS decode steps with a prefill of prompt + generated tokens
+# at each of LM_GAP_DEPTHS and asserts at LM_HOLD_DEPTH, the deepest where
+# the bar holds; hold (c) the card against the CPU at smoke_config
+LM_ARCH, LM_SEED = "qwen3-4b", 0
+LM_RUN1 = (4, 512, 32)
+LM_RUN2 = (1, 4096, 8)
+LM_INT8_STEPS = 8
+LM_LOSS = (2, 1024)
+LM_HOLD_STEPS = 8
+LM_GAP_DEPTHS = (4, 12, 36)
+LM_HOLD_DEPTH = 12
+# tests/test_arch_smoke.py:130's prefill-vs-decode bar (rtol = atol), and
+# tests/test_torch_lm_model.py's f32 bars: prefill and loss 1e-4, decode
+# 5e-3 (the bf16 cache's rounding flips)
+LM_BF16_TOL = 6e-2
+LM_F32_TOL = 1e-4
+LM_DECODE_F32_TOL = 5e-3
+# hold (c) at smoke size: batch, prompt, decode steps; the loss past its
+# chunk of 512
+LM_SMOKE = (2, 12, 4)
+LM_SMOKE_LOSS = (1, 520)
 
 
 def emit(obj) -> None:
@@ -1906,6 +1951,262 @@ def walks_paper_phase(dev) -> dict:
     if not rel["importance"] < rel["rejection"]:
         raise AssertionError(f"walks_paper: importance {rel['importance']} "
                              f"does not beat rejection {rel['rejection']}")
+    return counts
+
+
+def _lm_view(model, depth=None, cfg=None):
+    """A Model sharing ``model``'s parameters, cut to its first ``depth``
+    layers and/or with another config (the cache dtype)."""
+    import copy
+
+    import torch
+
+    view = copy.copy(model)
+    view._modules = dict(model._modules)
+    cfg = cfg or model.cfg
+    if depth is not None:
+        view._modules["layers"] = torch.nn.ModuleList(model.layers[:depth])
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    view.cfg = cfg
+    return view
+
+
+def _bar_use(got, want, tol: float) -> float:
+    """max |got - want| / (tol + tol |want|): <= 1 is within the bar."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def _argmax_decided(got, want, tol: float) -> tuple[int, int]:
+    """(rows whose argmax differs although JAX-style bar decides it, rows
+    whose top two logits are further apart than twice the bar)."""
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * (tol + tol * top2[:, 0].abs())
+    differ = got.argmax(-1) != want.argmax(-1)
+    return int((differ & decided).sum()), int(decided.sum())
+
+
+def _device_busy(fn) -> dict:
+    """fn's device kernels under torch.profiler: their summed time (ms)
+    and count; None where the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    return {"device_ms": busy_us / 1e3 if busy_us else None,
+            "kernels": sum(e.count for e in kernels)}
+
+
+def _lm_decode_gap(model, batch, out, steps: int) -> dict:
+    """Hold (b)'s reading: the first ``steps`` decode steps' logits of
+    the generation ``out`` against the last-position logits of a prefill
+    over prompt + generated tokens."""
+    import torch
+
+    use, err, flips, decided = 0.0, 0.0, 0, 0
+    for i in range(1, steps + 1):
+        ref, _ = model.prefill({"tokens": torch.cat(
+            [batch["tokens"], out.tokens[:, :i].int()], dim=1)})
+        use = max(use, _bar_use(out.logits[i], ref, LM_BF16_TOL))
+        err = max(err, float((out.logits[i] - ref).abs().max()))
+        f, d = _argmax_decided(out.logits[i], ref, LM_BF16_TOL)
+        flips, decided = flips + f, decided + d
+    return {"depth": len(model.layers), "bar_use": use, "max_abs_err": err,
+            "argmax_flips_decided": flips, "rows_decided": decided,
+            "rows": steps * batch["tokens"].shape[0]}
+
+
+def _lm_card_vs_cpu(dev) -> dict:
+    """Hold (c): smoke_config(qwen3-4b) from one set of numpy weights on
+    the card and on the CPU, in f32 (COMPUTE_DTYPE patched) and bf16:
+    prefill, LM_SMOKE's decode steps fed the CPU's argmax, the loss."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+
+    cfg = smoke_config(get_arch(LM_ARCH))
+    tree = convert.lm_params_to_numpy(Model(
+        cfg, "cpu", torch.Generator().manual_seed(LM_SEED + 1)))
+    b, s, steps = LM_SMOKE
+    prompt = TokenPipeline(cfg.vocab_size, b, s, LM_SEED).batch_at(3, "cpu")
+    loss_b = TokenPipeline(cfg.vocab_size, *LM_SMOKE_LOSS,
+                           LM_SEED).batch_at(4, "cpu")
+    out = {}
+    for mode, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        saved, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, dtype
+        try:
+            runs = {}
+            for where in ("cpu", dev):
+                m = convert.lm_params_from_numpy(cfg, tree, device=where)
+                logits, st = m.prefill({"tokens": prompt["tokens"].to(where)},
+                                       max_seq=s + steps)
+                seq = [logits.cpu()]
+                for t in range(steps):
+                    fed = (runs["cpu"]["logits"][t] if runs else seq[-1])
+                    logits, st = m.decode_step(st, fed.argmax(-1, keepdim=True)
+                                               .to(where))
+                    seq.append(logits.cpu())
+                with torch.no_grad():
+                    loss = float(m.train_loss(
+                        {k: v.to(where) for k, v in loss_b.items()})[0])
+                runs["cpu" if where == "cpu" else "card"] = {
+                    "logits": seq, "loss": loss}
+        finally:
+            layers.COMPUTE_DTYPE = saved
+        cpu, card = runs["cpu"], runs["card"]
+        row = {"prefill_err": float((card["logits"][0] - cpu["logits"][0])
+                                    .abs().max()),
+               "decode_err": max(float((a - c).abs().max()) for a, c in
+                                 zip(card["logits"][1:], cpu["logits"][1:])),
+               "loss_err": abs(card["loss"] - cpu["loss"])}
+        if mode == "f32":
+            ok = (row["prefill_err"] <= LM_F32_TOL
+                  and row["decode_err"] <= LM_DECODE_F32_TOL
+                  and row["loss_err"] <= LM_F32_TOL)
+        else:
+            row["bar_use"] = max(_bar_use(a, c, LM_BF16_TOL) for a, c in
+                                 zip(card["logits"], cpu["logits"]))
+            row["loss_bar_use"] = row["loss_err"] / (
+                LM_BF16_TOL + LM_BF16_TOL * abs(cpu["loss"]))
+            row["argmax_flips_decided"] = sum(
+                _argmax_decided(a, c, LM_BF16_TOL)[0]
+                for a, c in zip(card["logits"], cpu["logits"]))
+            ok = (row["bar_use"] <= 1.0 and row["loss_bar_use"] <= 1.0
+                  and row["argmax_flips_decided"] == 0)
+        out[mode] = row
+        if not ok:
+            raise AssertionError(f"lm_serve hold (c) {mode}: card vs CPU "
+                                 f"{row}")
+    return out
+
+
+def lm_serve_phase(dev, gpu: str) -> dict:
+    """The LM substrate's serving path at qwen3-4b full width and depth
+    (36 layers, d_model 2560, 32/8 heads of 80, d_ff 9728, vocab 151936),
+    f32 weights drawn on the card from a seeded generator, through
+    launch.serve.generate: run 1 (TokenPipeline prompts, bf16 cache),
+    run 2 (chunked attention), the int8-cache variant of run 1, one
+    train_loss forward; holds (a) finite, (b) decode against prefill,
+    (c) card against CPU at smoke size.  Returns the launch counts of the
+    port's kernels over the phase (none runs on this path)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+
+    cfg = get_arch(LM_ARCH)
+    reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    model, init_s = host_s(lambda: Model(
+        cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = 2 * cfg.vocab_size * cfg.d_model
+    weight_bytes = 4 * n_params
+
+    def prompt(b, s, step):
+        return {"tokens": TokenPipeline(cfg.vocab_size, b, s, LM_SEED)
+                .batch_at(step, dev)["tokens"]}
+
+    def prefill_bound_ms(tokens):
+        return 2 * (n_params - n_embed) * tokens / PEAK_BF16_FLOPS * 1e3
+
+    b1, s1, g1 = LM_RUN1
+    batch1 = prompt(b1, s1, 0)
+    generate(model, batch1, 2)  # warm-up: cuBLAS handles, allocator
+    run1 = generate(model, batch1, g1)
+
+    # hold (b): decode vs prefill at each depth; the full depth from run 1
+    gaps = []
+    for depth in LM_GAP_DEPTHS:
+        if depth == cfg.num_layers:
+            gaps.append(_lm_decode_gap(model, batch1, run1, LM_HOLD_STEPS))
+            continue
+        view = _lm_view(model, depth)
+        gaps.append(_lm_decode_gap(view, batch1, generate(
+            view, batch1, LM_HOLD_STEPS), LM_HOLD_STEPS))
+        del view
+    emit({"phase": "lm_serve_gap", "bar": LM_BF16_TOL, "gaps": gaps,
+          "asserted_depth": LM_HOLD_DEPTH})
+
+    # device busy time of one prefill and one decode step (the profiler's
+    # own host cost leaves the kernels' times as they are)
+    _, st = model.prefill(batch1, max_seq=s1 + 2)
+    tok = torch.zeros((b1, 1), dtype=torch.int64, device=dev)
+    model.decode_step(st, tok)
+    busy = {"prefill": _device_busy(lambda: model.prefill(batch1)),
+            "decode_step": _device_busy(lambda: model.decode_step(st, tok))}
+    del st
+
+    b2, s2, g2 = LM_RUN2
+    batch2 = prompt(b2, s2, 1)
+    run2 = generate(model, batch2, g2)
+    int8_model = _lm_view(model, cfg=dataclasses.replace(
+        cfg, kv_cache_dtype="int8"))
+    run3 = generate(int8_model, batch1, LM_INT8_STEPS)
+    agree = float((run3.tokens == run1.tokens[:, :LM_INT8_STEPS]).float()
+                  .mean())
+    loss_batch = TokenPipeline(cfg.vocab_size, *LM_LOSS,
+                               LM_SEED).batch_at(2, dev)
+    with torch.no_grad():
+        loss, loss_s = host_s(lambda: float(model.train_loss(loss_batch)[0]))
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+
+    # hold (a): generate raises on a non-finite logit; the loss here
+    if not math.isfinite(loss):
+        raise AssertionError(f"lm_serve: loss {loss}")
+    hold_b = next(g for g in gaps if g["depth"] == LM_HOLD_DEPTH)
+    if not hold_b["bar_use"] <= 1.0:
+        raise AssertionError(f"lm_serve hold (b) at depth {LM_HOLD_DEPTH}: "
+                             f"{hold_b}")
+
+    def run_row(run, b, s, g):
+        return {"batch": b, "prompt": s, "steps": g,
+                "prefill_ms": run.prefill_ms,
+                "prefill_bound_ms": prefill_bound_ms(b * s),
+                "decode_ms_per_step": run.decode_ms / g,
+                "tok_per_s": g * b / run.decode_ms * 1e3}
+
+    row = {"phase": "lm_serve", "arch": LM_ARCH, "layers": cfg.num_layers,
+           "params": n_params, "param_count_cfg": cfg.param_count(),
+           "weight_bytes": weight_bytes, "init_s": init_s,
+           "decode_bound_ms": weight_bytes / PEAK_BYTES_PER_S * 1e3,
+           "run1": run_row(run1, b1, s1, g1),
+           "run2_chunked": run_row(run2, b2, s2, g2),
+           "run3_int8": {**run_row(run3, b1, s1, LM_INT8_STEPS),
+                         "token_agreement_with_bf16": agree},
+           "loss": loss, "ln_vocab": math.log(cfg.vocab_size),
+           "loss_s": loss_s, "peak_bytes": peak,
+           "peak_bytes_before_phase": base_bytes,
+           "hold_b": {"depth": LM_HOLD_DEPTH, **hold_b}}
+    for name, ms in (("prefill", row["run1"]["prefill_ms"]),
+                     ("decode_step", row["run1"]["decode_ms_per_step"])):
+        dev_ms = busy[name]["device_ms"]
+        busy[name]["idle_share"] = None if dev_ms is None else 1 - dev_ms / ms
+    row["run1"]["profiled"] = busy
+    del run1, run2, run3, model, int8_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["hold_c"] = _lm_card_vs_cpu(dev)
+    emit({**row, "gpu": gpu, "launches": counts})
     return counts
 
 
@@ -3580,7 +3881,10 @@ def main() -> int:
     counts_linkpred = linkpred_phase(dev)
     counts_walks_paper = walks_paper_phase(dev)
 
-    # ---- 31. kernel list -------------------------------------------------
+    # ---- 31. the LM substrate's serving path -------------------------------
+    counts_lm_serve = lm_serve_phase(dev, gpu)
+
+    # ---- 32. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -3590,7 +3894,7 @@ def main() -> int:
                  counts_sharded_service, counts_model_small, counts_model_full,
                  counts_mdp, counts_mdp_full, counts_cliques,
                  counts_series_degree, counts_transforms, counts_linkpred,
-                 counts_walks_paper)
+                 counts_walks_paper, counts_lm_serve)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

@@ -12,12 +12,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.clustering import ClusteringConfig
 from repro_torch.core.laplacian import EdgeIncidence, EdgeList
 from repro_torch.core.solvers import SolverConfig, SolverState
 from repro_torch.core.walks import WalkBatch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.edge_spmm import ops as es_ops
+from repro_torch.models.model import Model
 from repro_torch.spectral.probes import ProbeResult
 from repro_torch.stream.graph_store import EdgeBatch, GraphStore
 from repro_torch.stream.updates import EigenEstimate
@@ -155,3 +157,63 @@ def clustering_config_from_dict(fields: dict) -> ClusteringConfig:
     fields["backend"] = _BACKEND_NAMES.get(fields.get("backend", "auto"),
                                            fields.get("backend", "auto"))
     return ClusteringConfig(**fields)
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flat_tree(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = np.asarray(value)
+    return out
+
+
+def lm_params_from_numpy(cfg: ArchConfig, params: dict, device=None) -> Model:
+    """A ``models.Model`` of ``cfg`` holding the JAX package's parameter
+    tree ``params`` (nested dicts of numpy leaves; the vmapped init
+    stacks the layers on axis 0, unstacked here into ``layers.<i>``).
+    Raises on a missing or extra key and on any shape mismatch."""
+    flat = {}
+    for name, arr in _flat_tree(params).items():
+        if name.startswith("layers."):
+            for i, layer in enumerate(arr):
+                flat[f"layers.{i}.{name[len('layers.'):]}"] = layer
+        else:
+            flat[name] = arr
+    model = Model(cfg, device=device)
+    own = dict(model.named_parameters())
+    if own.keys() != flat.keys():
+        raise KeyError(f"parameter tree differs from {cfg.name}'s: missing "
+                       f"{sorted(own.keys() - flat.keys())}, extra "
+                       f"{sorted(flat.keys() - own.keys())}")
+    with torch.no_grad():
+        for name, param in own.items():
+            if tuple(param.shape) != flat[name].shape:
+                raise ValueError(f"{name}: shape {flat[name].shape}, the "
+                                 f"model's {tuple(param.shape)}")
+            param.copy_(torch.from_numpy(np.array(flat[name], np.float32)))
+    return model
+
+
+def lm_params_to_numpy(model: Model) -> dict:
+    """The model's parameters as the JAX package's tree: nested dicts of
+    numpy arrays, the layers stacked on axis 0."""
+    flat: dict = {}
+    for name, param in model.named_parameters():
+        arr = param.detach().cpu().numpy()
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            flat.setdefault("layers." + rest, {})[int(i)] = arr
+        else:
+            flat[name] = arr
+    tree: dict = {}
+    for name, arr in flat.items():
+        if isinstance(arr, dict):
+            arr = np.stack([arr[i] for i in range(len(arr))])
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree

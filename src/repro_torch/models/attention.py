@@ -1,0 +1,262 @@
+"""Attention, the GQA half: optional QKV bias and qk-norm, chunked
+(flash-style) attention for long prefills, and KV-cache decode with a
+bf16 or int8 cache.
+
+The chunked attention walks KV chunks with a running (max, sum, acc)
+triple, the flash-attention recurrence in plain tensor ops, so a long
+prefill never holds an (S, S) score matrix.  The int8 cache is
+quantized per (position, head) with f32 scales.  The cache is written
+in place (index assignment) and its ``length`` is one Python int shared
+by the batch.  MLA and the mesh (context-parallel) decode are not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (Params, apply_rope, dense_init,
+                                       init_rmsnorm, rmsnorm)
+
+NEG_INF = -1e30
+
+
+def _scale(head_dim: int) -> float:
+    # 1 / sqrt(head_dim) rounded as the JAX package forms it: sqrt in f32,
+    # then the reciprocal in f32
+    return float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
+
+
+# --------------------------------------------------------------------------
+# Parameter init
+# --------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = gen.device
+    p = {
+        "wq": dense_init(gen, (d, h * hd)),
+        "wk": dense_init(gen, (d, kv * hd)),
+        "wv": dense_init(gen, (d, kv * hd)),
+        "wo": dense_init(gen, (h * hd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(h * hd, device=dev)
+        p["bk"] = torch.zeros(kv * hd, device=dev)
+        p["bv"] = torch.zeros(kv * hd, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dev)
+        p["k_norm"] = init_rmsnorm(hd, dev)
+    return Params(**p)
+
+
+# --------------------------------------------------------------------------
+# Flash-style chunked core:  softmax(Q K^T + mask) V  without (S, S).
+# --------------------------------------------------------------------------
+
+def _chunked_attention(q, k, v, *, causal: bool, q_offset: int,
+                       chunk: int = 1024):
+    """q: (b, sq, h, dh), k/v: (b, sk, h, dh) (kv already broadcast to h).
+
+    Walks KV chunks with the running-max/sum flash recurrence; the last
+    chunk is zero-padded and its padding masked.  q_offset: absolute
+    position of q[0] (for causal masking vs a cache).
+    """
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    dev = q.device
+    qf = (q.float() * _scale(dh)).transpose(1, 2)  # b h sq dh
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+
+    chunk = min(chunk, sk)
+    pad = (-sk) % chunk
+    if pad:
+        kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    q_pos = q_offset + torch.arange(sq, device=dev)
+
+    m = torch.full((b, h, sq), NEG_INF, device=dev)
+    s = torch.zeros((b, h, sq), device=dev)
+    acc = torch.zeros((b, h, sq, dh), device=dev)
+    for c0 in range(0, sk + pad, chunk):
+        kc = kf[:, :, c0:c0 + chunk]
+        vc = vf[:, :, c0:c0 + chunk]
+        logits = qf @ kc.transpose(-1, -2)  # b h sq chunk
+        k_pos = c0 + torch.arange(chunk, device=dev)
+        keep = (k_pos < sk)[None, :]
+        if causal:
+            keep = keep & (k_pos[None, :] <= q_pos[:, None])
+        logits = torch.where(keep, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        s = s * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ vc
+        m = m_new
+    out = acc / torch.clamp(s, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # b sq h dh
+
+
+def _dense_attention(q, k, v, *, causal: bool, q_offset: int):
+    """Plain attention with the whole score matrix, for short sequences."""
+    sq, sk = q.shape[1], k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(q.shape[-1]),
+                          k.float())
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        mask = torch.arange(sk, device=q.device)[None, :] <= q_pos[:, None]
+        logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(q.dtype)
+
+
+def _broadcast_kv(k, h: int):
+    """(b, s, kv, dh) -> (b, s, h, dh): each KV head serves h // kv
+    consecutive query heads."""
+    kv = k.shape[2]
+    if kv == h:
+        return k
+    return torch.repeat_interleave(k, h // kv, dim=2)
+
+
+# --------------------------------------------------------------------------
+# KV cache (bf16 or int8-quantized)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor  # (b, max_s, kv, dh)  cache dtype
+    v: torch.Tensor
+    k_scale: torch.Tensor | None  # (b, max_s, kv, 1) f32 when int8
+    v_scale: torch.Tensor | None
+    length: int  # filled positions, shared by the batch
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, kv_heads: int,
+                  head_dim: int, device) -> KVCache:
+    """An empty cache; int8 when ``cfg.kv_cache_dtype == "int8"``, else
+    bf16, in any compute dtype."""
+    int8 = cfg.kv_cache_dtype == "int8"
+    dt = torch.int8 if int8 else torch.bfloat16
+    shape = (batch, max_seq, kv_heads, head_dim)
+
+    def scales():
+        return (torch.zeros((batch, max_seq, kv_heads, 1), device=device)
+                if int8 else None)
+
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device),
+                   k_scale=scales(), v_scale=scales(), length=0)
+
+
+def _quantize(x):
+    """Per-(position, head) symmetric int8: the scale floor comes before
+    the division, then x / scale * 127 rounds half to even."""
+    scale = x.abs().amax(dim=-1, keepdim=True).float()
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(x.float() / scale * 127.0), -127, 127)
+    return q.to(torch.int8), scale / 127.0
+
+
+def _dequantize(q, scale, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+def cache_update(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
+    """Write k/v at [pos : pos + s_new) in place; the cache's length
+    becomes pos + s_new."""
+    end = pos + k_new.shape[1]
+    if end > cache.k.shape[1]:
+        raise ValueError(f"cache of {cache.k.shape[1]} positions cannot "
+                         f"hold positions [{pos}, {end})")
+    if cache.k.dtype == torch.int8:
+        kq, ks = _quantize(k_new)
+        vq, vs = _quantize(v_new)
+        cache.k[:, pos:end] = kq
+        cache.v[:, pos:end] = vq
+        cache.k_scale[:, pos:end] = ks
+        cache.v_scale[:, pos:end] = vs
+    else:
+        cache.k[:, pos:end] = k_new.to(cache.k.dtype)
+        cache.v[:, pos:end] = v_new.to(cache.v.dtype)
+    cache.length = end
+    return cache
+
+
+def cache_kv(cache: KVCache, dtype):
+    """The whole cache's K and V in ``dtype``."""
+    if cache.k.dtype == torch.int8:
+        return (_dequantize(cache.k, cache.k_scale, dtype),
+                _dequantize(cache.v, cache.v_scale, dtype))
+    return cache.k.to(dtype), cache.v.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# GQA forward
+# --------------------------------------------------------------------------
+
+def _project_qkv(p: Params, cfg: ArchConfig, x, positions):
+    dt = x.dtype
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    b, s, _ = x.shape
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.rms_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.rms_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_train(p: Params, cfg: ArchConfig, x, *, causal: bool = True,
+              chunk: int = 1024):
+    """Full-sequence attention (training / prefill): the whole score
+    matrix up to 2048 positions, the chunked recurrence above.  Returns
+    (out, (k, v)) with k/v before the KV-head broadcast."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    kb = _broadcast_kv(k, cfg.num_heads)
+    vb = _broadcast_kv(v, cfg.num_heads)
+    if s <= 2048:
+        out = _dense_attention(q, kb, vb, causal=causal, q_offset=0)
+    else:
+        out = _chunked_attention(q, kb, vb, causal=causal, q_offset=0,
+                                 chunk=chunk)
+    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), (k, v)
+
+
+def gqa_decode(p: Params, cfg: ArchConfig, x, cache: KVCache):
+    """Single-step decode: x (b, 1, d) at position cache.length, against
+    the whole cache with the unfilled positions masked."""
+    b = x.shape[0]
+    pos = torch.full((b, 1), cache.length, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos)
+    cache = cache_update(cache, k_new, v_new, cache.length)
+    k, v = cache_kv(cache, x.dtype)
+    kb = _broadcast_kv(k, cfg.num_heads)
+    vb = _broadcast_kv(v, cfg.num_heads)
+    sk = kb.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(cfg.head_dim),
+                          kb.float())
+    filled = torch.arange(sk, device=x.device) < cache.length
+    logits = torch.where(filled, logits, NEG_INF)
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", pr, vb.float()).to(x.dtype)
+    out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
+    return out @ p["wo"].to(x.dtype), cache

@@ -1,0 +1,118 @@
+"""Shared model layers: norms, rotary embeddings, the MLP, embedding.
+
+A node of the JAX package's parameter tree is a ``Params`` module here:
+``p["w_up"]`` reads a leaf as ``params["w_up"]`` does there, and the
+state-dict names follow the tree's paths.  Compute dtype is bf16 with
+f32 accumulations and f32 norm statistics; parameters are stored f32
+and cast at use.  ``COMPUTE_DTYPE`` is read when ``embed`` runs, and
+every later op follows ``x.dtype``, so patching it to ``torch.float32``
+runs a whole model in f32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+class Params(nn.Module):
+    """One node of the parameter tree: tensors become parameters, modules
+    sub-nodes; ``p[name]`` and ``name in p`` read either."""
+
+    def __init__(self, **children):
+        super().__init__()
+        for name, value in children.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(name, nn.Parameter(value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0) -> torch.Tensor:
+    """Normal draws scaled by 1/sqrt(fan_in), on the generator's device."""
+    fan_in = shape[in_axis]
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            / math.sqrt(max(fan_in, 1)))
+
+
+# --- RMSNorm ----------------------------------------------------------------
+
+def init_rmsnorm(d: int, device) -> Params:
+    return Params(scale=torch.ones(d, device=device))
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 statistics and scale, cast back to x's dtype after the scale."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+
+
+# --- Rotary position embeddings ---------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  The two
+    halves of head_dim rotate together (split, not interleaved)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs  # (..., s, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]  # (..., s, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- MLP: SwiGLU or GELU ------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             gated: bool = True) -> Params:
+    p = {"w_up": dense_init(gen, (d_model, d_ff)),
+         "w_down": dense_init(gen, (d_ff, d_model))}
+    if gated:
+        p["w_gate"] = dense_init(gen, (d_model, d_ff))
+    return Params(**p)
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU when 'w_gate' is present, the classic GELU MLP (tanh
+    approximation, as jax.nn.gelu's default) otherwise."""
+    dt = x.dtype
+    u = x @ p["w_up"].to(dt)
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"].to(dt)) * u
+    else:
+        h = F.gelu(u, approximate="tanh")
+    return h @ p["w_down"].to(dt)
+
+
+# --- Embedding --------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int) -> Params:
+    return Params(table=torch.randn((vocab, d_model), generator=gen,
+                                    device=gen.device) * 0.01)
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    # rows gathered, then cast: the same values as casting the table first
+    return p["table"][tokens.long()].to(COMPUTE_DTYPE)
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits in x's dtype."""
+    return x @ p["table"].to(x.dtype).T
