@@ -193,7 +193,31 @@ outside a checkout.  Phases, one JSON line each:
              rtol = atol = 6e-2 (the gap printed at depths 4, 12, 36,
              asserted at LM_HOLD_DEPTH); (c) smoke_config(qwen3-4b) on the
              card against the CPU from one set of weights, f32 and bf16
-32. kernels - per kernel: launches on the main path (phases 3-31 but the
+32. lm_moe  - the LM substrate's MoE serving path (no kernel of the port
+             runs on it): granite-moe-1b-a400m at full width and depth (24
+             layers, 32 experts top-8, 1.385 B f32 parameters) and
+             deepseek-v2-236b at full width (MLA, 160 routed experts top-6
+             + 2 shared) cut to 2 of its 60 layers (9.15 B), both drawn on
+             the card from a seeded generator, through
+             launch.serve.generate: granite run 1 4 x 512, 32 steps, run 2
+             1 x 4096 (chunked attention), 8 steps, a 2 x 1024 train_loss
+             forward with its aux term; deepseek 4 x 512, 16 steps, a
+             2 x 512 loss; prefill and decode ms in CUDA events, tok/s,
+             peak bytes, the dropped pairs per layer of a prefill, the
+             profiler's busy time and kernels of a prefill and a decode
+             step, the decode bounds (all f32 weights read once; the
+             active parameters) and the prefill bound.  Holds: (a) finite
+             logits, loss and aux; (b) decode against a prefill of prompt
+             + generated tokens at rtol = atol = 6e-2 at a capacity that
+             cannot bind, routing flips and routing-clean rows counted,
+             printed at several depths (and at the config's own capacity,
+             and in f32), asserted for granite at LM_MOE_HOLD_DEPTH; (c)
+             both smoke configs on the card against the CPU, f32 and bf16,
+             routing agreement beside the errors; (d) one full-width MLA
+             layer's absorbed decode over 16 positions against its train
+             attention in f32 (rtol 1e-2, atol 5e-3); (e) a second bf16
+             prefill of run 1 equal to the first bitwise
+33. kernels - per kernel: launches on the main path (phases 3-32 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -201,8 +225,8 @@ outside a checkout.  Phases, one JSON line each:
 
 The card's name and power limit are printed as nvidia-smi gives them, and
 the last line is {"ok": true, "device": {...}}.  Numbers are fp32 with
-TF32 off (lm_serve computes in bf16, its logits in fp32).  This script
-imports torch and the port, never JAX.
+TF32 off (lm_serve and lm_moe compute in bf16, their logits in fp32).
+This script imports torch and the port, never JAX.
 """
 from __future__ import annotations
 
@@ -364,6 +388,35 @@ LM_DECODE_F32_TOL = 5e-3
 # chunk of 512
 LM_SMOKE = (2, 12, 4)
 LM_SMOKE_LOSS = (1, 520)
+
+# the LM substrate's MoE serving path (lm_moe): granite-moe-1b-a400m at
+# full width and depth (run 1 with a bf16 cache, run 2 past the
+# 2048-position switch to chunked attention, one train_loss forward with
+# its aux term), then deepseek-v2-236b at full width cut to LM_MLA_DEPTH
+# of its 60 layers (one layer is 4.05 B parameters, 16.2 GB in f32).
+# Hold (b) at each depth of *_GAP_DEPTHS at a capacity that cannot bind,
+# asserted for granite at LM_MOE_HOLD_DEPTH, the deepest where it holds
+# (at 4 layers near-tied routings flip: PERF.md section 5), printed only
+# for deepseek (tests/test_arch_smoke.py marks that comparison xfail);
+# hold (c) in bf16 holds the decode steps
+# at the first LM_MOE_BF16_DEPTH smoke layers, as
+# tests/test_torch_lm_moe_model.py does; hold (d) one full-width MLA
+# layer's absorbed decode over LM_MLA_ABSORB positions against its train
+# attention in f32 at tests/test_arch_smoke.py:134's bar
+LM_MOE_ARCH = "granite-moe-1b-a400m"
+LM_MOE_RUN1 = (4, 512, 32)
+LM_MOE_RUN2 = (1, 4096, 8)
+LM_MOE_LOSS = (2, 1024)
+LM_MOE_GAP_DEPTHS = (1, 2, 4, 12, 24)
+LM_MOE_HOLD_DEPTH = 2
+LM_MOE_BF16_DEPTH = 2
+LM_MLA_ARCH = "deepseek-v2-236b"
+LM_MLA_DEPTH = 2
+LM_MLA_RUN1 = (4, 512, 16)
+LM_MLA_LOSS = (2, 512)
+LM_MLA_GAP_DEPTHS = (1, 2)
+LM_MLA_ABSORB = (1, 16)
+LM_MLA_RTOL, LM_MLA_ATOL = 1e-2, 5e-3
 
 
 def emit(obj) -> None:
@@ -1956,17 +2009,26 @@ def walks_paper_phase(dev) -> dict:
 
 def _lm_view(model, depth=None, cfg=None):
     """A Model sharing ``model``'s parameters, cut to its first ``depth``
-    layers and/or with another config (the cache dtype)."""
+    layers and/or with another config (the cache dtype, the MoE
+    capacity), which its blocks then read too."""
     import copy
 
     import torch
 
     view = copy.copy(model)
     view._modules = dict(model._modules)
+    layers = list(model.layers if depth is None else model.layers[:depth])
+    if cfg is not None:
+        blocks = []
+        for block in layers:
+            blocks.append(copy.copy(block))
+            blocks[-1]._modules = dict(block._modules)
+            blocks[-1].cfg = cfg
+        layers = blocks
     cfg = cfg or model.cfg
     if depth is not None:
-        view._modules["layers"] = torch.nn.ModuleList(model.layers[:depth])
         cfg = dataclasses.replace(cfg, num_layers=depth)
+    view._modules["layers"] = torch.nn.ModuleList(layers)
     view.cfg = cfg
     return view
 
@@ -2022,10 +2084,55 @@ def _lm_decode_gap(model, batch, out, steps: int) -> dict:
             "rows": steps * batch["tokens"].shape[0]}
 
 
-def _lm_card_vs_cpu(dev) -> dict:
-    """Hold (c): smoke_config(qwen3-4b) from one set of numpy weights on
-    the card and on the CPU, in f32 (COMPUTE_DTYPE patched) and bf16:
-    prefill, LM_SMOKE's decode steps fed the CPU's argmax, the loss."""
+def _lm_routing(model) -> list:
+    """Each MoE layer's last routing, a (tokens, top_k) set per token
+    (sorted expert ids) on the CPU; [] for a dense model."""
+    return [blk.moe_stats.expert_ids.sort(dim=-1).values.cpu()
+            for blk in model.layers if blk.moe_stats is not None]
+
+
+def _routing_agreement(a: list, b: list) -> float | None:
+    """The share of (call, layer, token) routings equal in a and b."""
+    same = [bool(x) for ra, rb in zip(a, b) for la, lb in zip(ra, rb)
+            for x in (la == lb).all(-1)]
+    return sum(same) / len(same) if same else None
+
+
+def _lm_smoke_run(cfg, tree, where, prompt, loss_b, steps: int, depth=None,
+                  fed=None) -> dict:
+    """One smoke-size run on ``where`` from the numpy tree: the prefill's
+    and ``steps`` decode steps' logits (fed ``fed``'s tokens, else its
+    own argmax), the routing of every call, the loss (its first
+    ``depth`` layers where given)."""
+    import torch
+
+    from repro_torch import convert
+
+    m = convert.lm_params_from_numpy(cfg, tree, device=where)
+    if depth is not None:
+        m = _lm_view(m, depth)
+    s = prompt["tokens"].shape[1]
+    logits, st = m.prefill({"tokens": prompt["tokens"].to(where)},
+                           max_seq=s + steps)
+    seq, routes = [logits.cpu()], [_lm_routing(m)]
+    for t in range(steps):
+        tok = fed[t] if fed is not None else seq[-1].argmax(-1, keepdim=True)
+        logits, st = m.decode_step(st, tok.to(where))
+        seq.append(logits.cpu())
+        routes.append(_lm_routing(m))
+    with torch.no_grad():
+        loss = float(m.train_loss({k: v.to(where)
+                                   for k, v in loss_b.items()})[0])
+    return {"logits": seq, "routes": routes, "loss": loss,
+            "fed": [x.argmax(-1, keepdim=True) for x in seq[:-1]]}
+
+
+def _lm_card_vs_cpu(dev, arch: str, decode_depth=None) -> dict:
+    """Hold (c): smoke_config(arch) from one set of numpy weights on the
+    card and on the CPU, in f32 (COMPUTE_DTYPE patched) and bf16:
+    prefill, LM_SMOKE's decode steps fed the CPU's argmax, the loss, and
+    for MoE the routing agreement.  With ``decode_depth``, bf16's decode
+    steps are held at that many layers (the whole depth's printed)."""
     import torch
 
     from repro_torch import convert
@@ -2034,59 +2141,77 @@ def _lm_card_vs_cpu(dev) -> dict:
     from repro_torch.models import Model
     from repro_torch.models import layers
 
-    cfg = smoke_config(get_arch(LM_ARCH))
+    cfg = smoke_config(get_arch(arch))
     tree = convert.lm_params_to_numpy(Model(
         cfg, "cpu", torch.Generator().manual_seed(LM_SEED + 1)))
     b, s, steps = LM_SMOKE
     prompt = TokenPipeline(cfg.vocab_size, b, s, LM_SEED).batch_at(3, "cpu")
     loss_b = TokenPipeline(cfg.vocab_size, *LM_SMOKE_LOSS,
                            LM_SEED).batch_at(4, "cpu")
-    out = {}
+    out, failed = {"arch": cfg.name}, []
     for mode, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         saved, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, dtype
         try:
-            runs = {}
-            for where in ("cpu", dev):
-                m = convert.lm_params_from_numpy(cfg, tree, device=where)
-                logits, st = m.prefill({"tokens": prompt["tokens"].to(where)},
-                                       max_seq=s + steps)
-                seq = [logits.cpu()]
-                for t in range(steps):
-                    fed = (runs["cpu"]["logits"][t] if runs else seq[-1])
-                    logits, st = m.decode_step(st, fed.argmax(-1, keepdim=True)
-                                               .to(where))
-                    seq.append(logits.cpu())
-                with torch.no_grad():
-                    loss = float(m.train_loss(
-                        {k: v.to(where) for k, v in loss_b.items()})[0])
-                runs["cpu" if where == "cpu" else "card"] = {
-                    "logits": seq, "loss": loss}
+            cpu = _lm_smoke_run(cfg, tree, "cpu", prompt, loss_b, steps)
+            card = _lm_smoke_run(cfg, tree, dev, prompt, loss_b, steps,
+                                 fed=cpu["fed"])
+            cut = None
+            if mode == "bf16" and decode_depth is not None:
+                cut_cpu = _lm_smoke_run(cfg, tree, "cpu", prompt, loss_b,
+                                        steps, depth=decode_depth)
+                cut = (cut_cpu, _lm_smoke_run(
+                    cfg, tree, dev, prompt, loss_b, steps,
+                    depth=decode_depth, fed=cut_cpu["fed"]))
         finally:
             layers.COMPUTE_DTYPE = saved
-        cpu, card = runs["cpu"], runs["card"]
         row = {"prefill_err": float((card["logits"][0] - cpu["logits"][0])
                                     .abs().max()),
                "decode_err": max(float((a - c).abs().max()) for a, c in
                                  zip(card["logits"][1:], cpu["logits"][1:])),
-               "loss_err": abs(card["loss"] - cpu["loss"])}
+               "loss_err": abs(card["loss"] - cpu["loss"]),
+               "routing_agreement": _routing_agreement(card["routes"],
+                                                       cpu["routes"])}
         if mode == "f32":
             ok = (row["prefill_err"] <= LM_F32_TOL
                   and row["decode_err"] <= LM_DECODE_F32_TOL
                   and row["loss_err"] <= LM_F32_TOL)
         else:
-            row["bar_use"] = max(_bar_use(a, c, LM_BF16_TOL) for a, c in
-                                 zip(card["logits"], cpu["logits"]))
+            def uses(got, want):
+                return [_bar_use(a, c, LM_BF16_TOL) for a, c in
+                        zip(got["logits"], want["logits"])]
+
+            def flips(got, want):
+                return sum(_argmax_decided(a, c, LM_BF16_TOL)[0]
+                           for a, c in zip(got["logits"], want["logits"]))
+
+            full = uses(card, cpu)
+            row["bar_use"] = max(full)
             row["loss_bar_use"] = row["loss_err"] / (
                 LM_BF16_TOL + LM_BF16_TOL * abs(cpu["loss"]))
-            row["argmax_flips_decided"] = sum(
-                _argmax_decided(a, c, LM_BF16_TOL)[0]
-                for a, c in zip(card["logits"], cpu["logits"]))
-            ok = (row["bar_use"] <= 1.0 and row["loss_bar_use"] <= 1.0
-                  and row["argmax_flips_decided"] == 0)
+            row["argmax_flips_decided"] = flips(card, cpu)
+            held = [full[0]]
+            if cut is None:
+                held += full[1:]
+            else:
+                cut_uses = uses(cut[1], cut[0])
+                held += cut_uses[1:]
+                row["decode_depth"] = decode_depth
+                row["decode_bar_use_at_depth"] = max(cut_uses[1:])
+                row["argmax_flips_decided_at_depth"] = flips(cut[1], cut[0])
+                row["routing_agreement_at_depth"] = _routing_agreement(
+                    cut[1]["routes"], cut[0]["routes"])
+            row["held_bar_use"] = max(held)
+            decided_flips = (row["argmax_flips_decided"] if cut is None
+                             else _argmax_decided(card["logits"][0],
+                                                  cpu["logits"][0],
+                                                  LM_BF16_TOL)[0]
+                             + row["argmax_flips_decided_at_depth"])
+            ok = (row["held_bar_use"] <= 1.0 and row["loss_bar_use"] <= 1.0
+                  and decided_flips == 0)
         out[mode] = row
         if not ok:
-            raise AssertionError(f"lm_serve hold (c) {mode}: card vs CPU "
-                                 f"{row}")
+            failed.append(f"hold (c) {cfg.name} {mode}: card vs CPU {row}")
+    out["failed"] = failed
     return out
 
 
@@ -2205,8 +2330,262 @@ def lm_serve_phase(dev, gpu: str) -> dict:
     del run1, run2, run3, model, int8_model
     gc.collect()
     torch.cuda.empty_cache()
-    row["hold_c"] = _lm_card_vs_cpu(dev)
+    row["hold_c"] = _lm_card_vs_cpu(dev, LM_ARCH)
     emit({**row, "gpu": gpu, "launches": counts})
+    if row["hold_c"]["failed"]:
+        raise AssertionError(f"lm_serve: {row['hold_c']['failed']}")
+    return counts
+
+
+def _lm_moe_decode_gap(model, batch, steps: int) -> dict:
+    """Hold (b) for a MoE model: ``steps`` greedy decode steps after a
+    prefill of ``batch``, each step's logits against the last-position
+    logits of a prefill over prompt + the tokens fed so far.  Each MoE
+    layer's routing of every position in that reference is compared with
+    the routing that built the decode's state (the first prefill's for
+    the prompt, the steps' own after it): a row is clean while all of
+    them agree, and the bar is read over all rows and over the clean
+    ones (a flip routes a token to other experts, another function)."""
+    import torch
+
+    toks = batch["tokens"]
+    b, s = toks.shape
+    logits, st = model.prefill(batch, max_seq=s + steps)
+    seen = [r.reshape(b, s, -1) for r in _lm_routing(model)]
+    clean = torch.ones(b, dtype=torch.bool)
+    use, use_clean, err, flips, decided = 0.0, 0.0, 0.0, 0, 0
+    route_flips, routed, dropped = 0, 0, 0
+    fed = [logits.argmax(-1, keepdim=True)]
+    for i in range(steps):
+        step, _ = model.decode_step(st, fed[-1])
+        seen = [torch.cat([h, d[:, None]], dim=1)
+                for h, d in zip(seen, _lm_routing(model))]
+        ref, _ = model.prefill({"tokens": torch.cat([toks] + [
+            f.to(toks.dtype) for f in fed], dim=1)})
+        dropped += sum(int(blk.moe_stats.dropped) for blk in model.layers)
+        for h, p in zip(seen, _lm_routing(model)):
+            same = (h == p.reshape(b, s + i + 1, -1)).all(-1)
+            route_flips += int((~same).sum())
+            routed += same.numel()
+            clean &= same.all(-1)
+        use = max(use, _bar_use(step, ref, LM_BF16_TOL))
+        if clean.any():
+            rows = clean.to(step.device)
+            use_clean = max(use_clean, _bar_use(step[rows], ref[rows],
+                                                LM_BF16_TOL))
+        err = max(err, float((step - ref).abs().max()))
+        f, d = _argmax_decided(step, ref, LM_BF16_TOL)
+        flips, decided = flips + f, decided + d
+        fed.append(step.argmax(-1, keepdim=True))
+    return {"depth": len(model.layers), "bar_use": use,
+            "bar_use_clean_rows": use_clean,
+            "clean_rows": int(clean.sum()), "max_abs_err": err,
+            "argmax_flips_decided": flips, "rows_decided": decided,
+            "rows": steps * b, "routing_flips": route_flips,
+            "routings": routed, "capacity_factor": model.cfg.capacity_factor,
+            "dropped_pairs_in_references": dropped}
+
+
+def _lm_moe_serve(dev, cfg, run1, run2, loss_shape, gap_depths) -> dict:
+    """One MoE configuration through launch.serve.generate on the card
+    (f32 weights drawn from LM_SEED): run 1 (bf16 cache) with the dropped
+    pairs per layer of its prefill and a second prefill compared bitwise
+    (hold (e)), hold (b) at each of ``gap_depths``, the profiler's busy
+    time of one prefill and one decode step, run 2 where given, one
+    train_loss forward; the bounds; the model for the caller to free."""
+    import math
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+    from repro_torch.models.moe import capacity
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    model, init_s = host_s(lambda: Model(
+        cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_active = cfg.active_param_count()
+    n_embed = 2 * cfg.vocab_size * cfg.d_model
+
+    def prompt(b, s, step):
+        return {"tokens": TokenPipeline(cfg.vocab_size, b, s, LM_SEED)
+                .batch_at(step, dev)["tokens"]}
+
+    def run_row(run, b, s, g):
+        return {"batch": b, "prompt": s, "steps": g,
+                "prefill_ms": run.prefill_ms,
+                "prefill_bound_ms": 2 * (n_active - n_embed) * b * s
+                / PEAK_BF16_FLOPS * 1e3,
+                "decode_ms_per_step": run.decode_ms / g,
+                "tok_per_s": g * b / run.decode_ms * 1e3}
+
+    b1, s1, g1 = run1
+    batch1 = prompt(b1, s1, 0)
+    generate(model, batch1, 2)  # warm-up: cuBLAS handles, allocator
+    out1 = generate(model, batch1, g1)
+    again, st = model.prefill(batch1, max_seq=s1 + g1)
+    dropped = [int(blk.moe_stats.dropped) for blk in model.layers]
+    bitwise = bool(torch.equal(again, out1.logits[0]))
+    del st
+
+    # hold (b) at a capacity that cannot bind (every token may route to
+    # one expert), where prefill and decode compute the same function;
+    # at the config's own capacity the references' prefills drop pairs
+    # (the last positions first), which decode never does
+    dropless = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    gaps = [_lm_moe_decode_gap(_lm_view(model, depth, dropless), batch1,
+                               LM_HOLD_STEPS) for depth in gap_depths]
+    gap_own = _lm_moe_decode_gap(model, batch1, LM_HOLD_STEPS)
+    # the same at the whole depth in f32 (COMPUTE_DTYPE patched; the
+    # cache stays bf16): what bf16's rounding adds
+    saved, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, torch.float32
+    try:
+        gap_f32 = _lm_moe_decode_gap(_lm_view(model, cfg=dropless), batch1,
+                                     LM_HOLD_STEPS)
+    finally:
+        layers.COMPUTE_DTYPE = saved
+
+    _, st = model.prefill(batch1, max_seq=s1 + 2)
+    tok = torch.zeros((b1, 1), dtype=torch.int64, device=dev)
+    model.decode_step(st, tok)
+    busy = {"prefill": _device_busy(lambda: model.prefill(batch1)),
+            "decode_step": _device_busy(lambda: model.decode_step(st, tok))}
+    del st
+
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "param_count_cfg": cfg.param_count(), "active_params": n_active,
+           "weight_bytes": 4 * n_params, "init_s": init_s,
+           "decode_bound_ms": 4 * n_params / PEAK_BYTES_PER_S * 1e3,
+           "decode_bound_active_ms": 4 * n_active / PEAK_BYTES_PER_S * 1e3,
+           "capacity_prefill": capacity(b1 * s1, cfg),
+           "capacity_decode": capacity(b1, cfg),
+           "dropped_pairs_prefill": dropped,
+           "pairs_prefill": b1 * s1 * cfg.moe_top_k,
+           "run1": run_row(out1, b1, s1, g1),
+           "hold_e_prefill_bitwise": bitwise, "gaps": gaps,
+           "gap_own_capacity": gap_own, "gap_f32": gap_f32}
+    for name, ms in (("prefill", row["run1"]["prefill_ms"]),
+                     ("decode_step", row["run1"]["decode_ms_per_step"])):
+        dev_ms = busy[name]["device_ms"]
+        busy[name]["idle_share"] = None if dev_ms is None else 1 - dev_ms / ms
+    row["run1"]["profiled"] = busy
+    if run2 is not None:
+        b2, s2, g2 = run2
+        row["run2_chunked"] = run_row(generate(model, prompt(b2, s2, 1), g2),
+                                      b2, s2, g2)
+    loss_batch = TokenPipeline(cfg.vocab_size, *loss_shape,
+                               LM_SEED).batch_at(2, dev)
+    with torch.no_grad():
+        (loss, parts), loss_s = host_s(lambda: model.train_loss(loss_batch))
+    row.update(loss=float(loss), xent=float(parts["xent"]),
+               aux=float(parts["aux"]), ln_vocab=math.log(cfg.vocab_size),
+               loss_shape=list(loss_shape), loss_s=loss_s,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               peak_bytes_before=base_bytes)
+    return row, model
+
+
+def _lm_mla_absorption(cfg, attn_params, dev) -> dict:
+    """Hold (d): one full-width MLA layer's absorbed decode over
+    LM_MLA_ABSORB positions against its train attention, in f32 (the
+    latent cache bf16, as always)."""
+    import torch
+
+    from repro_torch.models import attention
+
+    b, s = LM_MLA_ABSORB
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev) * 0.1
+    with torch.no_grad():
+        train, _ = attention.mla_train(attn_params, cfg, x)
+        cache = attention.init_mla_cache(cfg, b, s, dev)
+        steps = []
+        for t in range(s):
+            o, cache = attention.mla_decode(attn_params, cfg, x[:, t:t + 1],
+                                            cache)
+            steps.append(o)
+        dec = torch.cat(steps, dim=1)
+    err = (dec - train).abs()
+    use = float((err / (LM_MLA_ATOL + LM_MLA_RTOL * train.abs())).max())
+    return {"positions": s, "max_abs_err": float(err.max()),
+            "max_abs_train": float(train.abs().max()), "bar_use": use,
+            "rtol": LM_MLA_RTOL, "atol": LM_MLA_ATOL}
+
+
+def lm_moe_phase(dev, gpu: str) -> dict:
+    """The LM substrate's MoE serving path: granite-moe-1b-a400m at full
+    width and depth (24 layers, d_model 1024, 16/8 heads, 32 experts
+    top-8 of width 512, vocab 49,155), then deepseek-v2-236b at full width
+    (d_model 5120, 128 heads of 128 + rope 64, kv_lora 512, 160 routed
+    experts top-6 of width 1536 + 2 shared, vocab 102,400) cut to
+    LM_MLA_DEPTH layers; both drawn on the card from a seeded generator,
+    f32, through launch.serve.generate.  Holds (a) finite, (b) decode
+    against prefill (asserted for granite at LM_MOE_HOLD_DEPTH), (c) card
+    against CPU at both smoke configs, (d) MLA absorption at full width,
+    (e) a repeated prefill bitwise.  Returns the launch counts of the
+    port's kernels over the phase (none runs on this path)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    failed = []
+    granite, model = _lm_moe_serve(
+        dev, get_arch(LM_MOE_ARCH), LM_MOE_RUN1, LM_MOE_RUN2, LM_MOE_LOSS,
+        LM_MOE_GAP_DEPTHS)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_cfg = dataclasses.replace(get_arch(LM_MLA_ARCH),
+                                  num_layers=LM_MLA_DEPTH)
+    deepseek, model = _lm_moe_serve(dev, mla_cfg, LM_MLA_RUN1, None,
+                                    LM_MLA_LOSS, LM_MLA_GAP_DEPTHS)
+    deepseek["cut"] = f"depth {LM_MLA_DEPTH} of 60 layers"
+    deepseek["hold_d_absorption"] = _lm_mla_absorption(
+        mla_cfg, model.layers[0].attn, dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+
+    for row in (granite, deepseek):
+        if not (math.isfinite(row["loss"]) and math.isfinite(row["aux"])):
+            failed.append(f"hold (a) {row['arch']}: loss {row['loss']}, "
+                          f"aux {row['aux']}")
+        if not row["hold_e_prefill_bitwise"]:
+            failed.append(f"hold (e) {row['arch']}: a second prefill "
+                          f"differs from the first")
+        for gap in row["gaps"]:
+            if gap["dropped_pairs_in_references"]:
+                failed.append(f"hold (b) {row['arch']}: the dropless "
+                              f"references dropped pairs: {gap}")
+    hold_b = next(g for g in granite["gaps"]
+                  if g["depth"] == LM_MOE_HOLD_DEPTH)
+    granite["hold_b"] = {"asserted_depth": LM_MOE_HOLD_DEPTH, **hold_b}
+    if not hold_b["bar_use"] <= 1.0:
+        failed.append(f"hold (b) {LM_MOE_ARCH} at depth "
+                      f"{LM_MOE_HOLD_DEPTH}: {hold_b}")
+    if not deepseek["hold_d_absorption"]["bar_use"] <= 1.0:
+        failed.append(f"hold (d): {deepseek['hold_d_absorption']}")
+    hold_c = [_lm_card_vs_cpu(dev, arch, LM_MOE_BF16_DEPTH)
+              for arch in (LM_MOE_ARCH, LM_MLA_ARCH)]
+    for c in hold_c:
+        failed += c["failed"]
+    emit({"phase": "lm_moe", "granite": granite, "deepseek": deepseek,
+          "hold_c": hold_c, "bar": LM_BF16_TOL, "gpu": gpu,
+          "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"lm_moe: {failed}")
     return counts
 
 
@@ -3884,7 +4263,10 @@ def main() -> int:
     # ---- 31. the LM substrate's serving path -------------------------------
     counts_lm_serve = lm_serve_phase(dev, gpu)
 
-    # ---- 32. kernel list -------------------------------------------------
+    # ---- 32. the LM substrate's MoE serving path ---------------------------
+    counts_lm_moe = lm_moe_phase(dev, gpu)
+
+    # ---- 33. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -3894,7 +4276,7 @@ def main() -> int:
                  counts_sharded_service, counts_model_small, counts_model_full,
                  counts_mdp, counts_mdp_full, counts_cliques,
                  counts_series_degree, counts_transforms, counts_linkpred,
-                 counts_walks_paper, counts_lm_serve)
+                 counts_walks_paper, counts_lm_serve, counts_lm_moe)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

@@ -1,16 +1,18 @@
 """Batched LM serving launcher: prefill a batch of prompts, then decode
 greedily one token a step.  CPU-sized with --smoke.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
-      --smoke --prompt-len 16 --gen 8 --batch 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-1b-a400m --smoke --prompt-len 16 --gen 8 \\
+      --batch 2 --device cpu
 
 Runs on the CUDA card unless --device names another device; without a
 card and without --device it exits with code 2 and the device rule's
 message before printing anything.  Prints the prefill time, the decode
 time with its tokens per second, and the generated tokens; on the card
-the times are CUDA events.  The default --arch is qwen3-4b: the JAX
-package's default, granite-moe-1b-a400m, is a MoE configuration, which
-the port does not build yet.
+the times are CUDA events.  The default --arch is granite-moe-1b-a400m,
+as in the JAX package's launcher; the dense, vlm and MoE (with MLA)
+configurations serve, and an SSM, hybrid or enc-dec one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -97,7 +99,7 @@ def serve(args, device: torch.device) -> torch.Tensor:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="granite-moe-1b-a400m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=16)

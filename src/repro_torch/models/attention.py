@@ -1,14 +1,16 @@
-"""Attention, the GQA half: optional QKV bias and qk-norm, chunked
-(flash-style) attention for long prefills, and KV-cache decode with a
-bf16 or int8 cache.
+"""Attention: GQA (optional QKV bias and qk-norm) and MLA (DeepSeek-V2),
+with chunked (flash-style) attention for long prefills and KV-cache
+decode.
 
 The chunked attention walks KV chunks with a running (max, sum, acc)
 triple, the flash-attention recurrence in plain tensor ops, so a long
-prefill never holds an (S, S) score matrix.  The int8 cache is
-quantized per (position, head) with f32 scales.  The cache is written
-in place (index assignment) and its ``length`` is one Python int shared
-by the batch.  MLA and the mesh (context-parallel) decode are not
-ported yet.
+prefill never holds an (S, S) score matrix.  The GQA cache is bf16 or
+int8, quantized per (position, head) with f32 scales.  MLA caches the
+compressed (kv_lora + rope) latents, always bf16, and decodes with
+weight absorption: attention runs in the latent space and per-head K/V
+is never expanded.  A cache is written in place (index assignment) and
+its ``length`` is one Python int shared by the batch.  The mesh
+(context-parallel) decode is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,6 +39,14 @@ def _scale(head_dim: int) -> float:
 def init_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = gen.device
+    if cfg.use_mla:
+        r, rd, vd = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.v_head_dim
+        return Params(wq=dense_init(gen, (d, h * (hd + rd))),
+                      w_kv_down=dense_init(gen, (d, r)),
+                      w_k_rope=dense_init(gen, (d, rd)),
+                      w_kv_up=dense_init(gen, (r, h * (hd + vd))),
+                      wo=dense_init(gen, (h * vd, d)),
+                      kv_norm=init_rmsnorm(r, dev))
     p = {
         "wq": dense_init(gen, (d, h * hd)),
         "wk": dense_init(gen, (d, kv * hd)),
@@ -260,3 +270,130 @@ def gqa_decode(p: Params, cfg: ArchConfig, x, cache: KVCache):
     out = torch.einsum("bhqk,bkhd->bqhd", pr, vb.float()).to(x.dtype)
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype), cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV cache of (kv_lora + rope) dims
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MLACache:
+    c_kv: torch.Tensor  # (b, max_s, r) compressed latents, bf16
+    k_rope: torch.Tensor  # (b, max_s, rd) bf16
+    length: int  # filled positions, shared by the batch
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                   device) -> MLACache:
+    """An empty latent cache: bf16 whatever ``cfg.kv_cache_dtype`` says,
+    as in the JAX package."""
+    def zeros(width):
+        return torch.zeros((batch, max_seq, width), dtype=torch.bfloat16,
+                           device=device)
+
+    return MLACache(c_kv=zeros(cfg.kv_lora_rank),
+                    k_rope=zeros(cfg.qk_rope_head_dim), length=0)
+
+
+def mla_cache_update(cache: MLACache, c_kv, k_rope, pos: int) -> MLACache:
+    """Write latents at [pos : pos + s_new) in place; the cache's length
+    becomes pos + s_new."""
+    end = pos + c_kv.shape[1]
+    if end > cache.c_kv.shape[1]:
+        raise ValueError(f"cache of {cache.c_kv.shape[1]} positions cannot "
+                         f"hold positions [{pos}, {end})")
+    cache.c_kv[:, pos:end] = c_kv.to(cache.c_kv.dtype)
+    cache.k_rope[:, pos:end] = k_rope.to(cache.k_rope.dtype)
+    cache.length = end
+    return cache
+
+
+def _mla_qkv(p: Params, cfg: ArchConfig, x, positions):
+    """(q_nope, q_rope) per head, the normalised latent c_kv and the
+    roped k_rope shared by the heads."""
+    dt = x.dtype
+    h, hd, rd = cfg.num_heads, cfg.head_dim, cfg.qk_rope_head_dim
+    b, s, _ = x.shape
+    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd + rd)
+    q_nope = q[..., :hd]
+    q_rope = apply_rope(q[..., hd:], positions, cfg.rope_theta)
+    c_kv = rmsnorm(p["kv_norm"], x @ p["w_kv_down"].to(dt), cfg.rms_eps)
+    k_rope = x @ p["w_k_rope"].to(dt)
+    # roped through a singleton head axis
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p: Params, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope, *,
+                causal: bool, q_offset: int):
+    """Attention with c_kv expanded to per-head K_nope and V (training
+    and prefill)."""
+    dt = q_nope.dtype
+    h, hd, vd = cfg.num_heads, cfg.head_dim, cfg.v_head_dim
+    b, sk, _ = c_kv.shape
+    sq = q_nope.shape[1]
+    kv = (c_kv @ p["w_kv_up"].to(dt)).reshape(b, sk, h, hd + vd)
+    k_nope, v = kv[..., :hd], kv[..., hd:]
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
+              ) * _scale(hd + cfg.qk_rope_head_dim)
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=c_kv.device)
+        mask = torch.arange(sk, device=c_kv.device)[None, :] <= q_pos[:, None]
+        logits = torch.where(mask, logits, NEG_INF)
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", pr, v.float()).to(dt)
+    return out.reshape(b, sq, h * vd) @ p["wo"].to(dt)
+
+
+def mla_train(p: Params, cfg: ArchConfig, x, *, causal: bool = True):
+    """Full-sequence MLA; returns (out, (c_kv, k_rope)) for a cache.
+
+    Past 4096 positions the queries go in s // 1024 chunks of 1024, as in
+    the JAX package, whose loop leaves the last s % 1024 positions' output
+    at zero; so does this one (ROADMAP C)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    if s > 4096:
+        qc = 1024
+        out = torch.zeros((b, s, cfg.d_model), dtype=x.dtype, device=x.device)
+        for i in range(s // qc):
+            sl = slice(i * qc, (i + 1) * qc)
+            out[:, sl] = _mla_attend(p, cfg, q_nope[:, sl], q_rope[:, sl],
+                                     c_kv, k_rope, causal=causal,
+                                     q_offset=i * qc)
+        return out, (c_kv, k_rope)
+    out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, causal=causal,
+                      q_offset=0)
+    return out, (c_kv, k_rope)
+
+
+def mla_decode(p: Params, cfg: ArchConfig, x, cache: MLACache):
+    """Single-step decode with weight absorption: the k half of w_kv_up
+    folds into the query and the v half applies after the softmax, so
+    attention runs over the (kv_lora + rope) latents and the per-step
+    transient is O(b * s * r), not O(b * s * h * (hd + vd))."""
+    b = x.shape[0]
+    dt = x.dtype
+    h, hd, rd, vd, r = (cfg.num_heads, cfg.head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    pos = torch.full((b, 1), cache.length, device=x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_qkv(p, cfg, x, pos)
+    cache = mla_cache_update(cache, c_new, kr_new, cache.length)
+
+    w_up = p["w_kv_up"].to(dt).reshape(r, h, hd + vd)
+    w_up_k, w_up_v = w_up[..., :hd], w_up[..., hd:]
+    q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope, w_up_k)  # (b, 1, h, r)
+    ckv = cache.c_kv.to(dt).float()
+    krope = cache.k_rope.to(dt).float()
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(), ckv)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), krope)
+              ) * _scale(hd + rd)
+    filled = torch.arange(ckv.shape[1], device=x.device) < cache.length
+    pr = torch.softmax(torch.where(filled, logits, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", pr, ckv)  # latent context
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_up_v.float())
+    out = out.to(dt).reshape(b, 1, h * vd)
+    return out @ p["wo"].to(dt), cache

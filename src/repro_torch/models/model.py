@@ -1,5 +1,6 @@
-"""Model API of the port for the dense block family (and vlm, which runs
-the same blocks behind a patch-embedding stub).
+"""Model API of the port for the dense and MoE block families (and vlm,
+which runs the dense blocks behind a patch-embedding stub); attention is
+GQA, or MLA with a latent cache where the config says ``use_mla``.
 
     model = Model(cfg, device, generator)
     loss, metrics = model.train_loss(batch)
@@ -10,7 +11,7 @@ the same blocks behind a patch-embedding stub).
 stub "patches" of ``frontends.synthetic_frontend``.  The parameter
 layout is the JAX package's tree with the stacked layer axis unrolled
 into ``layers.<i>`` (``convert.lm_params_from_numpy`` carries a JAX tree
-across).  Families whose blocks are not ported raise
+across).  The SSM, hybrid and enc-dec families are not ported and raise
 ``NotImplementedError``; none falls back to another family.
 """
 from __future__ import annotations
@@ -28,25 +29,26 @@ from repro_torch.models.layers import (Params, dense_init, embed,
 from repro_torch.models.transformer import Block, stack_decode, stack_train
 
 # ROADMAP A.4's slice for each family the port does not build yet
-_UNPORTED = {"moe": "9b (MoE, MLA)", "ssm": "9c (SSM)",
-             "hybrid": "9c (hybrid)", "encdec": "9c (enc-dec)"}
+_UNPORTED = {"ssm": "9c (SSM)", "hybrid": "9c (hybrid)",
+             "encdec": "9c (enc-dec)"}
 
 
 def _check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port cannot build."""
-    if cfg.family in _UNPORTED or cfg.use_mla:
-        slice_ = _UNPORTED.get(cfg.family, _UNPORTED["moe"])
+    if cfg.family in _UNPORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP A.4, slice {slice_})")
+            f"repro_torch yet (ROADMAP A.4, slice {_UNPORTED[cfg.family]})")
 
 
 class ServeState(NamedTuple):
-    caches: list  # one attention.KVCache per layer, written in place
+    # one attention.KVCache (attention.MLACache under MLA) per layer,
+    # written in place
+    caches: list
 
 
 class Model(nn.Module):
-    """The dense/vlm language model.  Parameters are drawn from
+    """The dense/MoE/vlm language model.  Parameters are drawn from
     ``generator`` (seed 0 on ``device`` when None) on its device, stored
     f32, and live on ``device`` (the CUDA card when None)."""
 
@@ -69,7 +71,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = Params(table=dense_init(
                 gen, (cfg.vocab_size, cfg.d_model), in_axis=1))
-        self.layers = nn.ModuleList(Block(cfg, gen)
+        kind = "moe" if cfg.family == "moe" else "dense"
+        self.layers = nn.ModuleList(Block(cfg, gen, kind)
                                     for _ in range(cfg.num_layers))
 
     @property
@@ -113,19 +116,23 @@ class Model(nn.Module):
             cnt = cnt + torch.sum(valid)
         return tot / torch.clamp(cnt, min=1.0)
 
-    def train_loss(self, batch: dict):
-        """(loss, {"xent", "aux"}); the dense family has no auxiliary loss."""
-        x = self._input_embeddings(batch)
-        h = rmsnorm(self.final_norm, stack_train(self.layers, x),
-                    self.cfg.rms_eps)
+    def train_loss(self, batch: dict, aux_weight: float = 0.01):
+        """(xent + aux_weight * aux, {"xent", "aux"}): aux is the MoE
+        load-balancing loss summed over the layers, 0 for dense blocks."""
+        x, aux = stack_train(self.layers, self._input_embeddings(batch))
+        h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
         loss = self._chunked_xent(h, batch["labels"])
-        return loss, {"xent": loss, "aux": torch.zeros((), device=h.device)}
+        return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
     # ---- serving: prefill + decode -------------------------------------------
 
     def init_caches(self, batch: int, max_seq: int) -> ServeState:
         """Empty caches for ``batch`` requests of context ``max_seq``."""
         cfg = self.cfg
+        if cfg.use_mla:
+            return ServeState(caches=[
+                attn.init_mla_cache(cfg, batch, max_seq, self.device)
+                for _ in range(cfg.num_layers)])
         return ServeState(caches=[
             attn.init_kv_cache(cfg, batch, max_seq, cfg.num_kv_heads,
                                cfg.head_dim, self.device)
@@ -138,9 +145,11 @@ class Model(nn.Module):
         b, s = batch["tokens"].shape
         x = self._input_embeddings(batch)
         state = self.init_caches(b, max_seq or s)
+        update = (attn.mla_cache_update if self.cfg.use_mla
+                  else attn.cache_update)
         for block, cache in zip(self.layers, state.caches, strict=True):
-            x, (k, v) = block.block_train(x)
-            attn.cache_update(cache, k, v, 0)
+            x, entries, _ = block.block_train(x)
+            update(cache, *entries, 0)
         h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
         return self._last_logits(h), state
 

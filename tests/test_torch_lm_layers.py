@@ -210,12 +210,11 @@ def test_registry_matches_jax():
         tcfg.get_arch("gpt-2")
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v2-236b",
-                                  "mamba2-2.7b", "zamba2-1.2b",
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b",
                                   "whisper-small"])
 def test_unported_family_raises(arch):
     cfg = tcfg.smoke_config(tcfg.get_arch(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4, slice 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4, slice 9c"):
         Model(cfg, device="cpu")
 
 
