@@ -217,7 +217,32 @@ outside a checkout.  Phases, one JSON line each:
              layer's absorbed decode over 16 positions against its train
              attention in f32 (rtol 1e-2, atol 5e-3); (e) a second bf16
              prefill of run 1 equal to the first bitwise
-33. kernels - per kernel: launches on the main path (phases 3-32 but the
+33. lm_ssm  - the LM substrate's SSM, hybrid and enc-dec serving paths
+             (no kernel of the port runs on them), each at full width and
+             depth, drawn on the card from a seeded generator, f32, through
+             launch.serve.generate: mamba2-2.7b (64 Mamba2 layers, 2.83 B
+             parameters) run 1 4 x 512, 32 steps, run 2 1 x 32,768 (128
+             SSD chunks), 8 steps, a 2 x 1024 loss; zamba2-1.2b (32 Mamba2
+             layers, one weight-shared attention block after each of 6
+             groups) run 1 4 x 512, 32 steps, run 2 1 x 4096, 8 steps, a
+             2 x 1024 loss; whisper-small (12 + 12 layers) 4 requests of
+             1,500 stub frames, a 4-token prompt, 64 steps, a 2 x 448
+             loss; prefill and decode ms in CUDA events, tok/s, peak bytes,
+             the state's bytes per sequence, the profiler's busy time,
+             kernels and top kernels of a prefill and a decode step, the
+             bounds (decode: the f32 weights read once; prefill: 2 x the
+             parameters each position multiplies at the bf16 peak, the
+             shared block at each use, whisper's frames through the
+             encoder).  Holds: (a) finite logits and loss; (b) decode
+             against a prefill of prompt + generated tokens at rtol = atol
+             = 6e-2, printed at several depths and in f32, asserted at
+             each *_HOLD_DEPTH; (c) the three smoke configs on the card
+             against the CPU, f32 and bf16; (d) one full-width mamba2
+             layer's chunked scan over 600 positions against the
+             sequential oracle, and chunk 64 against 256, at 2e-2; (e) a
+             repeated prefill bitwise; (f) mamba2's state bytes per
+             sequence after 32,776 positions equal those after 544
+34. kernels - per kernel: launches on the main path (phases 3-33 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -225,7 +250,7 @@ outside a checkout.  Phases, one JSON line each:
 
 The card's name and power limit are printed as nvidia-smi gives them, and
 the last line is {"ok": true, "device": {...}}.  Numbers are fp32 with
-TF32 off (lm_serve and lm_moe compute in bf16, their logits in fp32).
+TF32 off (the LM phases compute in bf16, their logits in fp32).
 This script imports torch and the port, never JAX.
 """
 from __future__ import annotations
@@ -417,6 +442,44 @@ LM_MLA_LOSS = (2, 512)
 LM_MLA_GAP_DEPTHS = (1, 2)
 LM_MLA_ABSORB = (1, 16)
 LM_MLA_RTOL, LM_MLA_ATOL = 1e-2, 5e-3
+
+# the LM substrate's SSM, hybrid and enc-dec serving paths (lm_ssm), each
+# at full width and depth: mamba2-2.7b run 1 (batch, prompt, decode steps),
+# run 2 at the registry's prefill_32k length (128 chunks of 256), one
+# train_loss forward; zamba2-1.2b the same with run 2 past the
+# 2048-position switch of the shared block to chunked attention; whisper
+# 4 requests of its 1,500 stub frames with a 4-token decoder prompt, 64
+# steps (its decoder context is 448), a loss over 448 positions.  Hold (b)
+# at each of *_GAP_DEPTHS (zamba2's 6 is one group: 5 SSM layers and the
+# shared block), asserted at *_HOLD_DEPTH, the deepest printed depth where
+# it holds (bf16 rounding grows with depth as in the reference: PERF.md
+# section 5, ROADMAP C); hold (c) holds zamba2's smoke
+# decode steps at LM_HYBRID_BF16_DEPTH (one group of the smoke layout), as
+# tests/test_torch_lm_ssm_model.py does; hold (d) one full-width mamba2
+# layer's chunked scan over LM_SSD_ORACLE (3 chunks, the last ragged)
+# against the sequential oracle, and chunk 64 against 256, at
+# tests/test_models_unit.py's 2e-2; hold (f) the SSM state after run 2's
+# context against run 1's, per sequence
+LM_SSM_ARCH = "mamba2-2.7b"
+LM_SSM_RUN1 = (4, 512, 32)
+LM_SSM_RUN2 = (1, 32768, 8)
+LM_SSM_LOSS = (2, 1024)
+LM_SSM_GAP_DEPTHS = (4, 8, 16, 64)
+LM_SSM_HOLD_DEPTH = 4
+LM_SSD_ORACLE = (1, 600)
+LM_SSD_TOL = 2e-2
+LM_HYBRID_ARCH = "zamba2-1.2b"
+LM_HYBRID_RUN1 = (4, 512, 32)
+LM_HYBRID_RUN2 = (1, 4096, 8)
+LM_HYBRID_LOSS = (2, 1024)
+LM_HYBRID_GAP_DEPTHS = (3, 5, 6, 38)
+LM_HYBRID_HOLD_DEPTH = 3
+LM_HYBRID_BF16_DEPTH = 3
+LM_ENCDEC_ARCH = "whisper-small"
+LM_ENCDEC_RUN1 = (4, 4, 64)
+LM_ENCDEC_LOSS = (2, 448)
+LM_ENCDEC_GAP_DEPTHS = (12,)
+LM_ENCDEC_HOLD_DEPTH = 12
 
 
 def emit(obj) -> None:
@@ -2010,13 +2073,18 @@ def walks_paper_phase(dev) -> dict:
 def _lm_view(model, depth=None, cfg=None):
     """A Model sharing ``model``'s parameters, cut to its first ``depth``
     layers and/or with another config (the cache dtype, the MoE
-    capacity), which its blocks then read too."""
+    capacity), which its blocks then read too.  A hybrid's view keeps its
+    blocks and runs the groups that ``depth`` layers hold."""
     import copy
 
     import torch
 
     view = copy.copy(model)
     view._modules = dict(model._modules)
+    if "layers" not in model._modules:  # the hybrid: its schedule reads cfg
+        view.cfg = dataclasses.replace(cfg or model.cfg, num_layers=(
+            depth or model.cfg.num_layers))
+        return view
     layers = list(model.layers if depth is None else model.layers[:depth])
     if cfg is not None:
         blocks = []
@@ -2049,7 +2117,8 @@ def _argmax_decided(got, want, tol: float) -> tuple[int, int]:
 
 def _device_busy(fn) -> dict:
     """fn's device kernels under torch.profiler: their summed time (ms)
-    and count; None where the profiler saw no device time."""
+    and count (None where the profiler saw no device time), and the
+    five that took longest in all, each with its ms and calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2061,8 +2130,11 @@ def _device_busy(fn) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return {"device_ms": busy_us / 1e3 if busy_us else None,
-            "kernels": sum(e.count for e in kernels)}
+            "kernels": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in top]}
 
 
 def _lm_decode_gap(model, batch, out, steps: int) -> dict:
@@ -2073,22 +2145,23 @@ def _lm_decode_gap(model, batch, out, steps: int) -> dict:
 
     use, err, flips, decided = 0.0, 0.0, 0, 0
     for i in range(1, steps + 1):
-        ref, _ = model.prefill({"tokens": torch.cat(
+        ref, _ = model.prefill({**batch, "tokens": torch.cat(
             [batch["tokens"], out.tokens[:, :i].int()], dim=1)})
         use = max(use, _bar_use(out.logits[i], ref, LM_BF16_TOL))
         err = max(err, float((out.logits[i] - ref).abs().max()))
         f, d = _argmax_decided(out.logits[i], ref, LM_BF16_TOL)
         flips, decided = flips + f, decided + d
-    return {"depth": len(model.layers), "bar_use": use, "max_abs_err": err,
-            "argmax_flips_decided": flips, "rows_decided": decided,
-            "rows": steps * batch["tokens"].shape[0]}
+    return {"depth": model.cfg.num_layers, "bar_use": use,
+            "max_abs_err": err, "argmax_flips_decided": flips,
+            "rows_decided": decided, "rows": steps * batch["tokens"].shape[0]}
 
 
 def _lm_routing(model) -> list:
     """Each MoE layer's last routing, a (tokens, top_k) set per token
     (sorted expert ids) on the CPU; [] for a dense model."""
     return [blk.moe_stats.expert_ids.sort(dim=-1).values.cpu()
-            for blk in model.layers if blk.moe_stats is not None]
+            for blk in model._modules.get("layers", ())
+            if blk.moe_stats is not None]
 
 
 def _routing_agreement(a: list, b: list) -> float | None:
@@ -2112,7 +2185,7 @@ def _lm_smoke_run(cfg, tree, where, prompt, loss_b, steps: int, depth=None,
     if depth is not None:
         m = _lm_view(m, depth)
     s = prompt["tokens"].shape[1]
-    logits, st = m.prefill({"tokens": prompt["tokens"].to(where)},
+    logits, st = m.prefill({k: v.to(where) for k, v in prompt.items()},
                            max_seq=s + steps)
     seq, routes = [logits.cpu()], [_lm_routing(m)]
     for t in range(steps):
@@ -2131,7 +2204,7 @@ def _lm_card_vs_cpu(dev, arch: str, decode_depth=None) -> dict:
     """Hold (c): smoke_config(arch) from one set of numpy weights on the
     card and on the CPU, in f32 (COMPUTE_DTYPE patched) and bf16:
     prefill, LM_SMOKE's decode steps fed the CPU's argmax, the loss, and
-    for MoE the routing agreement.  With ``decode_depth``, bf16's decode
+    for MoE the routing agreement (enc-dec: over the same stub frames).  With ``decode_depth``, bf16's decode
     steps are held at that many layers (the whole depth's printed)."""
     import torch
 
@@ -2140,6 +2213,7 @@ def _lm_card_vs_cpu(dev, arch: str, decode_depth=None) -> dict:
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.models import Model
     from repro_torch.models import layers
+    from repro_torch.models.frontends import synthetic_frontend
 
     cfg = smoke_config(get_arch(arch))
     tree = convert.lm_params_to_numpy(Model(
@@ -2148,6 +2222,10 @@ def _lm_card_vs_cpu(dev, arch: str, decode_depth=None) -> dict:
     prompt = TokenPipeline(cfg.vocab_size, b, s, LM_SEED).batch_at(3, "cpu")
     loss_b = TokenPipeline(cfg.vocab_size, *LM_SMOKE_LOSS,
                            LM_SEED).batch_at(4, "cpu")
+    # the stub frames of an enc-dec config, drawn on the CPU
+    frames = torch.Generator().manual_seed(LM_SEED + 2)
+    prompt.update(synthetic_frontend(frames, cfg, b))
+    loss_b.update(synthetic_frontend(frames, cfg, LM_SMOKE_LOSS[0]))
     out, failed = {"arch": cfg.name}, []
     for mode, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         saved, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, dtype
@@ -2586,6 +2664,274 @@ def lm_moe_phase(dev, gpu: str) -> dict:
           "launches": counts, "failed": failed})
     if failed:
         raise AssertionError(f"lm_moe: {failed}")
+    return counts
+
+
+def _lm_prefill_flops(model, b: int, s: int) -> float:
+    """2 x the parameters each position of b requests multiplies: s
+    prompt tokens through the non-embedding parameters, the hybrid's
+    shared block at each of its uses; whisper's encoder_seq frames
+    through the encoder and the cross K/V projections, the prompt
+    through the rest of the decoder.  Attention scores are not counted."""
+    cfg = model.cfg
+
+    def count(mod):
+        return sum(p.numel() for p in mod.parameters())
+
+    if cfg.family == "encdec":
+        cross_kv = sum(blk.cross["wk"].numel() + blk.cross["wv"].numel()
+                       for blk in model.layers)
+        per_frame = count(model.enc_layers) + count(model.enc_norm) + cross_kv
+        per_token = count(model.layers) + count(model.final_norm) - cross_kv
+        return 2 * b * (per_frame * cfg.encoder_seq + per_token * s)
+    per_token = count(model) - count(model.embed) - (
+        0 if cfg.tie_embeddings else count(model.unembed))
+    if cfg.family == "hybrid":
+        per_token += (cfg.num_layers // cfg.attn_every - 1) * count(
+            model.shared_attn)
+    return 2 * b * s * per_token
+
+
+def _lm_cache_bytes(state) -> int:
+    """Bytes of every tensor of a serving state."""
+    import torch
+
+    total = 0
+    for group in state:
+        for entry in group or ():
+            tensors = (entry if isinstance(entry, tuple)
+                       else vars(entry).values())
+            total += sum(t.numel() * t.element_size() for t in tensors
+                         if isinstance(t, torch.Tensor))
+    return total
+
+
+def _lm_ssm_serve(dev, cfg, run1, run2, loss_shape, gap_depths) -> dict:
+    """One SSM, hybrid or enc-dec configuration through
+    launch.serve.generate on the card (f32 weights drawn from LM_SEED;
+    whisper's stub frames from LM_SEED + 3): run 1 with a second prefill
+    compared bitwise (hold (e)), hold (b) at each of ``gap_depths`` and
+    at the whole depth in f32, the
+    profiler's busy time of one prefill and one decode step, run 2 where
+    given, one train_loss forward; the bounds and the serving state's
+    bytes per sequence; the model for the caller to free."""
+    import math
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+    from repro_torch.models import layers
+    from repro_torch.models.frontends import synthetic_frontend
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    model, init_s = host_s(lambda: Model(
+        cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = torch.Generator(device=dev).manual_seed(LM_SEED + 3)
+
+    def inputs(b, s, step):
+        batch = TokenPipeline(cfg.vocab_size, b, s, LM_SEED).batch_at(step,
+                                                                      dev)
+        batch.update(synthetic_frontend(frames, cfg, b))
+        return batch
+
+    def run_row(run, b, s, g):
+        return {"batch": b, "prompt": s, "steps": g,
+                "prefill_ms": run.prefill_ms,
+                "prefill_bound_ms": _lm_prefill_flops(model, b, s)
+                / PEAK_BF16_FLOPS * 1e3,
+                "decode_ms_per_step": run.decode_ms / g,
+                "tok_per_s": g * b / run.decode_ms * 1e3,
+                "context": s + g,
+                "state_bytes_per_seq": _lm_cache_bytes(run.state) / b}
+
+    b1, s1, g1 = run1
+    batch1 = inputs(b1, s1, 0)
+    del batch1["labels"]
+    generate(model, batch1, 2)  # warm-up: cuBLAS handles, allocator
+    out1 = generate(model, batch1, g1)
+    again, _ = model.prefill(batch1, max_seq=s1 + g1)
+    bitwise = bool(torch.equal(again, out1.logits[0]))
+    del again
+
+    gaps = []
+    for depth in gap_depths:
+        if depth == cfg.num_layers:
+            gaps.append(_lm_decode_gap(model, batch1, out1, LM_HOLD_STEPS))
+            continue
+        view = _lm_view(model, depth)
+        gaps.append(_lm_decode_gap(view, batch1, generate(
+            view, batch1, LM_HOLD_STEPS), LM_HOLD_STEPS))
+        del view
+
+    # the same at the whole depth in f32 (COMPUTE_DTYPE patched; the
+    # conv windows and KV caches stay bf16): what bf16's rounding adds
+    saved, layers.COMPUTE_DTYPE = layers.COMPUTE_DTYPE, torch.float32
+    try:
+        gap_f32 = _lm_decode_gap(model, batch1, generate(
+            model, batch1, LM_HOLD_STEPS), LM_HOLD_STEPS)
+    finally:
+        layers.COMPUTE_DTYPE = saved
+
+    _, st = model.prefill(batch1, max_seq=s1 + 2)
+    tok = torch.zeros((b1, 1), dtype=torch.int64, device=dev)
+    model.decode_step(st, tok)
+    busy = {"prefill": _device_busy(lambda: model.prefill(batch1)),
+            "decode_step": _device_busy(lambda: model.decode_step(st, tok))}
+    del st
+
+    row = {"arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+           "params": n_params, "param_count_cfg": cfg.param_count(),
+           "weight_bytes": 4 * n_params, "init_s": init_s,
+           "decode_bound_ms": 4 * n_params / PEAK_BYTES_PER_S * 1e3,
+           "run1": run_row(out1, b1, s1, g1),
+           "hold_e_prefill_bitwise": bitwise, "gaps": gaps,
+           "gap_f32": gap_f32}
+    for name, ms in (("prefill", row["run1"]["prefill_ms"]),
+                     ("decode_step", row["run1"]["decode_ms_per_step"])):
+        dev_ms = busy[name]["device_ms"]
+        busy[name]["idle_share"] = None if dev_ms is None else 1 - dev_ms / ms
+    row["run1"]["profiled"] = busy
+    del out1
+    if run2 is not None:
+        b2, s2, g2 = run2
+        batch2 = inputs(b2, s2, 1)
+        del batch2["labels"]
+        out2 = generate(model, batch2, g2)
+        row["run2"] = run_row(out2, b2, s2, g2)
+        if cfg.family == "ssm":  # no KV cache to outgrow: one more step
+            tok = out2.tokens[:, -1:]
+            row["run2"]["profiled"] = {"decode_step": _device_busy(
+                lambda: model.decode_step(out2.state, tok))}
+        del batch2, out2
+    loss_batch = inputs(*loss_shape, 2)
+    with torch.no_grad():
+        loss, loss_s = host_s(lambda: float(model.train_loss(loss_batch)[0]))
+    row.update(loss=loss, ln_vocab=math.log(cfg.vocab_size),
+               loss_shape=list(loss_shape), loss_s=loss_s,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               peak_bytes_before=base_bytes)
+    return row, model
+
+
+def _lm_ssd_full_width(cfg, ssm_params, dev) -> dict:
+    """Hold (d): one full-width mamba2 layer's chunked scan (ssm_train)
+    over LM_SSD_ORACLE positions against the sequential oracle (its
+    decode step, position by position), and at chunk 64 against the
+    config's 256, in f32 (the decode's conv windows bf16, as always)."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    b, s = LM_SSD_ORACLE
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 4)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev) * 0.3
+    with torch.no_grad():
+        train, train_s = host_s(lambda: ssm.ssm_train(ssm_params, cfg, x))
+        oracle, oracle_s = host_s(
+            lambda: ssm.ssm_reference_scan(ssm_params, cfg, x))
+        chunk64 = ssm.ssm_train(ssm_params, dataclasses.replace(
+            cfg, ssm_chunk=64), x)
+
+    def use(got, want):
+        return float(((got - want).abs()
+                      / (LM_SSD_TOL + LM_SSD_TOL * want.abs())).max())
+
+    return {"positions": s, "chunks": -(-s // cfg.ssm_chunk),
+            "oracle_bar_use": use(train, oracle),
+            "oracle_max_abs_err": float((train - oracle).abs().max()),
+            "chunk64_bar_use": use(chunk64, train),
+            "chunk64_max_abs_err": float((chunk64 - train).abs().max()),
+            "max_abs_out": float(train.abs().max()), "tol": LM_SSD_TOL,
+            "train_s": train_s, "oracle_s": oracle_s}
+
+
+def lm_ssm_phase(dev, gpu: str) -> dict:
+    """The LM substrate's SSM, hybrid and enc-dec serving paths at full
+    width and depth, each drawn on the card from a seeded generator, f32,
+    through launch.serve.generate: mamba2-2.7b (64 Mamba2 layers, d_model
+    2560, 80 heads of 64, state 128), zamba2-1.2b (32 Mamba2 layers in 6
+    groups of 5 and 2 trailing, one weight-shared attention block after
+    each group), whisper-small (12 encoder layers over 1,500 stub frames,
+    12 decoder layers with cross attention).  Holds (a) finite logits and
+    loss, (b) decode against prefill (asserted at each *_HOLD_DEPTH), (c)
+    card against CPU at the three smoke configs, (d) the SSD at full
+    width, (e) a repeated prefill bitwise, (f) mamba2's state bytes per
+    sequence equal at run 1's and run 2's contexts.  Returns the launch
+    counts of the port's kernels over the phase (none runs on this
+    path)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    failed = []
+    mamba, model = _lm_ssm_serve(dev, get_arch(LM_SSM_ARCH), LM_SSM_RUN1,
+                                 LM_SSM_RUN2, LM_SSM_LOSS, LM_SSM_GAP_DEPTHS)
+    mamba["hold_d_ssd"] = _lm_ssd_full_width(model.cfg, model.layers[0].ssm,
+                                             dev)
+    del model
+    free()
+    zamba, model = _lm_ssm_serve(dev, get_arch(LM_HYBRID_ARCH),
+                                 LM_HYBRID_RUN1, LM_HYBRID_RUN2,
+                                 LM_HYBRID_LOSS, LM_HYBRID_GAP_DEPTHS)
+    del model
+    free()
+    whisper, model = _lm_ssm_serve(dev, get_arch(LM_ENCDEC_ARCH),
+                                   LM_ENCDEC_RUN1, None, LM_ENCDEC_LOSS,
+                                   LM_ENCDEC_GAP_DEPTHS)
+    del model
+    free()
+    counts = launch_counts()
+
+    for row, depth in ((mamba, LM_SSM_HOLD_DEPTH),
+                       (zamba, LM_HYBRID_HOLD_DEPTH),
+                       (whisper, LM_ENCDEC_HOLD_DEPTH)):
+        if not math.isfinite(row["loss"]):
+            failed.append(f"hold (a) {row['arch']}: loss {row['loss']}")
+        hold_b = next(g for g in row["gaps"] if g["depth"] == depth)
+        row["hold_b"] = {"asserted_depth": depth, **hold_b}
+        if not hold_b["bar_use"] <= 1.0:
+            failed.append(f"hold (b) {row['arch']} at depth {depth}: "
+                          f"{hold_b}")
+        if not row["hold_e_prefill_bitwise"]:
+            failed.append(f"hold (e) {row['arch']}: a second prefill "
+                          f"differs from the first")
+    ssd = mamba["hold_d_ssd"]
+    if not (ssd["oracle_bar_use"] <= 1.0 and ssd["chunk64_bar_use"] <= 1.0):
+        failed.append(f"hold (d): {ssd}")
+    o1 = {"contexts": [mamba["run1"]["context"], mamba["run2"]["context"]],
+          "state_bytes_per_seq": [mamba["run1"]["state_bytes_per_seq"],
+                                  mamba["run2"]["state_bytes_per_seq"]],
+          "decode_ms_per_step": [mamba["run1"]["decode_ms_per_step"],
+                                 mamba["run2"]["decode_ms_per_step"]]}
+    mamba["hold_f_o1_state"] = o1
+    if o1["state_bytes_per_seq"][0] != o1["state_bytes_per_seq"][1]:
+        failed.append(f"hold (f) {LM_SSM_ARCH}: {o1}")
+    hold_c = [_lm_card_vs_cpu(dev, arch, depth) for arch, depth in (
+        (LM_SSM_ARCH, None), (LM_HYBRID_ARCH, LM_HYBRID_BF16_DEPTH),
+        (LM_ENCDEC_ARCH, None))]
+    for c in hold_c:
+        failed += c["failed"]
+    emit({"phase": "lm_ssm", "mamba2": mamba, "zamba2": zamba,
+          "whisper": whisper, "hold_c": hold_c, "bar": LM_BF16_TOL,
+          "gpu": gpu, "phase_s": time.perf_counter() - t0,
+          "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"lm_ssm: {failed}")
     return counts
 
 
@@ -4266,7 +4612,10 @@ def main() -> int:
     # ---- 32. the LM substrate's MoE serving path ---------------------------
     counts_lm_moe = lm_moe_phase(dev, gpu)
 
-    # ---- 33. kernel list -------------------------------------------------
+    # ---- 33. the LM substrate's SSM, hybrid and enc-dec serving paths -----
+    counts_lm_ssm = lm_ssm_phase(dev, gpu)
+
+    # ---- 34. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -4276,7 +4625,8 @@ def main() -> int:
                  counts_sharded_service, counts_model_small, counts_model_full,
                  counts_mdp, counts_mdp_full, counts_cliques,
                  counts_series_degree, counts_transforms, counts_linkpred,
-                 counts_walks_paper, counts_lm_serve, counts_lm_moe)
+                 counts_walks_paper, counts_lm_serve, counts_lm_moe,
+                 counts_lm_ssm)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

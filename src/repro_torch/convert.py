@@ -169,16 +169,22 @@ def _flat_tree(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+# the layer stacks of the JAX package's LM tree (vmapped init, axis 0)
+_STACKED = ("layers", "ssm_layers", "enc_layers")
+
+
 def lm_params_from_numpy(cfg: ArchConfig, params: dict, device=None) -> Model:
     """A ``models.Model`` of ``cfg`` holding the JAX package's parameter
     tree ``params`` (nested dicts of numpy leaves; the vmapped init
-    stacks the layers on axis 0, unstacked here into ``layers.<i>``).
+    stacks each of ``_STACKED`` on axis 0, unstacked here into
+    ``<stack>.<i>``; the hybrid's ``shared_attn`` is one block in both).
     Raises on a missing or extra key and on any shape mismatch."""
     flat = {}
     for name, arr in _flat_tree(params).items():
-        if name.startswith("layers."):
+        stack, _, rest = name.partition(".")
+        if stack in _STACKED:
             for i, layer in enumerate(arr):
-                flat[f"layers.{i}.{name[len('layers.'):]}"] = layer
+                flat[f"{stack}.{i}.{rest}"] = layer
         else:
             flat[name] = arr
     model = Model(cfg, device=device)
@@ -198,13 +204,14 @@ def lm_params_from_numpy(cfg: ArchConfig, params: dict, device=None) -> Model:
 
 def lm_params_to_numpy(model: Model) -> dict:
     """The model's parameters as the JAX package's tree: nested dicts of
-    numpy arrays, the layers stacked on axis 0."""
+    numpy arrays, each of ``_STACKED`` stacked on axis 0."""
     flat: dict = {}
     for name, param in model.named_parameters():
         arr = param.detach().cpu().numpy()
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            flat.setdefault("layers." + rest, {})[int(i)] = arr
+        stack, _, rest = name.partition(".")
+        if stack in _STACKED:
+            i, _, rest = rest.partition(".")
+            flat.setdefault(f"{stack}.{rest}", {})[int(i)] = arr
         else:
             flat[name] = arr
     tree: dict = {}

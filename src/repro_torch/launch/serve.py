@@ -10,9 +10,8 @@ card and without --device it exits with code 2 and the device rule's
 message before printing anything.  Prints the prefill time, the decode
 time with its tokens per second, and the generated tokens; on the card
 the times are CUDA events.  The default --arch is granite-moe-1b-a400m,
-as in the JAX package's launcher; the dense, vlm and MoE (with MLA)
-configurations serve, and an SSM, hybrid or enc-dec one raises
-``NotImplementedError``.
+as in the JAX package's launcher; every configuration of the registry
+serves (whisper's stub frames come from ``synthetic_frontend``).
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ from repro_torch.configs import get_arch, smoke_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models.frontends import synthetic_frontend
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, ServeState
 
 
 @dataclasses.dataclass
@@ -36,6 +35,7 @@ class Generation:
     logits: list  # (b, vocab) f32: prefill's last position, then each step's
     prefill_ms: float
     decode_ms: float
+    state: ServeState  # the caches after the last step
 
 
 def _timed(device: torch.device, fn):
@@ -75,7 +75,7 @@ def generate(model: Model, batch: dict, gen: int) -> Generation:
     if not bool(torch.isfinite(torch.stack(all_logits)).all()):
         raise FloatingPointError("serving produced non-finite logits")
     return Generation(tokens=torch.cat(toks, dim=1), logits=all_logits,
-                      prefill_ms=prefill_ms, decode_ms=decode_ms)
+                      prefill_ms=prefill_ms, decode_ms=decode_ms, state=state)
 
 
 def serve(args, device: torch.device) -> torch.Tensor:

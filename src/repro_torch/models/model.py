@@ -1,6 +1,9 @@
-"""Model API of the port for the dense and MoE block families (and vlm,
-which runs the dense blocks behind a patch-embedding stub); attention is
-GQA, or MLA with a latent cache where the config says ``use_mla``.
+"""Model API of the port over every family of the registry: dense, MoE
+(attention GQA, or MLA with a latent cache where the config says
+``use_mla``), vlm (the dense blocks behind a patch-embedding stub), ssm
+(Mamba2 blocks), hybrid (Zamba2: groups of SSM blocks, each followed by
+one weight-shared attention block) and encdec (whisper: an encoder over
+stub frames, decoder layers with cross attention).
 
     model = Model(cfg, device, generator)
     loss, metrics = model.train_loss(batch)
@@ -8,11 +11,12 @@ GQA, or MLA with a latent cache where the config says ``use_mla``.
     logits, state = model.decode_step(state, tokens)
 
 ``batch`` carries "tokens" (and "labels" for the loss); vlm adds the
-stub "patches" of ``frontends.synthetic_frontend``.  The parameter
-layout is the JAX package's tree with the stacked layer axis unrolled
-into ``layers.<i>`` (``convert.lm_params_from_numpy`` carries a JAX tree
-across).  The SSM, hybrid and enc-dec families are not ported and raise
-``NotImplementedError``; none falls back to another family.
+stub "patches" and encdec the stub "frames" of
+``frontends.synthetic_frontend``.  The parameter layout is the JAX
+package's tree with each stacked layer axis unrolled into
+``layers.<i>``, ``ssm_layers.<i>`` or ``enc_layers.<i>``; the hybrid's
+``shared_attn`` is one block, unstacked, as there
+(``convert.lm_params_from_numpy`` carries a JAX tree across).
 """
 from __future__ import annotations
 
@@ -24,38 +28,41 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Params, dense_init, embed,
-                                       init_embedding, init_rmsnorm, rmsnorm)
-from repro_torch.models.transformer import Block, stack_decode, stack_train
-
-# ROADMAP A.4's slice for each family the port does not build yet
-_UNPORTED = {"ssm": "9c (SSM)", "hybrid": "9c (hybrid)",
-             "encdec": "9c (enc-dec)"}
+                                       init_embedding, init_rmsnorm, mlp,
+                                       rmsnorm)
+from repro_torch.models.transformer import Block, precompute_cross_kv
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot build."""
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to "
-            f"repro_torch yet (ROADMAP A.4, slice {_UNPORTED[cfg.family]})")
+def _hybrid_layout(cfg: ArchConfig):
+    """(groups, SSM layers per group, trailing SSM layers): each group's
+    SSM layers run, then the shared attention block."""
+    n_groups = cfg.num_layers // cfg.attn_every
+    per_group = cfg.attn_every - 1
+    trailing = cfg.num_layers - n_groups * cfg.attn_every
+    return n_groups, per_group, trailing
 
 
 class ServeState(NamedTuple):
-    # one attention.KVCache (attention.MLACache under MLA) per layer,
-    # written in place
+    # per layer, written in place: an attention.KVCache (MLACache under
+    # MLA), or an ssm.SSMCache for the SSM layers of ssm and hybrid
     caches: list
+    # encdec: each decoder layer's cross (k, v) of the encoder output
+    cross_kv: list | None = None
+    # hybrid: one KVCache per group for the shared attention block
+    attn_caches: list | None = None
 
 
 class Model(nn.Module):
-    """The dense/MoE/vlm language model.  Parameters are drawn from
+    """The language model of any family.  Parameters are drawn from
     ``generator`` (seed 0 on ``device`` when None) on its device, stored
     f32, and live on ``device`` (the CUDA card when None)."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_ported(cfg)
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -71,9 +78,21 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = Params(table=dense_init(
                 gen, (cfg.vocab_size, cfg.d_model), in_axis=1))
-        kind = "moe" if cfg.family == "moe" else "dense"
-        self.layers = nn.ModuleList(Block(cfg, gen, kind)
-                                    for _ in range(cfg.num_layers))
+
+        def stack(kind, n):
+            return nn.ModuleList(Block(cfg, gen, kind) for _ in range(n))
+
+        if cfg.family == "hybrid":
+            n_groups, per_group, trailing = _hybrid_layout(cfg)
+            self.ssm_layers = stack("ssm", n_groups * per_group + trailing)
+            self.shared_attn = Block(cfg, gen, "dense")
+        elif cfg.family == "encdec":
+            self.enc_layers = stack("dense", cfg.encoder_layers)
+            self.enc_norm = init_rmsnorm(cfg.d_model, gen.device)
+            self.layers = stack("cross", cfg.num_layers)
+        else:
+            self.layers = stack({"moe": "moe", "ssm": "ssm"}.get(
+                cfg.family, "dense"), cfg.num_layers)
 
     @property
     def device(self) -> torch.device:
@@ -81,6 +100,23 @@ class Model(nn.Module):
 
     def _table(self) -> torch.Tensor:
         return (self.embed if self.cfg.tie_embeddings else self.unembed)["table"]
+
+    def _blocks(self) -> list:
+        """The blocks in the order the residual stream runs through them,
+        each with its cache's place in a ServeState: (block, field,
+        index).  The hybrid runs the one shared block after each group,
+        with that group's cache."""
+        if self.cfg.family != "hybrid":
+            return [(blk, "caches", i) for i, blk in enumerate(self.layers)]
+        n_groups, per_group, trailing = _hybrid_layout(self.cfg)
+        out = []
+        for g in range(n_groups):
+            out += [(self.ssm_layers[i], "caches", i)
+                    for i in range(g * per_group, (g + 1) * per_group)]
+            out.append((self.shared_attn, "attn_caches", g))
+        first = n_groups * per_group
+        return out + [(self.ssm_layers[i], "caches", i)
+                      for i in range(first, first + trailing)]
 
     def _input_embeddings(self, batch: dict) -> torch.Tensor:
         x = embed(self.embed, batch["tokens"])  # (b, s, d)
@@ -90,6 +126,27 @@ class Model(nn.Module):
             n = self.cfg.num_patch_tokens
             x = torch.cat([batch["patches"].to(x.dtype), x[:, n:]], dim=1)
         return x
+
+    def _encode(self, frames) -> torch.Tensor:
+        """The whisper encoder over the stub frame embeddings: non-causal
+        attention blocks, then enc_norm."""
+        cfg = self.cfg
+        x = frames.to(layers.COMPUTE_DTYPE)
+        for blk in self.enc_layers:
+            h = rmsnorm(blk.pre_norm, x, cfg.rms_eps)
+            a, _ = attn.gqa_train(blk.attn, cfg, h, causal=False)
+            x = x + a
+            x = x + mlp(blk.mlp, rmsnorm(blk.post_norm, x, cfg.rms_eps))
+        return rmsnorm(self.enc_norm, x, cfg.rms_eps)
+
+    def _cross_kvs(self, batch: dict) -> list | None:
+        """Each decoder layer's cross (k, v) of the encoded frames
+        (encdec), else None."""
+        if self.cfg.family != "encdec":
+            return None
+        enc = self._encode(batch["frames"])
+        return [precompute_cross_kv(blk.cross, self.cfg, enc)
+                for blk in self.layers]
 
     # ---- training loss (forward) ------------------------------------------
 
@@ -118,8 +175,14 @@ class Model(nn.Module):
 
     def train_loss(self, batch: dict, aux_weight: float = 0.01):
         """(xent + aux_weight * aux, {"xent", "aux"}): aux is the MoE
-        load-balancing loss summed over the layers, 0 for dense blocks."""
-        x, aux = stack_train(self.layers, self._input_embeddings(batch))
+        load-balancing loss summed over the layers, 0 for other blocks."""
+        x = self._input_embeddings(batch)
+        cross = self._cross_kvs(batch)
+        auxs = []
+        for blk, _, i in self._blocks():
+            x, _, aux = blk.block_train(x, None if cross is None else cross[i])
+            auxs.append(aux)
+        aux = torch.stack(auxs).sum()
         h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
         loss = self._chunked_xent(h, batch["labels"])
         return loss + aux_weight * aux, {"xent": loss, "aux": aux}
@@ -127,29 +190,48 @@ class Model(nn.Module):
     # ---- serving: prefill + decode -------------------------------------------
 
     def init_caches(self, batch: int, max_seq: int) -> ServeState:
-        """Empty caches for ``batch`` requests of context ``max_seq``."""
-        cfg = self.cfg
+        """Empty caches for ``batch`` requests of context ``max_seq`` (an
+        SSM cache holds the same bytes at any context)."""
+        cfg, dev = self.cfg, self.device
+
+        def kv_caches(n):
+            return [attn.init_kv_cache(cfg, batch, max_seq, cfg.num_kv_heads,
+                                       cfg.head_dim, dev) for _ in range(n)]
+
+        def ssm_caches(n):
+            return [ssm_mod.init_ssm_cache(cfg, batch, dev) for _ in range(n)]
+
+        if cfg.family == "hybrid":
+            n_groups, per_group, trailing = _hybrid_layout(cfg)
+            return ServeState(caches=ssm_caches(n_groups * per_group
+                                                + trailing),
+                              attn_caches=kv_caches(n_groups))
+        if cfg.family == "ssm":
+            return ServeState(caches=ssm_caches(cfg.num_layers))
         if cfg.use_mla:
             return ServeState(caches=[
-                attn.init_mla_cache(cfg, batch, max_seq, self.device)
+                attn.init_mla_cache(cfg, batch, max_seq, dev)
                 for _ in range(cfg.num_layers)])
-        return ServeState(caches=[
-            attn.init_kv_cache(cfg, batch, max_seq, cfg.num_kv_heads,
-                               cfg.head_dim, self.device)
-            for _ in range(cfg.num_layers)])
+        return ServeState(caches=kv_caches(cfg.num_layers))
+
+    def _run(self, step, x, state: ServeState):
+        """x through every block by ``step`` (Block.block_prefill or
+        Block.block_decode), each with its cache and cross (k, v)."""
+        for blk, field, i in self._blocks():
+            x = step(blk, x, getattr(state, field)[i],
+                     None if state.cross_kv is None else state.cross_kv[i])
+        return x
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_seq: int = 0):
         """Run the prompt, fill each layer's cache; returns the
-        last-position logits (b, vocab) f32 and the state."""
+        last-position logits (b, vocab) f32 and the state.  An SSM layer
+        raises ``ValueError`` on a prompt shorter than ssm_conv - 1."""
         b, s = batch["tokens"].shape
         x = self._input_embeddings(batch)
-        state = self.init_caches(b, max_seq or s)
-        update = (attn.mla_cache_update if self.cfg.use_mla
-                  else attn.cache_update)
-        for block, cache in zip(self.layers, state.caches, strict=True):
-            x, entries, _ = block.block_train(x)
-            update(cache, *entries, 0)
+        state = self.init_caches(b, max_seq or s)._replace(
+            cross_kv=self._cross_kvs(batch))
+        x = self._run(Block.block_prefill, x, state)
         h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
         return self._last_logits(h), state
 
@@ -157,7 +239,7 @@ class Model(nn.Module):
     def decode_step(self, state: ServeState, tokens):
         """tokens (b, 1) -> next-token logits (b, vocab) f32; the caches
         advance in place."""
-        x = stack_decode(self.layers, embed(self.embed, tokens), state.caches)
+        x = self._run(Block.block_decode, embed(self.embed, tokens), state)
         return self._last_logits(rmsnorm(self.final_norm, x,
                                          self.cfg.rms_eps)), state
 

@@ -1,9 +1,14 @@
-"""Decoder stacks of the dense and MoE block families: a loop over an
-``nn.ModuleList`` of ``Block``s, which hold their own parameters (the
-JAX package stacks them on a leading axis and scans).  Attention is GQA,
-or MLA where the config says ``use_mla``.
+"""Residual blocks of every family: dense and MoE (attention, then the MLP or
+the MoE FFN), SSM (Mamba2) and the whisper decoder layer with cross
+attention.  A ``Block`` holds its own parameters; the model runs an
+``nn.ModuleList`` of them in a loop (the JAX package stacks them on a
+leading axis and scans).  Attention is GQA, or MLA where the config says
+``use_mla``.
 
-SSM, hybrid and cross-attention blocks are not ported yet.
+Cross attention is non-causal over the encoder's output, whose K/V
+(``precompute_cross_kv``) are formed once per layer in the compute dtype
+and read by every decoder position, at training, prefill and decode
+alike.
 """
 from __future__ import annotations
 
@@ -13,27 +18,39 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (Params, dense_init, init_mlp,
+                                       init_rmsnorm, mlp, rmsnorm)
 
 
 class Block(nn.Module):
-    """One residual block: pre_norm -> attention, post_norm -> the MLP
-    (kind "dense") or the MoE FFN (kind "moe")."""
+    """One residual block.  Kind "dense": pre_norm -> attention, post_norm
+    -> the MLP; "moe": the same with the MoE FFN; "cross" (whisper's
+    decoder layer): the dense block with cross_norm -> cross attention
+    between its attention and its MLP; "ssm": pre_norm -> the Mamba2
+    mixer, with no MLP."""
 
     def __init__(self, cfg: ArchConfig, gen: torch.Generator,
                  kind: str = "dense"):
         super().__init__()
         self.cfg = cfg
+        self.kind = kind
         self.pre_norm = init_rmsnorm(cfg.d_model, gen.device)
+        # the last MoE call's moe.MoEStats (routing, drops), kept on the
+        # device; None for any other block
+        self.moe_stats = None
+        if kind == "ssm":
+            self.ssm = ssm_mod.init_ssm(gen, cfg)
+            return
         self.attn = attn.init_attention(gen, cfg)
         self.post_norm = init_rmsnorm(cfg.d_model, gen.device)
         if kind == "moe":
             self.moe = moe_mod.init_moe(gen, cfg)
         else:
             self.mlp = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp)
-        # the last MoE call's moe.MoEStats (routing, drops), kept on the
-        # device; None for a dense block
-        self.moe_stats = None
+        if kind == "cross":
+            self.cross = init_cross_attention(gen, cfg)
+            self.cross_norm = init_rmsnorm(cfg.d_model, gen.device)
 
     def _ffn(self, h):
         """(out, aux loss) of the MLP or the MoE FFN."""
@@ -42,42 +59,87 @@ class Block(nn.Module):
             return out, self.moe_stats.aux
         return mlp(self.mlp, h), torch.zeros((), device=h.device)
 
-    def block_train(self, x):
+    def _cross(self, x, cross_kv):
+        if cross_kv is None:
+            return x
+        h = rmsnorm(self.cross_norm, x, self.cfg.rms_eps)
+        return x + _cross_attention_cached(self.cross, self.cfg, h, cross_kv)
+
+    def block_train(self, x, cross_kv=None):
         """The block over a whole sequence; returns (x, cache entries,
-        aux): the layer's (k, v), or (c_kv, k_rope) under MLA."""
+        aux): the layer's (k, v), or (c_kv, k_rope) under MLA, None for
+        an SSM block.  ``cross_kv``: the encoder's (k, v) for a "cross"
+        block."""
         cfg = self.cfg
         h = rmsnorm(self.pre_norm, x, cfg.rms_eps)
+        if self.kind == "ssm":
+            return (x + ssm_mod.ssm_train(self.ssm, cfg, h), None,
+                    torch.zeros((), device=x.device))
         if cfg.use_mla:
             a, entries = attn.mla_train(self.attn, cfg, h)
         else:
             a, entries = attn.gqa_train(self.attn, cfg, h)
-        x = x + a
+        x = self._cross(x + a, cross_kv)
         f, aux = self._ffn(rmsnorm(self.post_norm, x, cfg.rms_eps))
         return x + f, entries, aux
 
-    def block_decode(self, x, cache):
-        """One token per sequence against the layer's cache (a KVCache,
-        or an MLACache under MLA), which advances in place."""
+    def block_prefill(self, x, cache, cross_kv=None):
+        """The block over a prompt, writing its cache (a KVCache, an
+        MLACache under MLA, an SSMCache for an SSM block) in place."""
+        cfg = self.cfg
+        if self.kind == "ssm":
+            h = rmsnorm(self.pre_norm, x, cfg.rms_eps)
+            y, _ = ssm_mod.ssm_prefill(self.ssm, cfg, h, cache)
+            return x + y
+        x, entries, _ = self.block_train(x, cross_kv)
+        update = attn.mla_cache_update if cfg.use_mla else attn.cache_update
+        update(cache, *entries, 0)
+        return x
+
+    def block_decode(self, x, cache, cross_kv=None):
+        """One token per sequence against the layer's cache, which
+        advances in place."""
         cfg = self.cfg
         h = rmsnorm(self.pre_norm, x, cfg.rms_eps)
+        if self.kind == "ssm":
+            o, _ = ssm_mod.ssm_decode(self.ssm, cfg, h, cache)
+            return x + o
         decode = attn.mla_decode if cfg.use_mla else attn.gqa_decode
         a, _ = decode(self.attn, cfg, h, cache)
-        x = x + a
+        x = self._cross(x + a, cross_kv)
         f, _ = self._ffn(rmsnorm(self.post_norm, x, cfg.rms_eps))
         return x + f
 
 
-def stack_train(layers: nn.ModuleList, x):
-    """(x, the aux losses summed over the layers)."""
-    auxs = []
-    for block in layers:
-        x, _, aux = block.block_train(x)
-        auxs.append(aux)
-    return x, torch.stack(auxs).sum()
+# --------------------------------------------------------------------------
+# Cross attention (whisper enc-dec)
+# --------------------------------------------------------------------------
+
+def init_cross_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return Params(wq=dense_init(gen, (d, h * hd)),
+                  wk=dense_init(gen, (d, h * hd)),
+                  wv=dense_init(gen, (d, h * hd)),
+                  wo=dense_init(gen, (h * hd, d)))
 
 
-def stack_decode(layers: nn.ModuleList, x, caches: list):
-    """Step one token through the layers; each cache advances in place."""
-    for block, cache in zip(layers, caches, strict=True):
-        x = block.block_decode(x, cache)
-    return x
+def precompute_cross_kv(p: Params, cfg: ArchConfig, enc_out):
+    """The encoder output's (k, v), each (b, se, h, hd) in its dtype."""
+    dt = enc_out.dtype
+    b, se, _ = enc_out.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    k = (enc_out @ p["wk"].to(dt)).reshape(b, se, h, hd)
+    v = (enc_out @ p["wv"].to(dt)).reshape(b, se, h, hd)
+    return k, v
+
+
+def _cross_attention_cached(p: Params, cfg: ArchConfig, x, cross_kv):
+    """Non-causal attention of x's positions over the encoder's (k, v)."""
+    k, v = cross_kv
+    dt = x.dtype
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd)
+    out = attn._dense_attention(q, k.to(dt), v.to(dt), causal=False,
+                                q_offset=0)
+    return out.reshape(b, s, h * hd) @ p["wo"].to(dt)

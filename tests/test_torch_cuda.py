@@ -1045,3 +1045,91 @@ def test_panel_sharded_kernel_tick_on_two_ranks_matches_one_process(dev):
         # member per step on the replicated panel
         assert r.launches["edge_spmm_nb"] == 7 * (3 * 2 + 1)
         assert r.launches["gram2k"] == r.launches["panel_mix"] == 3 * 2 * 2
+
+
+# --------------------------------------------------------------------------
+# The LM substrate's SSM, hybrid and enc-dec families (no kernel of the
+# port runs on them): the card against the CPU from one set of weights
+# --------------------------------------------------------------------------
+
+LM_F32_TOL, LM_DECODE_F32_TOL = 1e-4, 5e-3
+
+
+def _lm_smoke(arch: str, seed: int = 0):
+    """smoke_config(arch)'s model on the CPU and a copy on the card, and
+    a prompt (with whisper's stub frames) of 2 x 12 on the CPU."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.frontends import synthetic_frontend
+
+    cfg = smoke_config(get_arch(arch))
+    gen = torch.Generator().manual_seed(seed)
+    cpu = Model(cfg, "cpu", gen)
+    card = Model(cfg, "cpu", torch.Generator().manual_seed(seed))
+    card.to("cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=gen, dtype=torch.int32)}
+    batch.update(synthetic_frontend(gen, cfg, 2))
+    return cfg, cpu, card, batch
+
+
+def test_ssd_on_the_card_matches_cpu(dev):
+    """The chunked SSD scan and a mamba2 smoke layer's ssm_train at a
+    ragged length (45 = 2 chunks of 16 and 13), card against CPU (f32)."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import ssm
+
+    rng = np.random.default_rng(0)
+    b, s, h, p, n = 2, 45, 4, 8, 16
+    args = [rng.standard_normal(shape).astype(np.float32) for shape in
+            ((b, s, h, p), (b, s, h), (b, s, n), (b, s, n))]
+    args[1] = -0.2 * np.abs(args[1])
+    want = ssm._ssd_chunked(*map(torch.from_numpy, args), 16)
+    got = ssm._ssd_chunked(*(torch.from_numpy(a).to(dev) for a in args), 16)
+    for g, w in zip(got, want):
+        assert _rel_err(g.cpu(), w) <= REL
+    cfg = smoke_config(get_arch("mamba2-2.7b"))
+    params = ssm.init_ssm(torch.Generator().manual_seed(1), cfg)
+    x = torch.from_numpy(0.3 * rng.standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        want = ssm.ssm_train(params, cfg, x)
+        got = ssm.ssm_train(params.to(dev), cfg, x.to(dev))
+    assert float((got.cpu() - want).abs().max()) <= LM_F32_TOL
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-small"])
+def test_lm_smoke_on_the_card_matches_cpu(dev, arch, monkeypatch):
+    """A smoke hybrid and a smoke whisper in f32 (COMPUTE_DTYPE patched):
+    prefill logits 1e-4, four decode steps fed the CPU's argmax 5e-3 (the
+    bf16 caches round), train_loss 1e-4, card against CPU."""
+    from repro_torch.models import layers
+
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    cfg, cpu, card, batch = _lm_smoke(arch)
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        want, st_cpu = cpu.prefill(batch, max_seq=16)
+        got, st_card = card.prefill(on_card, max_seq=16)
+        assert float((got.cpu() - want).abs().max()) <= LM_F32_TOL
+        for _ in range(4):
+            tok = want.argmax(-1, keepdim=True)
+            want, _ = cpu.decode_step(st_cpu, tok)
+            got, _ = card.decode_step(st_card, tok.to(dev))
+            assert float((got.cpu() - want).abs().max()) <= LM_DECODE_F32_TOL
+        labels = torch.roll(batch["tokens"], -1, dims=1)
+        loss_cpu = float(cpu.train_loss({**batch, "labels": labels})[0])
+        loss_card = float(card.train_loss({**on_card,
+                                           "labels": labels.to(dev)})[0])
+    assert abs(loss_card - loss_cpu) <= LM_F32_TOL
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b",
+                                  "whisper-small"])
+def test_lm_repeated_prefill_is_bitwise(dev, arch):
+    """Two bf16 prefills of one prompt on the card give the same bits."""
+    _, _, card, batch = _lm_smoke(arch)
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    first, _ = card.prefill(on_card)
+    second, _ = card.prefill(on_card)
+    assert torch.equal(first, second)

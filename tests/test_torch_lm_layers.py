@@ -210,14 +210,6 @@ def test_registry_matches_jax():
         tcfg.get_arch("gpt-2")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b",
-                                  "whisper-small"])
-def test_unported_family_raises(arch):
-    cfg = tcfg.smoke_config(tcfg.get_arch(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4, slice 9c"):
-        Model(cfg, device="cpu")
-
-
 def test_model_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tcfg.smoke_config(tcfg.get_arch("qwen3-4b"))
