@@ -242,7 +242,32 @@ outside a checkout.  Phases, one JSON line each:
              sequential oracle, and chunk 64 against 256, at 2e-2; (e) a
              repeated prefill bitwise; (f) mamba2's state bytes per
              sequence after 32,776 positions equal those after 544
-34. kernels - per kernel: launches on the main path (phases 3-33 but the
+34. train_sped - `python -m repro_torch.launch.train --mode sped` at its
+             defaults through train.train_sped (clique_graph(200, 4),
+             limit_neg_exp degree 51, 1,024 edges a factor, K1 once per
+             drawn factor, 600 mu-EG steps, a checkpoint every 200), then
+             resumed from step 400: steps/s, ms and K1 launches a step,
+             subspace error (below 0.5), agreement, the resumed panel
+             bitwise the uninterrupted one, one save and restore of the
+             (v,) tree (seconds, bytes, bitwise); then K1 at this path's
+             shapes (n = 200, k = 5) against its plain twin on each of
+             one step's 51 drawn factors, and the kernel operator against
+             the segment operator on that draw
+35. lm_train - LM training: granite-moe-1b-a400m at full width and depth
+             through train.train_lm, 10 steps of 8 x 1024 tokens (remat
+             "full", f32 AdamW moments): ms a step against the FLOP +
+             optimizer-bytes bound, tokens/s, peak bytes, losses, grad
+             norms; 5 steps, one save and one restore of the full
+             (params, opt_state) in the JAX package's layout (seconds,
+             bytes, bitwise), train_lm resumed from it to step 10 (its
+             losses within 1e-4 of the uninterrupted run's, its final
+             parameters and moments within 1e-5 of each leaf's largest
+             magnitude, its step equal); the profiler's device-busy share
+             of one more step; qwen3-4b at full width and depth, remat
+             "full", bf16 moments, 4 steps of 4 x 1024 through
+             dryrun.build_train_step: ms a step, peak bytes (both models'
+             ms a step the median of the steps after the first)
+36. kernels - per kernel: launches on the main path (phases 3-35 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -480,6 +505,41 @@ LM_ENCDEC_RUN1 = (4, 4, 64)
 LM_ENCDEC_LOSS = (2, 448)
 LM_ENCDEC_GAP_DEPTHS = (12,)
 LM_ENCDEC_HOLD_DEPTH = 12
+
+# the training path (train_sped, lm_train).  train_sped runs
+# `python -m repro_torch.launch.train --mode sped`'s defaults (200 nodes, 4
+# clusters, degree 51, 600 steps, 1024 edges a factor, a checkpoint every
+# 200 steps), then resumes from step SPED_RESUME_AT.  lm_train trains
+# granite-moe-1b-a400m at full width and depth through train_lm for
+# LM_TRAIN_STEPS steps of LM_TRAIN_SHAPE (batch, sequence), again for
+# LM_TRAIN_RESUME_AT steps (saved, restored, resumed to LM_TRAIN_STEPS),
+# then qwen3-4b at full width and depth with remat "full" and bf16 moments
+# for LM_TRAIN_BIG_STEPS steps of LM_TRAIN_BIG_SHAPE.  The bound of a step
+# is the FLOP bound (8 x active non-embedding parameters x tokens under
+# full remat, 6 without, plus 6 x d_model x vocab x tokens) at the bf16
+# peak plus the optimizer's bytes (read p, g, m, v; write p, m, v: 28
+# bytes a parameter with f32 moments, 20 with bf16) at the HBM rate.  The
+# resumed run's losses are held to the uninterrupted run's at
+# LM_RESUME_TOL, and its final parameters and both moments to the
+# uninterrupted run's at REL_TOL of each leaf's largest magnitude (the
+# optimizer's step equal), so a resume that restored the parameters but
+# lost the moments or the step fails; the restored tree is held bitwise.
+# train_sped also holds K1 at its shapes (n = 200, k = clusters + 1 = 5,
+# the narrowest load width) to the plain twin on each of one step's drawn
+# factors, and the kernel operator to the segment operator on that draw,
+# and its subspace error below SPED_ERROR_BAR (the bar of
+# tests/test_torch_train_sped.py).  Both models' ms a step is the median
+# of the steps after the first.
+SPED_RESUME_AT = 400
+SPED_ERROR_BAR = 0.5
+LM_TRAIN_ARCH = "granite-moe-1b-a400m"
+LM_TRAIN_SHAPE = (8, 1024)
+LM_TRAIN_STEPS = 10
+LM_TRAIN_RESUME_AT = 5
+LM_TRAIN_BIG_ARCH = "qwen3-4b"
+LM_TRAIN_BIG_SHAPE = (4, 1024)
+LM_TRAIN_BIG_STEPS = 4
+LM_RESUME_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -2935,6 +2995,314 @@ def lm_ssm_phase(dev, gpu: str) -> dict:
     return counts
 
 
+def train_sped_phase(dev, gpu: str) -> dict:
+    """The paper's training loop through launch.train.train_sped at its
+    defaults, checkpointed every 200 steps (K1 once per drawn factor),
+    then resumed from step SPED_RESUME_AT: the resumed panel bitwise the
+    uninterrupted one.  One more save and restore of the (v,) tree timed
+    apart.  Returns the launch counts of both runs."""
+    import shutil
+
+    import torch
+
+    from repro_torch.data.pipeline import mixed_seed
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.edge_spmm import ops as es_ops
+    from repro_torch.kernels.edge_spmm import ref as es_ref
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint as ckpt
+
+    ck_dir = ROOT / "build" / "train_sped_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    args = train.parse_args(["--mode", "sped", "--ckpt-dir", str(ck_dir)])
+    reset_launch_counts()
+    full = train.train_sped(args, dev)
+    full_counts = launch_counts()
+    for d in ck_dir.iterdir():  # the newest checkpoint becomes step 400's
+        if int(d.name.split("_")[1]) > SPED_RESUME_AT:
+            shutil.rmtree(d)
+    resumed = train.train_sped(args, dev)
+    counts = launch_counts()
+    path, save_s = host_s(lambda: ckpt.save(str(ck_dir), args.steps + 1,
+                                            (full.v,)))
+    (tree, _, _), restore_s = host_s(lambda: ckpt.restore_with_fallback(
+        str(ck_dir), (torch.zeros_like(full.v),)))
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    shutil.rmtree(ck_dir)
+    # K1 at this path's shapes: one step's draw (step args.steps's seed),
+    # each factor's launch on the final panel against the plain twin, and
+    # the kernel operator against the segment operator on the same draw
+    g, _, op = train.sped_problem(args, dev)
+    _, _, op_plain = train.sped_problem(args, dev, backend="segment")
+    gen = torch.Generator(device=dev).manual_seed(
+        mixed_seed(args.seed + 7, args.steps))
+    sel = torch.randint(0, g.num_edges, (args.degree + 1, args.batch_edges),
+                        generator=gen, device=dev)
+    src, dst = g.src[sel].long(), g.dst[sel].long()
+    w = g.weight[sel] * (g.num_edges / args.batch_edges)
+    k1_err = max(_held(f"train_sped: edge_spmm (factor {i})",
+                       es_ops.edge_spmm(src[i], dst[i], w[i], full.v),
+                       es_ref.edge_spmm(src[i], dst[i], w[i], full.v))[0]
+                 for i in range(args.degree))
+    op_err = _held("train_sped: minibatch operator vs segment",
+                   op(gen, full.v, sel), op_plain(gen, full.v, sel))[0]
+    row = {"phase": "train_sped", "nodes": args.nodes,
+           "clusters": args.clusters, "degree": args.degree,
+           "steps": args.steps, "batch_edges": args.batch_edges,
+           "seconds": full.seconds, "steps_per_s": args.steps / full.seconds,
+           "ms_per_step": full.seconds / args.steps * 1e3,
+           "k1_launches_per_step": full_counts["edge_spmm"] / args.steps,
+           "subspace_error": full.error, "error_bar": SPED_ERROR_BAR,
+           "agreement": full.accuracy,
+           "k": full.v.shape[1], "k1_factor_max_abs_err": k1_err,
+           "operator_max_abs_err": op_err, "resumed_from": SPED_RESUME_AT, "resumed_steps": resumed.steps,
+           "resumed_seconds": resumed.seconds,
+           "resume_bitwise": bool(torch.equal(resumed.v, full.v)),
+           "checkpoint": {"save_s": save_s, "restore_s": restore_s,
+                          "bytes": nbytes,
+                          "restored_bitwise": bool(torch.equal(tree[0],
+                                                               full.v))},
+           "gpu": gpu, "launches": counts}
+    emit(row)
+    if not (counts["edge_spmm"] > 0 and row["resume_bitwise"]
+            and row["checkpoint"]["restored_bitwise"]
+            and resumed.steps == args.steps - SPED_RESUME_AT
+            and full.accuracy >= STOCHASTIC_AGREEMENT
+            and full.error < SPED_ERROR_BAR):
+        raise AssertionError(f"train_sped: {row}")
+    return counts
+
+
+def _train_bound_ms(model, tokens: int, moment_bytes: int) -> dict:
+    """The least time of one training step: the FLOP bound at the bf16
+    peak (8 x active non-embedding parameters x tokens under full remat,
+    6 otherwise; 6 x d_model x vocab x tokens for the unembedding), plus
+    the optimizer's bytes at the HBM rate (p and g f32 read, p written;
+    m and v read and written at ``moment_bytes`` each)."""
+    cfg = model.cfg
+    embed = model.embed["table"].numel() + (
+        0 if cfg.tie_embeddings else model.unembed["table"].numel())
+    params = sum(p.numel() for p in model.parameters())
+    active = params - embed
+    for mod in model.modules():
+        if "moe" in mod._modules:  # the routed experts a token skips
+            stacks = sum(mod.moe[k].numel() for k in ("w_gate", "w_up", "w_down"))
+            active -= stacks * (cfg.num_experts - cfg.moe_top_k) // cfg.num_experts
+    factor = 8 if cfg.remat_policy == "full" else 6
+    flops = factor * active * tokens + 6 * cfg.d_model * cfg.vocab_size * tokens
+    opt_bytes = params * (3 * 4 + 4 * moment_bytes)
+    flop_ms = flops / PEAK_BF16_FLOPS * 1e3
+    byte_ms = opt_bytes / PEAK_BYTES_PER_S * 1e3
+    return {"params": params, "active_non_embedding": active,
+            "flops": flops, "optimizer_bytes": opt_bytes,
+            "flop_ms": flop_ms, "optimizer_ms": byte_ms,
+            "bound_ms": flop_ms + byte_ms}
+
+
+def _warm_median(ms: list) -> float:
+    """The median of a run's step times after its first (warm-up) step."""
+    warm = sorted(ms[1:])
+    return warm[len(warm) // 2]
+
+
+def _state_diff(run, want) -> dict:
+    """The largest difference of ``run``'s parameters, first and second
+    moments from ``want``'s, leaf by leaf, as a share of the leaf's largest
+    magnitude in ``want``; and whether the optimizer steps agree."""
+    import torch
+
+    def worst(got: dict, ref: dict) -> float:
+        assert got.keys() == ref.keys()
+        out = 0.0
+        for k, r in ref.items():
+            r = r.float()
+            err = float((got[k].float() - r).abs().max())
+            top = float(r.abs().max())
+            out = max(out, err / top if top > 0 else err)
+        return out
+
+    with torch.no_grad():
+        return {"params": worst(dict(run.model.named_parameters()),
+                                dict(want.model.named_parameters())),
+                "mu": worst(run.opt_state.mu, want.opt_state.mu),
+                "nu": worst(run.opt_state.nu, want.opt_state.nu),
+                "step_equal": bool(torch.equal(run.opt_state.step,
+                                               want.opt_state.step)),
+                "tol": REL_TOL}
+
+
+def lm_train_phase(dev, gpu: str) -> dict:
+    """LM training on the card: granite-moe-1b-a400m at full width and
+    depth through launch.train.train_lm (LM_TRAIN_STEPS steps of
+    LM_TRAIN_SHAPE, remat "full", f32 moments): ms a step against its
+    bound, tokens/s, peak bytes, losses, grad norms; a run of
+    LM_TRAIN_RESUME_AT steps whose (params, opt_state) is saved and
+    restored (seconds, bytes, bitwise), then resumed by train_lm to
+    LM_TRAIN_STEPS, its losses and final state against the uninterrupted
+    run's; the device-busy share and the host-clock split of one more
+    step; then qwen3-4b at full width and depth, remat "full", bf16
+    moments, LM_TRAIN_BIG_STEPS steps through dryrun.build_train_step: ms
+    a step and peak bytes.  Returns the launch counts of the port's
+    kernels over the phase (none runs on this path)."""
+    import gc
+    import math
+    import shutil
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    b, s = LM_TRAIN_SHAPE
+    base = ["--mode", "lm", "--arch", LM_TRAIN_ARCH, "--batch", str(b),
+            "--seq", str(s), "--log-every", str(LM_TRAIN_STEPS)]
+    ck_dir = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    reset_launch_counts()
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parse_args(base + ["--steps", str(LM_TRAIN_STEPS)])
+    whole, wall_s = host_s(lambda: train.train_lm(args, dev))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [t * 1e3 for t in whole.step_s]
+    steady = _warm_median(step_ms)
+    bound = _train_bound_ms(whole.model, b * s, 4)
+    opt_cfg = opt_lib.OptConfig(lr=args.lr, warmup_steps=20,
+                                total_steps=args.steps)
+    granite = {"arch": LM_TRAIN_ARCH, "layers": whole.model.cfg.num_layers,
+               "batch": b, "seq": s, "steps": LM_TRAIN_STEPS,
+               "remat_policy": whole.model.cfg.remat_policy,
+               "moment_dtype": opt_cfg.moment_dtype, **bound,
+               "step_ms": step_ms, "ms_per_step": steady,
+               "ms_statistic": "median of steps 2-",
+               "bound_share": bound["bound_ms"] / steady,
+               "tokens_per_s": b * s / steady * 1e3, "wall_s": wall_s,
+               "peak_bytes": peak, "losses": whole.losses,
+               "ln_vocab": math.log(whole.model.cfg.vocab_size),
+               "grad_norms": whole.grad_norms}
+
+    # one save and one restore of the full (params, opt_state); the
+    # uninterrupted run stays on the card for the resumed run's check
+    part = train.train_lm(train.parse_args(
+        base + ["--steps", str(LM_TRAIN_RESUME_AT)]), dev)
+    tree, tree_s = host_s(lambda: convert.lm_train_tree(part.model,
+                                                        part.opt_state))
+    del part
+    free()
+    path, save_s = host_s(lambda: ckpt.save(str(ck_dir), LM_TRAIN_RESUME_AT,
+                                            tree))
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    (restored, _, at), restore_s = host_s(
+        lambda: ckpt.restore_with_fallback(str(ck_dir), tree))
+    bitwise = at == LM_TRAIN_RESUME_AT and all(
+        torch.equal(x, y) for x, y in zip(ckpt.leaves(restored),
+                                          ckpt.leaves(tree)))
+    del restored, tree
+    gc.collect()
+    # train_lm resumes from the checkpoint and runs to LM_TRAIN_STEPS
+    resumed = train.train_lm(train.parse_args(
+        base + ["--steps", str(LM_TRAIN_STEPS), "--ckpt-dir", str(ck_dir),
+                "--ckpt-every", str(10 * LM_TRAIN_STEPS)]), dev)
+    want = granite["losses"][LM_TRAIN_RESUME_AT:]
+    resume_diff = max(abs(x - y) for x, y in zip(resumed.losses, want))
+    state_diff = _state_diff(resumed, whole)
+    granite["checkpoint"] = {
+        "tree_to_host_s": tree_s, "save_s": save_s, "restore_s": restore_s,
+        "bytes": nbytes, "arrays": len(list(Path(path).glob("arr_*.npy"))),
+        "restored_bitwise": bitwise}
+    granite["resume"] = {"start": resumed.start, "losses": resumed.losses,
+                         "uninterrupted": want, "max_abs_diff": resume_diff,
+                         "tol": LM_RESUME_TOL, "state": state_diff}
+    del resumed
+    shutil.rmtree(ck_dir)
+    free()
+
+    # the device-busy share of one more step, then the step's parts on
+    # the host clock: forward alone, forward and backward (the recompute
+    # included), the optimizer
+    step = dryrun.build_train_step(whole.model.cfg, opt_cfg)
+    batch = TokenPipeline(whole.model.cfg.vocab_size, b, s,
+                          args.seed).batch_at(LM_TRAIN_STEPS, dev)
+    busy = _device_busy(lambda: step(whole.model, whole.opt_state, batch))
+    busy["busy_share"] = (None if busy["device_ms"] is None
+                          else busy["device_ms"] / steady)
+    model, params = whole.model, dict(whole.model.named_parameters())
+    with torch.no_grad():
+        fwd_s = host_s(lambda: model.train_loss(batch))[1]
+
+    def fwd_bwd():
+        model.train_loss(batch)[0].backward()
+
+    fwd_bwd_s = host_s(fwd_bwd)[1]
+    # [1] alone: apply returns the parameters and the state, which would
+    # otherwise stay alive into the qwen3-4b run
+    opt_s = host_s(lambda: opt_lib.apply(
+        opt_cfg, whole.opt_state, params,
+        {k: p.grad for k, p in params.items()}))[1]
+    model.zero_grad(set_to_none=True)
+    granite["profiled_step"] = busy
+    granite["split"] = {"forward_ms": fwd_s * 1e3,
+                        "forward_backward_ms": fwd_bwd_s * 1e3,
+                        "optimizer_ms": opt_s * 1e3}
+    del model, params, whole, step, batch
+    free()
+
+    # qwen3-4b: remat "full", bf16 moments
+    bb, bs = LM_TRAIN_BIG_SHAPE
+    cfg = get_arch(LM_TRAIN_BIG_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    opt_cfg = opt_lib.OptConfig(warmup_steps=20, total_steps=LM_TRAIN_BIG_STEPS,
+                                moment_dtype="bfloat16")
+    state = opt_lib.init(opt_cfg, dict(model.named_parameters()))
+    step = dryrun.build_train_step(cfg, opt_cfg)
+    pipe = TokenPipeline(cfg.vocab_size, bb, bs, 0)
+    losses, big_ms = [], []
+    for i in range(LM_TRAIN_BIG_STEPS):
+        batch = pipe.batch_at(i, dev)
+        (model, state, m), sec = host_s(lambda: step(model, state, batch))
+        losses.append(float(m["loss"]))
+        big_ms.append(sec * 1e3)
+    big_steady = _warm_median(big_ms)
+    qwen = {"arch": LM_TRAIN_BIG_ARCH, "layers": cfg.num_layers,
+            "batch": bb, "seq": bs, "steps": LM_TRAIN_BIG_STEPS,
+            "remat_policy": cfg.remat_policy,
+            "moment_dtype": opt_cfg.moment_dtype,
+            **_train_bound_ms(model, bb * bs, 2), "step_ms": big_ms,
+            "ms_per_step": big_steady, "ms_statistic": "median of steps 2-",
+            "tokens_per_s": bb * bs / big_steady * 1e3,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "losses": losses}
+    qwen["bound_share"] = qwen["bound_ms"] / big_steady
+    del model, state, step, batch, m
+    free()
+    counts = launch_counts()
+    failed = []
+    if not bitwise:
+        failed.append("the restored (params, opt_state) differs from the saved")
+    if granite["resume"]["start"] != LM_TRAIN_RESUME_AT or not (
+            resume_diff <= LM_RESUME_TOL and state_diff["step_equal"]
+            and max(state_diff[k] for k in ("params", "mu", "nu"))
+            <= REL_TOL):
+        failed.append(f"resume: {granite['resume']}")
+    if not all(math.isfinite(x) for x in losses):
+        failed.append(f"{LM_TRAIN_BIG_ARCH} losses {losses}")
+    emit({"phase": "lm_train", "granite": granite, "qwen": qwen, "gpu": gpu,
+          "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"lm_train: {failed}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4615,7 +4983,13 @@ def main() -> int:
     # ---- 33. the LM substrate's SSM, hybrid and enc-dec serving paths -----
     counts_lm_ssm = lm_ssm_phase(dev, gpu)
 
-    # ---- 34. kernel list -------------------------------------------------
+    # ---- 34. the paper's training loop --------------------------------------
+    counts_train_sped = train_sped_phase(dev, gpu)
+
+    # ---- 35. LM training -----------------------------------------------------
+    counts_lm_train = lm_train_phase(dev, gpu)
+
+    # ---- 36. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -4626,7 +5000,7 @@ def main() -> int:
                  counts_mdp, counts_mdp_full, counts_cliques,
                  counts_series_degree, counts_transforms, counts_linkpred,
                  counts_walks_paper, counts_lm_serve, counts_lm_moe,
-                 counts_lm_ssm)
+                 counts_lm_ssm, counts_train_sped, counts_lm_train)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

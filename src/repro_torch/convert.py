@@ -23,6 +23,7 @@ from repro_torch.models.model import Model
 from repro_torch.spectral.probes import ProbeResult
 from repro_torch.stream.graph_store import EdgeBatch, GraphStore
 from repro_torch.stream.updates import EigenEstimate
+from repro_torch.train.optimizer import OptState
 
 _BACKEND_NAMES = {"pallas": "kernel"}
 
@@ -165,12 +166,53 @@ def _flat_tree(tree: dict, prefix: str = "") -> dict:
         if isinstance(value, dict):
             out.update(_flat_tree(value, f"{prefix}{key}."))
         else:
-            out[prefix + key] = np.asarray(value)
+            out[prefix + key] = value
     return out
 
 
 # the layer stacks of the JAX package's LM tree (vmapped init, axis 0)
 _STACKED = ("layers", "ssm_layers", "enc_layers")
+
+
+def lm_named_from_tree(tree: dict) -> dict:
+    """The JAX package's LM tree (nested dicts; each of ``_STACKED``
+    stacked on axis 0) as leaves keyed by the port's parameter names,
+    each stacked leaf split into ``<stack>.<i>.<rest>``.  Holds for any
+    tree of that shape: the parameters, the moments, the residuals."""
+    named = {}
+    for name, arr in _flat_tree(tree).items():
+        stack, _, rest = name.partition(".")
+        if stack in _STACKED:
+            for i in range(arr.shape[0]):
+                named[f"{stack}.{i}.{rest}"] = arr[i]
+        else:
+            named[name] = arr
+    return named
+
+
+def lm_tree_from_named(named: dict) -> dict:
+    """``lm_named_from_tree``'s inverse: tensors keyed by the port's
+    parameter names -> the JAX package's nested tree, each of
+    ``_STACKED`` stacked on axis 0 (``torch.stack``, on the tensors'
+    device)."""
+    flat: dict = {}
+    for name, t in named.items():
+        stack, _, rest = name.partition(".")
+        if stack in _STACKED:
+            i, _, rest = rest.partition(".")
+            flat.setdefault(f"{stack}.{rest}", {})[int(i)] = t
+        else:
+            flat[name] = t
+    tree: dict = {}
+    for name, t in flat.items():
+        if isinstance(t, dict):
+            t = torch.stack([t[i] for i in range(len(t))])
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return tree
 
 
 def lm_params_from_numpy(cfg: ArchConfig, params: dict, device=None) -> Model:
@@ -179,14 +221,7 @@ def lm_params_from_numpy(cfg: ArchConfig, params: dict, device=None) -> Model:
     stacks each of ``_STACKED`` on axis 0, unstacked here into
     ``<stack>.<i>``; the hybrid's ``shared_attn`` is one block in both).
     Raises on a missing or extra key and on any shape mismatch."""
-    flat = {}
-    for name, arr in _flat_tree(params).items():
-        stack, _, rest = name.partition(".")
-        if stack in _STACKED:
-            for i, layer in enumerate(arr):
-                flat[f"{stack}.{i}.{rest}"] = layer
-        else:
-            flat[name] = arr
+    flat = {name: np.asarray(a) for name, a in lm_named_from_tree(params).items()}
     model = Model(cfg, device=device)
     own = dict(model.named_parameters())
     if own.keys() != flat.keys():
@@ -205,22 +240,44 @@ def lm_params_from_numpy(cfg: ArchConfig, params: dict, device=None) -> Model:
 def lm_params_to_numpy(model: Model) -> dict:
     """The model's parameters as the JAX package's tree: nested dicts of
     numpy arrays, each of ``_STACKED`` stacked on axis 0."""
-    flat: dict = {}
-    for name, param in model.named_parameters():
-        arr = param.detach().cpu().numpy()
-        stack, _, rest = name.partition(".")
-        if stack in _STACKED:
-            i, _, rest = rest.partition(".")
-            flat.setdefault(f"{stack}.{rest}", {})[int(i)] = arr
-        else:
-            flat[name] = arr
-    tree: dict = {}
-    for name, arr in flat.items():
-        if isinstance(arr, dict):
-            arr = np.stack([arr[i] for i in range(len(arr))])
-        node = tree
-        *path, leaf = name.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = arr
-    return tree
+    tree = lm_tree_from_named({name: p.detach().cpu()
+                               for name, p in model.named_parameters()})
+    return _map_dict(lambda t: t.numpy(), tree)
+
+
+def _map_dict(fn, tree: dict) -> dict:
+    return {k: _map_dict(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def lm_train_tree(model: Model, opt_state: OptState) -> tuple:
+    """(params, opt_state) as the JAX package's training tree, on the
+    CPU: ``(params, OptState(step, mu, nu, error))``, each of the dicts
+    stacked as ``lm_tree_from_named`` stacks it (``error`` None without
+    compression).  ``train.checkpoint`` saves it in ``repro``'s leaf
+    order."""
+
+    def tree(named):
+        return lm_tree_from_named({k: t.detach().cpu() for k, t in named.items()})
+
+    return (tree(dict(model.named_parameters())), OptState(
+        step=opt_state.step.cpu(), mu=tree(opt_state.mu),
+        nu=tree(opt_state.nu),
+        error=None if opt_state.error is None else tree(opt_state.error)))
+
+
+def load_lm_train_tree(model: Model, opt_state: OptState, tree) -> OptState:
+    """Copy a tree of ``lm_train_tree``'s form into the model's
+    parameters and ``opt_state``'s moments and residuals, in place;
+    returns the state with the tree's step."""
+    params, state = tree
+    pairs = [(dict(model.named_parameters()), params),
+             (opt_state.mu, state.mu), (opt_state.nu, state.nu)]
+    if opt_state.error is not None:
+        pairs.append((opt_state.error, state.error))
+    with torch.no_grad():
+        for dst, src in pairs:
+            src = lm_named_from_tree(src)
+            for name, t in dst.items():
+                t.copy_(src[name])
+    return opt_state._replace(step=state.step.to(opt_state.step.device))

@@ -17,13 +17,22 @@ package's tree with each stacked layer axis unrolled into
 ``layers.<i>``, ``ssm_layers.<i>`` or ``enc_layers.<i>``; the hybrid's
 ``shared_attn`` is one block, unstacked, as there
 (``convert.lm_params_from_numpy`` carries a JAX tree across).
+
+``cfg.remat_policy`` sets what ``train_loss`` keeps for the backward
+pass, block by block (``torch.utils.checkpoint``): "full" (the default)
+keeps a block's input and runs the block again, "dots" keeps the
+products' outputs, "none" keeps everything.  As in the JAX package, the
+hybrid's groups and the encoder always remat in full.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -43,6 +52,43 @@ def _hybrid_layout(cfg: ArchConfig):
     per_group = cfg.attn_every - 1
     trailing = cfg.num_layers - n_groups * cfg.attn_every
     return n_groups, per_group, trailing
+
+
+# the products whose outputs the "dots" policy keeps (JAX's checkpoint_dots
+# keeps every dot_general's)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(policy: str, fn, *args):
+    """fn(*args) under a remat policy: "full" keeps only the inputs and
+    runs fn again in the backward pass, "dots" keeps the products'
+    outputs and recomputes the rest, "none" keeps everything.  Without
+    autograd (serving) fn just runs."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+def _train_blocks(blocks: list, x, crosses: list):
+    """x through ``blocks`` (each with its cross (k, v) or None);
+    returns (x, the blocks' aux losses stacked)."""
+    auxs = []
+    for blk, cross in zip(blocks, crosses):
+        x, _, aux = blk.block_train(x, cross)
+        auxs.append(aux)
+    return x, torch.stack(auxs)
 
 
 class ServeState(NamedTuple):
@@ -131,12 +177,16 @@ class Model(nn.Module):
         """The whisper encoder over the stub frame embeddings: non-causal
         attention blocks, then enc_norm."""
         cfg = self.cfg
-        x = frames.to(layers.COMPUTE_DTYPE)
-        for blk in self.enc_layers:
+
+        def layer(blk, x):
             h = rmsnorm(blk.pre_norm, x, cfg.rms_eps)
             a, _ = attn.gqa_train(blk.attn, cfg, h, causal=False)
             x = x + a
-            x = x + mlp(blk.mlp, rmsnorm(blk.post_norm, x, cfg.rms_eps))
+            return x + mlp(blk.mlp, rmsnorm(blk.post_norm, x, cfg.rms_eps))
+
+        x = frames.to(layers.COMPUTE_DTYPE)
+        for blk in self.enc_layers:  # the encoder always remats in full
+            x = _remat("full", layer, blk, x)
         return rmsnorm(self.enc_norm, x, cfg.rms_eps)
 
     def _cross_kvs(self, batch: dict) -> list | None:
@@ -173,16 +223,35 @@ class Model(nn.Module):
             cnt = cnt + torch.sum(valid)
         return tot / torch.clamp(cnt, min=1.0)
 
+    def _remat_units(self) -> list:
+        """``_blocks()`` cut into units of remat, each (entries, policy):
+        one block a unit under ``cfg.remat_policy``, but the hybrid's
+        groups (SSM layers, then the shared block) are one unit each,
+        remat in full whatever the policy, as in the JAX package; its
+        trailing layers follow the policy."""
+        entries, policy = self._blocks(), self.cfg.remat_policy
+        if self.cfg.family != "hybrid":
+            return [([e], policy) for e in entries]
+        n_groups, per_group, _ = _hybrid_layout(self.cfg)
+        size = per_group + 1
+        grouped = n_groups * size
+        return ([(entries[s:s + size], "full") for s in range(0, grouped, size)]
+                + [([e], policy) for e in entries[grouped:]])
+
     def train_loss(self, batch: dict, aux_weight: float = 0.01):
         """(xent + aux_weight * aux, {"xent", "aux"}): aux is the MoE
-        load-balancing loss summed over the layers, 0 for other blocks."""
+        load-balancing loss summed over the layers, 0 for other blocks.
+        Under autograd each unit of ``_remat_units`` runs under its remat
+        policy; the policy moves no value."""
         x = self._input_embeddings(batch)
         cross = self._cross_kvs(batch)
         auxs = []
-        for blk, _, i in self._blocks():
-            x, _, aux = blk.block_train(x, None if cross is None else cross[i])
+        for unit, policy in self._remat_units():
+            crosses = [None if cross is None else cross[i] for _, _, i in unit]
+            x, aux = _remat(policy, _train_blocks, [b for b, _, _ in unit], x,
+                            crosses)
             auxs.append(aux)
-        aux = torch.stack(auxs).sum()
+        aux = torch.cat(auxs).sum()
         h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
         loss = self._chunked_xent(h, batch["labels"])
         return loss + aux_weight * aux, {"xent": loss, "aux": aux}

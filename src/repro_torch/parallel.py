@@ -56,13 +56,17 @@ from repro_torch.device import resolve_device
 _GROUPS: "weakref.WeakKeyDictionary[DeviceMesh, dict]" = weakref.WeakKeyDictionary()
 
 
-def make_mesh(axis_shapes, axis_names, device=None) -> DeviceMesh:
+def make_mesh(axis_shapes, axis_names, device=None, ranks=None) -> DeviceMesh:
     """A mesh of the world's ranks in row-major order, with named axes
     (``repro.compat.make_mesh``'s counterpart); ``device`` (``None`` =
     the card) names the mesh's device type.  The world must be
-    initialized and hold ``prod(axis_shapes)`` ranks."""
-    ranks = torch.arange(math.prod(axis_shapes)).reshape(tuple(axis_shapes))
-    return DeviceMesh(resolve_device(device).type, ranks,
+    initialized and hold ``prod(axis_shapes)`` ranks, or the
+    ``prod(axis_shapes)`` ``ranks`` given (a subset of the world, laid
+    out in their order)."""
+    if ranks is None:
+        ranks = range(math.prod(axis_shapes))
+    layout = torch.tensor(list(ranks), dtype=torch.int64).reshape(tuple(axis_shapes))
+    return DeviceMesh(resolve_device(device).type, layout,
                       mesh_dim_names=tuple(axis_names))
 
 

@@ -1133,3 +1133,104 @@ def test_lm_repeated_prefill_is_bitwise(dev, arch):
     first, _ = card.prefill(on_card)
     second, _ = card.prefill(on_card)
     assert torch.equal(first, second)
+
+
+# --------------------------------------------------------------------------
+# training (launch/train.py, launch/dryrun.py, train/)
+# --------------------------------------------------------------------------
+
+LM_GRAD_TOL = 1e-5  # of each leaf's largest |g|
+
+
+def _train_batch(cfg, seed: int = 1, b: int = 2, s: int = 32):
+    from repro_torch.models.frontends import synthetic_frontend
+
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         dtype=torch.int32)
+    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
+            **synthetic_frontend(gen, cfg, b)}
+
+
+def _grads_close(got: dict, want: dict) -> float:
+    """The largest |got - want| of a leaf over that leaf's largest |want|."""
+    worst = 0.0
+    for name, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        diff = got[name].detach().cpu() - w.detach().cpu()
+        worst = max(worst, float(diff.abs().max()) / scale)
+    return worst
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m"])
+def test_lm_train_step_on_the_card_matches_cpu(dev, arch, monkeypatch):
+    """smoke_config in f32 (COMPUTE_DTYPE patched): train_loss and its
+    gradients (1e-4; 1e-5 of each leaf's largest |g|), then two steps of
+    build_train_step (losses 1e-4, gradient norms 1e-4 of their size),
+    card against CPU from one set of weights.  Parameters after a step
+    are not compared: Adam's first updates are sign-like."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer as opt
+
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    cfg, cpu, card, _ = _lm_smoke(arch)
+    batch = _train_batch(cfg)
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    loss_cpu, _ = cpu.train_loss(batch)
+    loss_card, _ = card.train_loss(on_card)
+    loss_cpu.backward()
+    loss_card.backward()
+    assert abs(float(loss_card.detach()) - float(loss_cpu.detach())) <= LM_F32_TOL
+    assert _grads_close({k: p.grad for k, p in card.named_parameters()},
+                        {k: p.grad for k, p in cpu.named_parameters()}) <= LM_GRAD_TOL
+    ocfg = opt.OptConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    step = dryrun.build_train_step(cfg, ocfg)
+    states = [opt.init(ocfg, dict(m.named_parameters())) for m in (cpu, card)]
+    for i in range(2):
+        b2 = _train_batch(cfg, seed=10 + i)
+        _, states[0], want = step(cpu, states[0], b2)
+        _, states[1], got = step(card, states[1],
+                                 {k: v.to(dev) for k, v in b2.items()})
+        assert abs(float(got["loss"]) - float(want["loss"])) <= LM_F32_TOL, i
+        assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= (
+            LM_F32_TOL * float(want["grad_norm"])), i
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-1.2b",
+                                  "whisper-small"])
+def test_remat_policies_on_the_card(dev, arch):
+    """bf16 train_loss under "none", "full" and "dots" on the card: the
+    loss bitwise, the gradients within 1e-5 of each leaf's largest |g|
+    (the backward's scatter-adds may order their sums differently from
+    run to run)."""
+    import copy
+
+    cfg, _, card, _ = _lm_smoke(arch)
+    batch = {k: v.to(dev) for k, v in _train_batch(cfg).items()}
+    runs = {}
+    for policy in ("none", "full", "dots"):
+        model = copy.deepcopy(card)
+        model.cfg = dataclasses.replace(cfg, remat_policy=policy)
+        loss, _ = model.train_loss(batch)
+        loss.backward()
+        runs[policy] = (loss.detach(), {k: p.grad for k, p in model.named_parameters()})
+    for policy in ("full", "dots"):
+        assert torch.equal(runs[policy][0], runs["none"][0]), policy
+        assert _grads_close(runs[policy][1], runs["none"][1]) <= LM_GRAD_TOL, policy
+
+
+def test_sped_training_resumes_bitwise_on_the_card(dev, tmp_path):
+    """train_sped on the card (K1 once per drawn factor): resumed from its
+    step-200 checkpoint it ends bitwise where the uninterrupted run ends
+    (K1 and the seeded CUDA generator repeat bitwise)."""
+    from repro_torch.launch import train
+
+    args = ["--mode", "sped", "--steps", "250", "--nodes", "150",
+            "--clusters", "3", "--ckpt-dir", str(tmp_path / "ck")]
+    reset_launch_counts()
+    full = train.train_sped(train.parse_args(args), dev)
+    assert launch_counts()["edge_spmm"] == 250 * 51
+    resumed = train.train_sped(train.parse_args(args), dev)
+    assert resumed.steps == 50 and torch.equal(resumed.v, full.v)
+    assert full.accuracy == 1.0
