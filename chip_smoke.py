@@ -111,7 +111,7 @@ outside a checkout.  Phases, one JSON line each:
              tick, push/labels p50/p99, the flush wall, tick_utilization,
              counters, the labels path split (k-means, copy, tracker),
              the staging merge at B = 4,096, peak memory
-19. sharded_small - phase 3's clique solve on 4 ranks of this card
+19. sharded_small - phase 3's clique solve on 2 ranks of this card
              (torch.distributed over gloo; NCCL refuses two ranks on one
              GPU) through core.distributed.distributed_solve, K1 on each
              rank's shard and one all_reduce per factor, cut to 40 steps:
@@ -267,7 +267,31 @@ outside a checkout.  Phases, one JSON line each:
              "full", bf16 moments, 4 steps of 4 x 1024 through
              dryrun.build_train_step: ms a step, peak bytes (both models'
              ms a step the median of the steps after the first)
-36. kernels - per kernel: launches on the main path (phases 3-35 but the
+36. lm_mesh - the LM mesh path: granite-moe-1b-a400m at full width and
+             depth on a (2, 2) ("data", "model") mesh of 4 gloo ranks on
+             this card (models.sharding.set_mesh, model.shard_model: 16
+             experts, 2 rows and half of every cache's positions a rank),
+             4 x 512 prompts and 32 decode steps, caches of 544 positions
+             (positions 0-271 on model rank 0, 272-543 on model rank 1):
+             context-parallel decode (three all_reduces a layer), the
+             expert-sharded MoE (one all_reduce of the partial combine,
+             one of aux's mean), the logits gathered over "data".  Held in
+             f32 compute to the one-process port on each 2-row half
+             (1e-4 of the largest |logit|, every call; aux 1e-5); bf16
+             printed at 1, 2 and 24 layers (24: the prefill and 4 steps)
+             with its routing flips, held at 1 layer (rtol = atol = 6e-2).  Per rank: memory_allocated
+             of the sharded parameters and of the caches beside one
+             process's, ms a prefill and a decode step (CUDA events and
+             host clock), all_reduce calls and host ms a step
+37. dryrun_report - launch.dryrun.run_cell over all ten archs x four
+             shapes x both production meshes (80 cells, skipped cells
+             included): GB a rank (params, optimizer, caches, batch) and
+             fits; then the reckoning (dryrun.reckon) on a one-rank local
+             mesh held to the card's allocation of the same parameters,
+             OptState, batch and caches: granite train 8 x 1024 (f32
+             moments) and decode 4 x 544, the bytes requested within 512
+             bytes a tensor, memory_allocated's growth beside them
+38. kernels - per kernel: launches on the main path (phases 3-37 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -376,6 +400,11 @@ SERVE_TIMEOUT_S = 300.0
 # to 40 of phase small's 600 steps, 3 solver steps at 2^20, the
 # split's repetitions, the service's ranks, tenant 0's capacity class
 SHARDED_RANKS = 4
+# the clique solve's 10,040 factors each take an all_reduce, which costs
+# ~1 ms on 2 ranks of one card and ~4.5 ms on 4: 2 ranks keep the script
+# inside its time limit on a slower host (an H100 machine: 135.5 s on 4
+# ranks, 32.4 s on 2)
+SHARDED_SMALL_RANKS = 2
 SHARDED_SMALL_STEPS = 40
 SHARDED_SOLVE_STEPS = 3
 SHARDED_SPLIT_REPS = 5
@@ -541,8 +570,56 @@ LM_TRAIN_BIG_SHAPE = (4, 1024)
 LM_TRAIN_BIG_STEPS = 4
 LM_RESUME_TOL = 1e-4
 
+# the LM mesh (lm_mesh): granite-moe-1b-a400m at full width and depth on
+# LM_MESH_SHAPE ("data", "model") = 4 gloo ranks sharing the card (each
+# holds 16 of the 32 experts, 2 of the 4 rows and half of every KV cache's
+# positions), fed lm_moe's traffic: LM_MESH_RUN (batch, prompt, decode
+# steps), caches of prompt + steps positions.  In f32 compute each rank's
+# logits (the prefill's and every step's) are held to the one-process
+# port's on each data half (the dispatch groups of the mesh) at
+# LM_MESH_TOL of their largest magnitude, and each layer's aux (the mean
+# over the halves) at LM_MESH_AUX_TOL; bf16 compute is printed beside it
+# with the routing flips, and held at LM_BF16_TOL (rtol = atol) at the
+# depth where it holds.  dryrun_report: the cell report of every arch x
+# shape x production mesh (80 cells), then the meta reckoning held to the
+# card's own allocation on a one-rank local mesh at two cells that fit
+# one card: granite train at lm_train's LM_TRAIN_SHAPE with f32 moments,
+# and decode at LM_MESH_RUN's batch and context: the bytes the tensors
+# request from the caching allocator within DRYRUN_ALLOC_SLACK bytes a
+# tensor (the int32 step and the caches' lengths, which the port keeps as
+# Python ints), memory_allocated's growth printed beside them (the
+# allocator hands out whole blocks: rounded to 512 bytes, and a large
+# block's remainder under 1 MB is not split off)
+LM_MESH_ARCH = "granite-moe-1b-a400m"
+LM_MESH_SHAPE = (2, 2)
+LM_MESH_RUN = (4, 512, 32)
+LM_MESH_TOL = 1e-4
+LM_MESH_AUX_TOL = 1e-5
+# (name, compute dtype, depth, decode steps): bf16 is printed at each
+# depth with its routing flips (at full depth for the prefill and
+# LM_MESH_BF16_STEPS steps: its routings have parted there) and held to
+# LM_BF16_TOL (rtol = atol) at LM_MESH_BF16_DEPTH, the deepest where it
+# holds: at 2 layers the two computation orders' bf16 rounding flips 44
+# of the prefill's 4,096 routings (bar use 13.1; 0.45 at 1 layer;
+# PERF.md section 5)
+LM_MESH_BF16_DEPTH = 1
+LM_MESH_BF16_STEPS = 4
+LM_MESH_RUNS = (("f32", "float32", None, LM_MESH_RUN[2]),
+                ("bf16", "bfloat16", None, LM_MESH_BF16_STEPS),
+                ("bf16_depth1", "bfloat16", 1, LM_MESH_RUN[2]),
+                ("bf16_depth2", "bfloat16", 2, LM_MESH_RUN[2]))
+LM_MESH_TIMEOUT_S = 600.0
+DRYRUN_ALLOC_SLACK = 512
+
+
+_T0 = time.perf_counter()
+
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t``, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -3303,9 +3380,423 @@ def lm_train_phase(dev, gpu: str) -> dict:
     return counts
 
 
+def _timed(fn):
+    """(fn's value, CUDA-event ms, host-clock ms) of one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    value = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return value, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def _lm_mesh_serve(model, tokens, fed, max_seq: int, mesh=None) -> dict:
+    """A prefill of ``tokens`` and a decode step per entry of ``fed``
+    (fed[t] the tokens of step t, or None: the run's own argmax), under
+    ``mesh`` where given: the logits of every call on the CPU, each
+    layer's routing and aux after every call, ms a call (CUDA events and
+    host clock), the collectives of each decode step, the caches' bytes."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import sharding
+
+    ctx = sharding.set_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    out = {"logits": [], "routing": [], "aux": [], "event_ms": [],
+           "host_ms": [], "collectives": []}
+    with ctx:
+        for t in range(len(fed) + 1):
+            sharding.reset_collective_stats()
+            if t == 0:
+                (logits, state), ev, host = _timed(lambda: model.prefill(
+                    {"tokens": tokens}, max_seq=max_seq))
+                out["cache_bytes"] = _lm_cache_bytes(state)
+                out["allocated_after_prefill"] = torch.cuda.memory_allocated()
+            else:
+                tok = (fed[t - 1] if fed[t - 1] is not None
+                       else out["logits"][-1].argmax(-1, keepdim=True).int())
+                (logits, state), ev, host = _timed(lambda: model.decode_step(
+                    state, tok.to(tokens.device)))
+            out["collectives"].append(sharding.collective_stats())
+            out["logits"].append(logits.cpu())
+            out["routing"].append(_lm_routing(model))
+            out["aux"].append([float(blk.moe_stats.aux) for blk in model.layers])
+            out["event_ms"].append(ev)
+            out["host_ms"].append(host)
+    return out
+
+
+def lm_mesh_rank(dev, tokens, fed: dict, max_seq: int) -> dict:
+    """One rank of phase lm_mesh: granite drawn from LM_SEED on the card,
+    its experts sharded over "model" (model.shard_model), then lm_moe's
+    prefill and decode steps under the (2, 2) mesh in f32 and bf16
+    compute, fed ``fed[dtype]``'s tokens; its memory and times."""
+    import hashlib
+
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, layers
+    from repro_torch.models.model import shard_model
+
+    cfg = get_arch(LM_MESH_ARCH)
+    mesh = parallel.make_mesh(LM_MESH_SHAPE, ("data", "model"), dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+    whole = torch.cuda.memory_allocated() - base
+    shard_model(model, mesh)
+    torch.cuda.synchronize()
+    params_bytes = torch.cuda.memory_allocated() - base
+    out = {"coord": [int(c) for c in mesh.get_coordinate()],
+           "params": sum(p.numel() for p in model.parameters()),
+           "allocated_params_bytes": params_bytes,
+           "allocated_whole_model_bytes": whole}
+    toks = torch.from_numpy(tokens).to(dev)
+    _lm_mesh_serve(model, toks[:, :15], [None], 16, mesh)  # warm-up
+    saved = layers.COMPUTE_DTYPE
+    try:
+        for name, dtype, depth, _ in LM_MESH_RUNS:
+            layers.COMPUTE_DTYPE = getattr(torch, dtype)
+            run = _lm_mesh_serve(_lm_view(model, depth), toks,
+                                 [torch.from_numpy(f) for f in fed[name]],
+                                 max_seq, mesh)
+            run["allocated_caches_bytes"] = (run.pop("allocated_after_prefill")
+                                             - base - params_bytes)
+            logits = torch.stack(run["logits"])
+            run["logits_sha256"] = hashlib.sha256(
+                logits.numpy().tobytes()).hexdigest()
+            if out["coord"] != [0, 0]:
+                del run["logits"]  # every rank holds the gathered logits
+            else:
+                run["logits"] = logits
+            out[name] = run
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    return out
+
+
+def lm_mesh_phase(dev, gpu: str) -> dict:
+    """Phase lm_mesh (see the module docstring).  Returns the launch
+    counts of the port's kernels over the phase (none runs on it)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model, layers
+
+    reset_launch_counts()
+    cfg = get_arch(LM_MESH_ARCH)
+    b, s, g = LM_MESH_RUN
+    max_seq = s + g
+    half = b // LM_MESH_SHAPE[0]
+    tokens = np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (b, s), dtype=np.int32)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+    one = {"params": sum(p.numel() for p in model.parameters()),
+           "allocated_params_bytes": torch.cuda.memory_allocated() - base}
+    toks = torch.from_numpy(tokens).to(dev)
+    _lm_mesh_serve(model, toks[:, :15], [None], 16)  # warm-up
+    refs, fed = {}, {}
+    saved = layers.COMPUTE_DTYPE
+    try:
+        for name, dtype, depth, steps in LM_MESH_RUNS:
+            layers.COMPUTE_DTYPE = getattr(torch, dtype)
+            # the reference: each data half alone (one dispatch group each)
+            halves = [_lm_mesh_serve(_lm_view(model, depth),
+                                     toks[i * half:(i + 1) * half],
+                                     [None] * steps, max_seq)
+                      for i in range(LM_MESH_SHAPE[0])]
+            fed[name] = [np.concatenate([h["logits"][t].argmax(-1, keepdim=True)
+                                         .int().numpy() for h in halves])
+                         for t in range(steps)]
+            refs[name] = halves
+            if name == "bf16":  # the one-process serving time at 4 rows
+                whole = _lm_mesh_serve(model, toks, [None] * g, max_seq)
+                one.update(prefill_ms=whole["event_ms"][0],
+                           decode_ms_per_step=_warm_median(whole["event_ms"]),
+                           decode_host_ms_per_step=_warm_median(whole["host_ms"]),
+                           cache_bytes=whole["cache_bytes"],
+                           allocated_caches_bytes=whole["allocated_after_prefill"]
+                           - base - one["allocated_params_bytes"])
+                del whole
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    results, wall = host_s(lambda: parallel.run_ranks(
+        LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1], lm_mesh_rank, tokens, fed,
+        max_seq, timeout=LM_MESH_TIMEOUT_S))
+    outs = [r.value for r in results]
+    failed = []
+    rows = {}
+    for name, _, depth, steps in LM_MESH_RUNS:
+        want = torch.stack([torch.cat([h["logits"][t] for h in refs[name]])
+                            for t in range(steps + 1)])
+        got = torch.from_numpy(outs[0][name]["logits"])
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        per_call = [float((got[t] - want[t]).abs().max()) / scale
+                    for t in range(steps + 1)]
+        aux_want = np.mean([np.asarray(h["aux"]) for h in refs[name]], axis=0)
+        aux_err = float(np.abs(np.asarray(outs[0][name]["aux"]) - aux_want).max())
+        flips = [0] * (steps + 1)  # a call's flipped (layer, token) routings
+        for out in outs:
+            if out["coord"][1]:
+                continue  # the model ranks of a data group route alike
+            i = out["coord"][0]
+            for call in range(steps + 1):
+                for got_r, want_r in zip(out[name]["routing"][call],
+                                         refs[name][i]["routing"][call]):
+                    flips[call] += int((np.asarray(got_r) != want_r.numpy())
+                                       .any(-1).sum())
+        digests = {o[name]["logits_sha256"] for o in outs}
+        rows[name] = {
+            "depth": depth or cfg.num_layers,
+            "bar_use_bf16": _bar_use(got, want, LM_BF16_TOL),
+            "max_abs_err": err, "largest_abs_logit": scale,
+            "rel_err": err / scale, "rel_err_prefill": per_call[0],
+            "rel_err_worst_step": max(per_call[1:]),
+            "aux_max_abs_err": aux_err,
+            "routing_flips_prefill": flips[0],
+            "routing_flips_decode": sum(flips[1:]),
+            "routings_prefill": b * s * (depth or cfg.num_layers),
+            "decode_steps": steps,
+            "routings_decode": steps * b * (depth or cfg.num_layers),
+            "ranks_logits_bitwise_equal": len(digests) == 1,
+            "ranks": [{
+                "coord": o["coord"],
+                "prefill_ms": o[name]["event_ms"][0],
+                "prefill_host_ms": o[name]["host_ms"][0],
+                "decode_ms_per_step": _warm_median(o[name]["event_ms"]),
+                "decode_host_ms_per_step": _warm_median(o[name]["host_ms"]),
+                "all_reduce_per_step": _warm_median(
+                    [c["all_reduce"] for c in o[name]["collectives"]]),
+                "all_gather_per_step": _warm_median(
+                    [c["all_gather"] for c in o[name]["collectives"]]),
+                "collective_host_ms_per_step": _warm_median(
+                    [c["seconds"] * 1e3 for c in o[name]["collectives"]]),
+                "prefill_all_reduce": o[name]["collectives"][0]["all_reduce"],
+                "prefill_collective_host_ms":
+                    o[name]["collectives"][0]["seconds"] * 1e3,
+                "cache_bytes": o[name]["cache_bytes"],
+                "allocated_caches_bytes": o[name]["allocated_caches_bytes"]}
+                for o in outs]}
+        if len(digests) != 1:
+            failed.append(f"{name}: the ranks' gathered logits differ")
+    f32 = rows["f32"]
+    if not f32["rel_err"] <= LM_MESH_TOL:
+        failed.append(f"f32 logits {f32['rel_err']} of the largest |logit| "
+                      f"> {LM_MESH_TOL}")
+    if not f32["aux_max_abs_err"] <= LM_MESH_AUX_TOL:
+        failed.append(f"f32 aux {f32['aux_max_abs_err']} > {LM_MESH_AUX_TOL}")
+    held = rows[f"bf16_depth{LM_MESH_BF16_DEPTH}"]
+    if not held["bar_use_bf16"] <= 1.0:
+        failed.append(f"bf16 at depth {LM_MESH_BF16_DEPTH}: bar use "
+                      f"{held['bar_use_bf16']} of {LM_BF16_TOL}")
+    for name, row in rows.items():
+        for o in row["ranks"]:
+            if (o["all_reduce_per_step"], o["all_gather_per_step"]) != (
+                    5 * row["depth"], 1):
+                failed.append(f"{name} rank {o['coord']}: "
+                              f"{o['all_reduce_per_step']} all_reduces and "
+                              f"{o['all_gather_per_step']} all_gathers a "
+                              f"step, not {5 * row['depth']} and 1")
+    counts = launch_counts()
+    emit({"phase": "lm_mesh", "arch": LM_MESH_ARCH, "mesh": LM_MESH_SHAPE,
+          "backend": "gloo", "run": LM_MESH_RUN, "max_seq": max_seq,
+          "bar": LM_MESH_TOL, "aux_bar": LM_MESH_AUX_TOL, "world_wall_s": wall,
+          "one_process": one,
+          "ranks": [{k: o[k] for k in ("coord", "params",
+                                      "allocated_params_bytes",
+                                      "allocated_whole_model_bytes")}
+                    for o in outs],
+          **rows, "gpu": gpu,
+          "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"lm_mesh: {failed}")
+    return counts
+
+
+def _requested_bytes() -> int:
+    """The bytes the live tensors on the card asked the caching allocator
+    for (each request's size before the allocator rounds it up)."""
+    import torch
+
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _allocated_vs_reckoned(build) -> dict:
+    """``build`` = [(part, make)], ``make()`` -> the part's tensors,
+    allocated on the card: each part's growth of the requested bytes
+    (what the tensors asked for) and of memory_allocated (the blocks the
+    allocator handed out), and its tensor count."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"requested": {}, "allocated": {}, "tensors": {}}
+    keep = []
+    for part, make in build:
+        req, alloc = _requested_bytes(), torch.cuda.memory_allocated()
+        tensors = make()
+        keep.append(tensors)
+        torch.cuda.synchronize()
+        out["requested"][part] = _requested_bytes() - req
+        out["allocated"][part] = torch.cuda.memory_allocated() - alloc
+        out["tensors"][part] = len(tensors)
+    del keep
+    return out
+
+
+def dryrun_report_phase(dev, gpu: str) -> dict:
+    """Phase dryrun_report (see the module docstring).  Returns the
+    launch counts of the port's kernels over the phase (none)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, SHAPES, get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model, sharding
+    from repro_torch.train import optimizer as opt_lib
+
+    reset_launch_counts()
+    budget = torch.cuda.get_device_properties(0).total_memory
+    t0 = time.perf_counter()
+    statuses = {}
+    for arch in sorted(ARCHS):
+        for shape in sorted(SHAPES):
+            for mp in (False, True):
+                rec = dryrun.run_cell(arch, shape, mp, budget_bytes=budget)
+                statuses[rec["status"]] = statuses.get(rec["status"], 0) + 1
+                line = {"phase": "dryrun_cell", "arch": arch, "shape": shape,
+                        "mesh": rec["mesh"], "status": rec["status"]}
+                if rec["status"] == "ok":
+                    m = rec["memory"]
+                    line.update(kind=rec["kind"], devices=rec["devices"],
+                                gb_a_rank=m["argument_bytes"] / 1e9,
+                                params_gb=m["params_bytes"] / 1e9,
+                                optimizer_gb=m["optimizer_bytes"] / 1e9,
+                                caches_gb=m["cache_bytes"] / 1e9,
+                                batch_gb=m["batch_bytes"] / 1e9,
+                                fits=m["fits"])
+                else:
+                    line["reason"] = rec.get("reason")
+                emit(line)
+    report_s = time.perf_counter() - t0
+
+    cfg = get_arch(LM_MESH_ARCH)
+    held = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=(Path(tmp) / "init").as_uri(),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(dev)
+            tb, ts = LM_TRAIN_SHAPE
+            want = dryrun.reckon(cfg, "train", tb, ts, mesh, opt_lib.OptConfig())
+            box = {}
+
+            def params():
+                box["model"] = Model(cfg, dev,
+                                     torch.Generator(device=dev).manual_seed(0))
+                return list(box["model"].parameters())
+
+            def optimizer():
+                box["opt"] = opt_lib.init(opt_lib.OptConfig(), dict(
+                    box["model"].named_parameters()))
+                return [box["opt"].step, *box["opt"].mu.values(),
+                        *box["opt"].nu.values()]
+
+            def train_batch():
+                return [torch.zeros((tb, ts), dtype=torch.int32, device=dev)
+                        for _ in range(2)]
+
+            got = _allocated_vs_reckoned([("params", params),
+                                               ("optimizer", optimizer),
+                                               ("batch", train_batch)])
+            held["train"] = (want, got)
+            box.clear()
+            torch.cuda.empty_cache()
+
+            db, ds, _ = LM_MESH_RUN
+            ds += LM_MESH_RUN[2]
+            want = dryrun.reckon(cfg, "decode", db, ds, mesh)
+
+            def bf16_params():
+                box["model"] = Model(cfg, dev, torch.Generator(
+                    device=dev).manual_seed(0)).to(torch.bfloat16)
+                return list(box["model"].parameters())
+
+            def caches():
+                with sharding.set_mesh(mesh):
+                    box["state"] = box["model"].init_caches(db, ds)
+                return [t for c in box["state"].caches
+                        for t in (c.k, c.v, c.k_scale, c.v_scale)
+                        if t is not None]
+
+            def decode_batch():
+                return [torch.zeros((db, 1), dtype=torch.int32, device=dev)]
+
+            got = _allocated_vs_reckoned([("params", bf16_params),
+                                               ("caches", caches),
+                                               ("batch", decode_batch)])
+            held["decode"] = (want, got)
+            box.clear()
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+    failed = []
+    rows = {}
+    keys = {"params": "params_bytes", "optimizer": "optimizer_bytes",
+            "caches": "cache_bytes", "batch": "batch_bytes"}
+    for cell, (want, got) in held.items():
+        row = {"reckoned": want, **got}
+        for part, n in got["tensors"].items():
+            diff = got["requested"][part] - want[keys[part]]
+            row[f"{part}_diff_bytes"] = diff
+            row[f"{part}_allocated_diff_bytes"] = (got["allocated"][part]
+                                                   - want[keys[part]])
+            if abs(diff) > DRYRUN_ALLOC_SLACK * n:
+                failed.append(f"{cell} {part}: requested "
+                              f"{got['requested'][part]}, reckoned "
+                              f"{want[keys[part]]} ({n} tensors)")
+        rows[cell] = row
+    counts = launch_counts()
+    emit({"phase": "dryrun_report", "cells": sum(statuses.values()),
+          "statuses": statuses, "report_s": report_s, "budget_bytes": budget,
+          "held": rows, "slack_bytes_a_tensor": DRYRUN_ALLOC_SLACK,
+          "gpu": gpu, "launches": counts, "failed": failed})
+    if sum(statuses.values()) != 80 or statuses.get("error"):
+        failed.append(f"cells: {statuses}")
+    if failed:
+        raise AssertionError(f"dryrun_report: {failed}")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
+
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4632,20 +5123,21 @@ def main() -> int:
         if counts_serve_full[name] <= 0:
             raise AssertionError(f"serve_full launched no {name}")
 
-    # ---- 19. the edge-sharded clique solve: 4 ranks on this card ----------
+    # ---- 19. the edge-sharded clique solve: 2 ranks on this card ----------
     # ranks of one card take gloo (NCCL refuses two ranks on one GPU); the
     # solve is phase small's but cut to SHARDED_SMALL_STEPS steps, since a
-    # factor costs a 4-rank all_reduce of ~4.5 ms here (at 20 steps one
+    # factor costs an all_reduce of ~1 ms (2 ranks) here (at 20 steps one
     # label of 160 still differed from phase small's on the card)
     torch.cuda.empty_cache()
     res_ss, ss_wall = host_s(lambda: parallel.run_ranks(
-        SHARDED_RANKS, sharded_small_rank, cfg_s, SHARDED_SMALL_STEPS,
+        SHARDED_SMALL_RANKS, sharded_small_rank, cfg_s, SHARDED_SMALL_STEPS,
         timeout=SHARDED_TIMEOUT_S))
     outs_ss = [r.value for r in res_ss]
     counts_sharded_small = parallel.sum_launches(o["launches"] for o in outs_ss)
     if not parallel.bitwise_equal([o["panel"] for o in outs_ss]):
         raise AssertionError("sharded_small: the ranks' panels differ")
-    emit({"phase": "sharded_small", "ranks": SHARDED_RANKS, "backend": "gloo",
+    emit({"phase": "sharded_small", "ranks": SHARDED_SMALL_RANKS,
+          "backend": "gloo",
           "n": 160, "degree": cfg_s.degree, "steps": SHARDED_SMALL_STEPS,
           "world_wall_s": ss_wall, "solve_and_kmeans_s": outs_ss[0]["seconds"],
           "agreement": outs_ss[0]["agreement"], "small_agreement": agreement,
@@ -4989,7 +5481,13 @@ def main() -> int:
     # ---- 35. LM training -----------------------------------------------------
     counts_lm_train = lm_train_phase(dev, gpu)
 
-    # ---- 36. kernel list -------------------------------------------------
+    # ---- 36. the LM mesh path ------------------------------------------------
+    counts_lm_mesh = lm_mesh_phase(dev, gpu)
+
+    # ---- 37. the dry-run's cell report ----------------------------------------
+    counts_dryrun = dryrun_report_phase(dev, gpu)
+
+    # ---- 38. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -5000,11 +5498,13 @@ def main() -> int:
                  counts_mdp, counts_mdp_full, counts_cliques,
                  counts_series_degree, counts_transforms, counts_linkpred,
                  counts_walks_paper, counts_lm_serve, counts_lm_moe,
-                 counts_lm_ssm, counts_train_sped, counts_lm_train)
+                 counts_lm_ssm, counts_train_sped, counts_lm_train,
+                 counts_lm_mesh, counts_dryrun)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:
             raise AssertionError(f"{name} was never launched on the main path")
+    emit({"phase": "total", "seconds": time.perf_counter() - _T0})
     emit({"kernels": list(kernels.values())})
     print(gpu, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,17 +9,27 @@ int8, quantized per (position, head) with f32 scales.  MLA caches the
 compressed (kv_lora + rope) latents, always bf16, and decodes with
 weight absorption: attention runs in the latent space and per-head K/V
 is never expanded.  A cache is written in place (index assignment) and
-its ``length`` is one Python int shared by the batch.  The mesh
-(context-parallel) decode is not ported yet.
+its ``length`` is one Python int shared by the batch.
+
+Under a mesh a GQA cache is context parallel: each rank holds its batch
+rows and one slice of the sequence (``KVCache.shard``, a ``SeqShard``),
+positions are written only where they are held, and the decode combines
+the ranks' partial softmaxes with three all_reduces over the "model"
+group (``_decode_attention_cp``).  A sequence that does not divide by the
+"model" extent is held whole on every rank and decodes by the plain
+path, as in the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import sharding
 from repro_torch.models.layers import (Params, apply_rope, dense_init,
                                        init_rmsnorm, rmsnorm)
 
@@ -138,6 +148,16 @@ def _broadcast_kv(k, h: int):
 # KV cache (bf16 or int8-quantized)
 # --------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A cache that holds positions [start, start + its length) of a
+    sequence of ``total``; the ranks of ``group`` (the "model" group)
+    hold the rest."""
+    start: int
+    total: int
+    group: Any
+
+
 @dataclasses.dataclass
 class KVCache:
     k: torch.Tensor  # (b, max_s, kv, dh)  cache dtype
@@ -145,12 +165,36 @@ class KVCache:
     k_scale: torch.Tensor | None  # (b, max_s, kv, 1) f32 when int8
     v_scale: torch.Tensor | None
     length: int  # filled positions, shared by the batch
+    shard: SeqShard | None = None  # the rank's sequence slice under a mesh
+
+
+def kv_layout(batch: int, max_seq: int):
+    """(rows, positions, SeqShard or None) a rank holds of a KV cache of
+    ``batch`` x ``max_seq`` under the mesh in context: its block of rows
+    where the batch divides by the data extent (else every row), and its
+    slice of the sequence over "model" where ``max_seq`` divides by the
+    model extent (else the whole sequence, decoded by the plain path).
+    Without a mesh: (batch, max_seq, None)."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return batch, max_seq, None
+    if sharding.batch_split(mesh, batch):
+        batch //= sharding.extent(mesh, sharding.dp_axes(mesh))
+    tp = sharding.tp_axis(mesh)
+    tp_ext = sharding.extent(mesh, tp)
+    if not tp or max_seq % tp_ext:
+        return batch, max_seq, None
+    seq = max_seq // tp_ext
+    return batch, seq, SeqShard(start=sharding.tp_index(mesh) * seq,
+                                total=max_seq, group=sharding.model_group(mesh))
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, kv_heads: int,
-                  head_dim: int, device) -> KVCache:
+                  head_dim: int, device, shard: SeqShard | None = None
+                  ) -> KVCache:
     """An empty cache; int8 when ``cfg.kv_cache_dtype == "int8"``, else
-    bf16, in any compute dtype."""
+    bf16, in any compute dtype.  With ``shard`` it holds ``max_seq``
+    positions from ``shard.start``."""
     int8 = cfg.kv_cache_dtype == "int8"
     dt = torch.int8 if int8 else torch.bfloat16
     shape = (batch, max_seq, kv_heads, head_dim)
@@ -161,7 +205,7 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, kv_heads: int,
 
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device),
-                   k_scale=scales(), v_scale=scales(), length=0)
+                   k_scale=scales(), v_scale=scales(), length=0, shard=shard)
 
 
 def _quantize(x):
@@ -179,21 +223,28 @@ def _dequantize(q, scale, dtype):
 
 def cache_update(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
     """Write k/v at [pos : pos + s_new) in place; the cache's length
-    becomes pos + s_new."""
+    becomes pos + s_new.  A sharded cache writes only the positions it
+    holds; every rank advances its length."""
     end = pos + k_new.shape[1]
-    if end > cache.k.shape[1]:
-        raise ValueError(f"cache of {cache.k.shape[1]} positions cannot "
+    start = cache.shard.start if cache.shard is not None else 0
+    total = cache.shard.total if cache.shard is not None else cache.k.shape[1]
+    if end > total:
+        raise ValueError(f"cache of {total} positions cannot "
                          f"hold positions [{pos}, {end})")
-    if cache.k.dtype == torch.int8:
-        kq, ks = _quantize(k_new)
-        vq, vs = _quantize(v_new)
-        cache.k[:, pos:end] = kq
-        cache.v[:, pos:end] = vq
-        cache.k_scale[:, pos:end] = ks
-        cache.v_scale[:, pos:end] = vs
-    else:
-        cache.k[:, pos:end] = k_new.to(cache.k.dtype)
-        cache.v[:, pos:end] = v_new.to(cache.v.dtype)
+    lo, hi = max(pos, start), min(end, start + cache.k.shape[1])
+    if lo < hi:
+        dst = slice(lo - start, hi - start)
+        src = slice(lo - pos, hi - pos)
+        if cache.k.dtype == torch.int8:
+            kq, ks = _quantize(k_new[:, src])
+            vq, vs = _quantize(v_new[:, src])
+            cache.k[:, dst] = kq
+            cache.v[:, dst] = vq
+            cache.k_scale[:, dst] = ks
+            cache.v_scale[:, dst] = vs
+        else:
+            cache.k[:, dst] = k_new[:, src].to(cache.k.dtype)
+            cache.v[:, dst] = v_new[:, src].to(cache.v.dtype)
     cache.length = end
     return cache
 
@@ -251,23 +302,56 @@ def gqa_train(p: Params, cfg: ArchConfig, x, *, causal: bool = True,
     return out @ p["wo"].to(x.dtype), (k, v)
 
 
+def _decode_attention_cp(q, cache: KVCache):
+    """Context-parallel decode attention: the rank's partial softmax over
+    its slice of the cache, in f32 (an int8 slice dequantised with its
+    scales), combined over the "model" group by an all_reduce of the
+    maxima (MAX), then of the exp-sums and of the weighted V (SUM); the
+    whole K/V is never gathered.  A slice with no filled position adds
+    exp(-inf) = 0."""
+    h, hd = q.shape[2], q.shape[3]
+    shard = cache.shard
+    pos = shard.start + torch.arange(cache.k.shape[1], device=q.device)
+    if cache.k_scale is not None:
+        k_f = cache.k.float() * cache.k_scale
+        v_f = cache.v.float() * cache.v_scale
+    else:
+        k_f, v_f = cache.k.float(), cache.v.float()
+    kb = _broadcast_kv(k_f, h)
+    vb = _broadcast_kv(v_f, h)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(hd), kb)
+    logits = torch.where(pos < cache.length, logits, NEG_INF)
+    m = sharding.all_reduce(logits.amax(dim=-1), dist.ReduceOp.MAX,
+                            shard.group)  # (b, h, 1)
+    p_ = torch.exp(logits - m[..., None])
+    s = sharding.all_reduce(p_.sum(dim=-1), dist.ReduceOp.SUM, shard.group)
+    acc = sharding.all_reduce(torch.einsum("bhqk,bkhd->bqhd", p_, vb),
+                              dist.ReduceOp.SUM, shard.group)
+    out = acc / torch.clamp(s, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
 def gqa_decode(p: Params, cfg: ArchConfig, x, cache: KVCache):
     """Single-step decode: x (b, 1, d) at position cache.length, against
-    the whole cache with the unfilled positions masked."""
+    the whole cache with the unfilled positions masked.  A sharded cache
+    (x then holds the cache's rows) decodes context-parallel."""
     b = x.shape[0]
     pos = torch.full((b, 1), cache.length, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, pos)
     cache = cache_update(cache, k_new, v_new, cache.length)
-    k, v = cache_kv(cache, x.dtype)
-    kb = _broadcast_kv(k, cfg.num_heads)
-    vb = _broadcast_kv(v, cfg.num_heads)
-    sk = kb.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(cfg.head_dim),
-                          kb.float())
-    filled = torch.arange(sk, device=x.device) < cache.length
-    logits = torch.where(filled, logits, NEG_INF)
-    pr = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", pr, vb.float()).to(x.dtype)
+    if cache.shard is not None:
+        out = _decode_attention_cp(q, cache)
+    else:
+        k, v = cache_kv(cache, x.dtype)
+        kb = _broadcast_kv(k, cfg.num_heads)
+        vb = _broadcast_kv(v, cfg.num_heads)
+        sk = kb.shape[1]
+        logits = torch.einsum("bqhd,bkhd->bhqk",
+                              q.float() * _scale(cfg.head_dim), kb.float())
+        filled = torch.arange(sk, device=x.device) < cache.length
+        logits = torch.where(filled, logits, NEG_INF)
+        pr = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", pr, vb.float()).to(x.dtype)
     out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
     return out @ p["wo"].to(x.dtype), cache
 

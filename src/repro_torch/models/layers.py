@@ -38,11 +38,26 @@ class Params(nn.Module):
         return name in self._parameters or name in self._modules
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` when a model is built on the
+    meta device: its parameters get shapes and dtypes, and nothing is
+    drawn or allocated."""
+
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """N(0, 1) draws from ``gen`` on its device (a ``MetaGenerator``:
+    an empty meta tensor)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0) -> torch.Tensor:
     """Normal draws scaled by 1/sqrt(fan_in), on the generator's device."""
     fan_in = shape[in_axis]
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            / math.sqrt(max(fan_in, 1)))
+    return randn(gen, shape) / math.sqrt(max(fan_in, 1))
 
 
 # --- RMSNorm ----------------------------------------------------------------
@@ -104,8 +119,7 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # --- Embedding --------------------------------------------------------------
 
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int) -> Params:
-    return Params(table=torch.randn((vocab, d_model), generator=gen,
-                                    device=gen.device) * 0.01)
+    return Params(table=randn(gen, (vocab, d_model)) * 0.01)
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,16 @@ package's tree with each stacked layer axis unrolled into
 ``shared_attn`` is one block, unstacked, as there
 (``convert.lm_params_from_numpy`` carries a JAX tree across).
 
+Under a mesh (``sharding.set_mesh`` with a ``DeviceMesh``; one rank is
+one shard) ``prefill`` and ``decode_step`` take the global batch, run
+this rank's rows (its block of the data axes, or every row where the
+batch does not divide) and return the global logits, gathered over the
+data group.  Each GQA cache holds the rank's rows and its slice of the
+sequence over "model" (context-parallel decode); MLA caches, SSM state
+and whisper's cross K/V hold the rank's rows, whole along "model"; the
+MoE runs the rank's experts (``shard_model`` drops the others' weights);
+every other projection runs whole on every rank.
+
 ``cfg.remat_policy`` sets what ``train_loss`` keeps for the backward
 pass, block by block (``torch.utils.checkpoint``): "full" (the default)
 keeps a block's input and runs the block again, "dots" keeps the
@@ -26,6 +36,7 @@ hybrid's groups and the encoder always remat in full.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -38,10 +49,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (Params, dense_init, embed,
-                                       init_embedding, init_rmsnorm, mlp,
-                                       rmsnorm)
+from repro_torch.models.layers import (MetaGenerator, Params, dense_init,
+                                       embed, init_embedding, init_rmsnorm,
+                                       mlp, rmsnorm)
 from repro_torch.models.transformer import Block, precompute_cross_kv
 
 
@@ -91,6 +104,52 @@ def _train_blocks(blocks: list, x, crosses: list):
     return x, torch.stack(auxs)
 
 
+class _Rows(NamedTuple):
+    """A sharded call's rows: ``split`` over the data axes of ``mesh``,
+    or whole (also without a mesh)."""
+    mesh: object
+    split: bool
+
+    def __call__(self, x):
+        return sharding.own_rows(self.mesh, x) if self.split else x
+
+    def gather(self, x):
+        return sharding.gather_rows(self.mesh, x) if self.split else x
+
+
+def shard_model(model: "Model", mesh) -> "Model":
+    """Drop the expert weights this rank does not own, in place: each MoE
+    block keeps experts [j E/tp, (j+1) E/tp) of its stacks and, with
+    shared experts, that slice of their hidden dim, j being the rank's
+    "model" coordinate of ``mesh``.  Experts that do not divide by the
+    model extent stay whole (the grouped form runs them all).  Returns
+    the model."""
+    cfg = model.cfg
+    tp_ext = sharding.extent(mesh, sharding.tp_axis(mesh))
+    if cfg.family != "moe" or tp_ext == 1 or not moe_mod.expert_sharded(
+            cfg, tp_ext):
+        return model
+    j = sharding.tp_index(mesh)
+    e_loc = cfg.num_experts // tp_ext
+    f_loc = cfg.moe_d_ff * cfg.num_shared_experts // tp_ext
+
+    def keep(node, name, dim, n):
+        node._parameters[name] = nn.Parameter(
+            node[name].narrow(dim, j * n, n).clone())
+
+    with torch.no_grad():
+        for blk in model.layers:
+            p = blk.moe
+            if p["w_gate"].shape[0] != cfg.num_experts:
+                continue  # already sharded
+            for name in ("w_gate", "w_up", "w_down"):
+                keep(p, name, 0, e_loc)
+            if "shared" in p:
+                for name, dim in (("w_gate", 1), ("w_up", 1), ("w_down", 0)):
+                    keep(p["shared"], name, dim, f_loc)
+    return model
+
+
 class ServeState(NamedTuple):
     # per layer, written in place: an attention.KVCache (MLACache under
     # MLA), or an ssm.SSMCache for the SSM layers of ssm and hybrid
@@ -104,14 +163,17 @@ class ServeState(NamedTuple):
 class Model(nn.Module):
     """The language model of any family.  Parameters are drawn from
     ``generator`` (seed 0 on ``device`` when None) on its device, stored
-    f32, and live on ``device`` (the CUDA card when None)."""
+    f32, and live on ``device`` (the CUDA card when None).  On the meta
+    device nothing is drawn or allocated: the parameters have their
+    shapes only."""
 
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            generator = (MetaGenerator() if dev.type == "meta" else
+                         torch.Generator(device=dev).manual_seed(0))
         self.cfg = cfg
         self.init(generator)
         self.to(dev)
@@ -260,12 +322,16 @@ class Model(nn.Module):
 
     def init_caches(self, batch: int, max_seq: int) -> ServeState:
         """Empty caches for ``batch`` requests of context ``max_seq`` (an
-        SSM cache holds the same bytes at any context)."""
+        SSM cache holds the same bytes at any context).  Under a mesh,
+        this rank's shards of them."""
         cfg, dev = self.cfg, self.device
+        # every cache holds the rank's rows; a KV cache its positions too
+        batch, seq, shard = attn.kv_layout(batch, max_seq)
 
         def kv_caches(n):
-            return [attn.init_kv_cache(cfg, batch, max_seq, cfg.num_kv_heads,
-                                       cfg.head_dim, dev) for _ in range(n)]
+            return [attn.init_kv_cache(cfg, batch, seq, cfg.num_kv_heads,
+                                       cfg.head_dim, dev, shard)
+                    for _ in range(n)]
 
         def ssm_caches(n):
             return [ssm_mod.init_ssm_cache(cfg, batch, dev) for _ in range(n)]
@@ -297,20 +363,38 @@ class Model(nn.Module):
         last-position logits (b, vocab) f32 and the state.  An SSM layer
         raises ``ValueError`` on a prompt shorter than ssm_conv - 1."""
         b, s = batch["tokens"].shape
-        x = self._input_embeddings(batch)
-        state = self.init_caches(b, max_seq or s)._replace(
-            cross_kv=self._cross_kvs(batch))
-        x = self._run(Block.block_prefill, x, state)
-        h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
-        return self._last_logits(h), state
+        with self._rows(b) as own:
+            batch = {k: own(v) for k, v in batch.items()}
+            x = self._input_embeddings(batch)
+            state = self.init_caches(b, max_seq or s)._replace(
+                cross_kv=self._cross_kvs(batch))
+            x = self._run(Block.block_prefill, x, state)
+            h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
+            return own.gather(self._last_logits(h)), state
 
     @torch.no_grad()
     def decode_step(self, state: ServeState, tokens):
         """tokens (b, 1) -> next-token logits (b, vocab) f32; the caches
         advance in place."""
-        x = self._run(Block.block_decode, embed(self.embed, tokens), state)
-        return self._last_logits(rmsnorm(self.final_norm, x,
-                                         self.cfg.rms_eps)), state
+        with self._rows(tokens.shape[0]) as own:
+            x = self._run(Block.block_decode, embed(self.embed, own(tokens)),
+                          state)
+            return own.gather(self._last_logits(rmsnorm(
+                self.final_norm, x, self.cfg.rms_eps))), state
+
+    @contextlib.contextmanager
+    def _rows(self, batch: int):
+        """This rank's rows of a global batch of ``batch`` under a mesh:
+        yields ``own`` (x -> the rank's rows of x) with ``own.gather``
+        (the rank's rows of a result -> the global result); without a
+        mesh both return their input."""
+        mesh = sharding.current_mesh()
+        if mesh is None:
+            yield _Rows(None, False)
+            return
+        split = sharding.batch_split(mesh, batch)
+        with sharding.model_rows(split):
+            yield _Rows(mesh, split)
 
     def _last_logits(self, h):
         return h[:, -1].float() @ self._table().float().T

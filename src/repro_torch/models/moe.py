@@ -13,19 +13,30 @@ No (tokens, experts, capacity) one-hot dispatch tensor:
      gates, in ascending expert order and in the compute dtype, one
      after the other (no atomics, so a run repeats bitwise)
 
-Shared experts (DeepSeek-style) run densely on every token.  The JAX
-package routes within dispatch groups, one per data-parallel shard of a
-mesh, and one without a mesh; the port has no mesh here, so its tokens
-form one group.
+Shared experts (DeepSeek-style) run densely on every token.
+
+Routing, ranking and the capacity are local to a dispatch group: one
+without a mesh; under a mesh (``models.sharding``) one per data-parallel
+block of rows.  There the rank at (data i, model j) routes group i's
+tokens, runs only its ``E / tp`` experts (expert stacks sliced on the
+expert dim, shared experts on the hidden dim) and adds its partial
+combine to the other model ranks' with ONE all_reduce in the compute
+dtype; the load-balancing loss is averaged over the data group
+(``_moe_ffn_shard_map``).  A batch that does not divide by the data
+extent is one group held by every rank; experts (or a shared hidden
+dim) that do not divide by the model extent take the grouped form, every
+rank computing all experts of ``_num_groups`` groups.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import sharding
 from repro_torch.models.layers import Params, dense_init
 
 
@@ -67,21 +78,23 @@ def route(logits, k: int):
     return probs, gates, ids
 
 
-def dispatch(tokens, logits, cfg: ArchConfig, cap: int):
-    """Sort-based dispatch of tokens (t, d) by router logits (t, e):
-    the (e, cap, d) expert buffer, the pairs' (keep, slot, token, order,
-    gate, expert id) and the Switch-style load-balancing loss."""
-    e, k = cfg.num_experts, cfg.moe_top_k
-    t, d = tokens.shape
-    dev = tokens.device
-    probs, gates, expert_ids = route(logits, k)
-
+def _aux_loss(probs, expert_ids, e: int):
+    """Switch-style load balancing: e * sum(mean prob * routed share)."""
+    t, k = expert_ids.shape
     me = probs.mean(dim=0)
-    flat_expert = expert_ids.reshape(-1)  # (t*k,)
-    ce = torch.zeros(e, device=dev).index_add_(
-        0, flat_expert, torch.full((t * k,), 1.0 / (t * k), device=dev))
-    aux = e * torch.sum(me * ce)
+    ce = torch.zeros(e, device=probs.device).index_add_(
+        0, expert_ids.reshape(-1),
+        torch.full((t * k,), 1.0 / (t * k), device=probs.device))
+    return e * torch.sum(me * ce)
 
+
+def _sorted_pairs(expert_ids):
+    """The (token, expert) pairs sorted by expert (stable): (token of
+    each pair, order, sorted expert ids, rank of each sorted pair within
+    its expert)."""
+    t, k = expert_ids.shape
+    dev = expert_ids.device
+    flat_expert = expert_ids.reshape(-1)  # (t*k,)
     flat_token = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.sort(flat_expert, stable=True).indices
     sorted_expert = flat_expert[order]
@@ -89,21 +102,41 @@ def dispatch(tokens, logits, cfg: ArchConfig, cap: int):
     is_start = torch.ones(t * k, dtype=torch.bool, device=dev)
     is_start[1:] = sorted_expert[1:] != sorted_expert[:-1]
     seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    rank = idx - seg_start
+    return flat_token, order, sorted_expert, idx - seg_start
 
+
+def _gather_slots(tokens, slot, flat_token, order, slots: int):
+    """The (slots + 1, d) buffer with each pair's token at its slot (the
+    last row takes the dropped pairs), cut to (slots, d)."""
+    buf = torch.zeros((slots + 1, tokens.shape[1]), dtype=tokens.dtype,
+                      device=tokens.device)
+    buf[slot] = tokens[flat_token[order]]
+    return buf[:slots]
+
+
+def dispatch(tokens, logits, cfg: ArchConfig, cap: int):
+    """Sort-based dispatch of tokens (t, d) by router logits (t, e):
+    the (e, cap, d) expert buffer, the pairs' (keep, slot, token, order,
+    gate, expert id) and the Switch-style load-balancing loss."""
+    e, k = cfg.num_experts, cfg.moe_top_k
+    d = tokens.shape[1]
+    probs, gates, expert_ids = route(logits, k)
+    aux = _aux_loss(probs, expert_ids, e)
+    flat_token, order, sorted_expert, rank = _sorted_pairs(expert_ids)
     keep = rank < cap
     slot = torch.where(keep, sorted_expert * cap + rank, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=tokens.dtype, device=dev)
-    buf[slot] = tokens[flat_token[order]]
+    buf = _gather_slots(tokens, slot, flat_token, order, e * cap)
     info = (keep, slot, flat_token, order, gates.reshape(-1), expert_ids)
-    return buf[:e * cap].reshape(e, cap, d), info, aux
+    return buf.reshape(e, cap, d), info, aux
 
 
 def combine(out_buf, info, t: int, cap: int, cfg: ArchConfig):
     """(t, d): each token's kept pair outputs times their gates, added in
     the buffer's dtype in ascending expert order, the order of the JAX
-    package's scatter-add over the sorted pairs."""
-    e, k = cfg.num_experts, cfg.moe_top_k
+    package's scatter-add over the sorted pairs.  ``out_buf`` holds
+    ``out_buf.shape[0]`` experts (all, or a rank's under a mesh, whose
+    pairs ``keep`` then marks)."""
+    e, k = out_buf.shape[0], cfg.moe_top_k
     keep, slot, _, order, flat_gate, _ = info
     dt = out_buf.dtype
     out_flat = out_buf.reshape(e * cap, out_buf.shape[-1])
@@ -122,7 +155,7 @@ def combine(out_buf, info, t: int, cap: int, cfg: ArchConfig):
     return acc
 
 
-def _expert_swiglu(p: Params, buf):
+def _expert_swiglu(p, buf):
     """Every expert's SwiGLU over its (cap, d) slots, in buf's dtype."""
     dt = buf.dtype
     g = torch.bmm(buf, p["w_gate"].to(dt))
@@ -138,22 +171,158 @@ class MoEStats(NamedTuple):
     expert_ids: torch.Tensor  # (tokens, top_k) routed experts, best first
 
 
-def moe_ffn(p: Params, cfg: ArchConfig, x):
-    """x (b, s, d) -> (out (b, s, d), MoEStats): the JAX package's
-    (out, aux) with aux as ``stats.aux``."""
+def _shared(sp: Params, tokens, hidden: slice | None = None):
+    """The shared experts' SwiGLU of tokens (t, d); ``hidden`` a slice of
+    their hidden dim (a partial sum) where the weights are whole."""
+    dt = tokens.dtype
+    wg, wu, wd = sp["w_gate"], sp["w_up"], sp["w_down"]
+    if hidden is not None:
+        wg, wu, wd = wg[:, hidden], wu[:, hidden], wd[hidden]
+    h = F.silu(tokens @ wg.to(dt)) * (tokens @ wu.to(dt))
+    return h @ wd.to(dt)
+
+
+def _moe_groups(p: Params, cfg: ArchConfig, x, groups: int):
+    """The grouped form: x's rows in ``groups`` dispatch groups, every
+    expert here; aux is the groups' mean."""
     b, s, d = x.shape
-    dt = x.dtype
     t = b * s
-    cap = capacity(t, cfg)
+    tg = t // groups
+    cap = capacity(tg, cfg)
     tokens = x.reshape(t, d)
     # routing in f32 for a stable softmax
     logits = tokens.float() @ p["router"].float()
-    buf, info, aux = dispatch(tokens, logits, cfg, cap)
-    out = combine(_expert_swiglu(p, buf), info, t, cap, cfg)
+    outs, auxs, dropped, ids = [], [], [], []
+    for g in range(groups):
+        rows = slice(g * tg, (g + 1) * tg)
+        buf, info, aux = dispatch(tokens[rows], logits[rows], cfg, cap)
+        outs.append(combine(_expert_swiglu(p, buf), info, tg, cap, cfg))
+        auxs.append(aux)
+        dropped.append(torch.sum(~info[0]))
+        ids.append(info[-1])
+    out = outs[0] if groups == 1 else torch.cat(outs)
+    if cfg.num_shared_experts:
+        out = out + _shared(p["shared"], tokens)
+    aux = auxs[0] if groups == 1 else torch.stack(auxs).mean()
+    stats = MoEStats(aux=aux, dropped=sum(dropped),
+                     expert_ids=ids[0] if groups == 1 else torch.cat(ids))
+    return out.reshape(b, s, d), stats
+
+
+def _num_groups(batch: int, mesh) -> int:
+    """Dispatch groups of the grouped form: the data-parallel extent,
+    halved until it divides the batch (1 without a mesh)."""
+    if mesh is None:
+        return 1
+    sizes = sharding.mesh_shape(mesh)
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= sizes.get(a, 1)
+    while dp > 1 and batch % dp != 0:
+        dp //= 2
+    return max(dp, 1)
+
+
+def expert_sharded(cfg: ArchConfig, tp_ext: int) -> bool:
+    """Whether the experts (and the shared experts' hidden dim) divide by
+    the model extent: the expert-sharded form, else the grouped one."""
+    return cfg.num_experts % max(tp_ext, 1) == 0 and (
+        not cfg.num_shared_experts
+        or (cfg.moe_d_ff * cfg.num_shared_experts) % tp_ext == 0)
+
+
+def _local_experts(w, e: int, lo: int, n: int):
+    """Experts [lo, lo + n) of an expert stack: a slice of the whole
+    stack, or the stack itself once sharded (``model.shard_model``)."""
+    if w.shape[0] == e:
+        return w[lo:lo + n]
+    if w.shape[0] != n:
+        raise ValueError(f"an expert stack of {w.shape[0]} experts, "
+                         f"neither {e} nor this rank's {n}")
+    return w
+
+
+def _moe_ffn_shard_map(p: Params, cfg: ArchConfig, x, mesh, split: bool):
+    """The expert-sharded form on this rank's rows x (b, s, d): its
+    group's routing, its experts' outputs and partial combine, then one
+    all_reduce (SUM) over the model group in the compute dtype; aux
+    averaged over the data group where the rows are split."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.moe_top_k
+    tp = sharding.tp_axis(mesh)
+    tp_ext = sharding.extent(mesh, tp)
+    e_loc = e // tp_ext
+    t = b * s  # the group's tokens, tg = (b / dp) * s of the global batch
+    cap = capacity(t, cfg)
+    tokens = x.reshape(t, d)
+    logits = tokens.float() @ p["router"].float()
+    probs, gates, expert_ids = route(logits, k)
+    aux = _aux_loss(probs, expert_ids, e)
+    dp_ext = sharding.extent(mesh, sharding.dp_axes(mesh))
+    if split and dp_ext > 1:
+        aux = sharding.all_reduce(aux, dist.ReduceOp.SUM,
+                                  sharding.data_group(mesh)) / dp_ext
+    flat_token, order, sorted_expert, rank = _sorted_pairs(expert_ids)
+    keep = rank < cap
+
+    j = sharding.tp_index(mesh)
+    e_lo = j * e_loc
+    mine = keep & (sorted_expert >= e_lo) & (sorted_expert < e_lo + e_loc)
+    local_slot = torch.where(mine, (sorted_expert - e_lo) * cap + rank,
+                             e_loc * cap)
+    buf = _gather_slots(tokens, local_slot, flat_token, order, e_loc * cap)
+    local = {name: _local_experts(p[name], e, e_lo, e_loc)
+             for name in ("w_gate", "w_up", "w_down")}
+    out_buf = _expert_swiglu(local, buf.reshape(e_loc, cap, d))
+    info = (mine, local_slot, flat_token, order, gates.reshape(-1), expert_ids)
+    partial = combine(out_buf, info, t, cap, cfg)
     if cfg.num_shared_experts:
         sp = p["shared"]
-        h = F.silu(tokens @ sp["w_gate"].to(dt)) * (tokens @ sp["w_up"].to(dt))
-        out = out + h @ sp["w_down"].to(dt)
-    stats = MoEStats(aux=aux, dropped=torch.sum(~info[0]),
-                     expert_ids=info[-1])
-    return out.reshape(b, s, d), stats
+        fs = cfg.moe_d_ff * cfg.num_shared_experts
+        f_loc = fs // tp_ext
+        whole = sp["w_gate"].shape[1] == fs
+        partial = partial + _shared(
+            sp, tokens, slice(j * f_loc, (j + 1) * f_loc) if whole else None)
+    if tp_ext > 1:
+        partial = sharding.all_reduce(partial, dist.ReduceOp.SUM,
+                                      sharding.model_group(mesh))
+    stats = MoEStats(aux=aux, dropped=torch.sum(~keep), expert_ids=expert_ids)
+    return partial.reshape(b, s, d), stats
+
+
+def _moe_mesh(p: Params, cfg: ArchConfig, x, mesh, split: bool):
+    """The MoE of this rank's rows x under ``mesh``; ``split``: whether x
+    is the rank's block of the data axes (else the whole batch)."""
+    tp_ext = sharding.extent(mesh, sharding.tp_axis(mesh))
+    if expert_sharded(cfg, tp_ext):
+        return _moe_ffn_shard_map(p, cfg, x, mesh, split)
+    # the grouped form, computed whole on every rank: with split rows the
+    # rank's rows are one of the dp groups
+    dp_ext = sharding.extent(mesh, sharding.dp_axes(mesh))
+    out, stats = _moe_groups(p, cfg, x,
+                             1 if split else _num_groups(x.shape[0], mesh))
+    if split and dp_ext > 1:
+        stats = stats._replace(aux=sharding.all_reduce(
+            stats.aux, dist.ReduceOp.SUM, sharding.data_group(mesh)) / dp_ext)
+    return out, stats
+
+
+def moe_ffn(p: Params, cfg: ArchConfig, x):
+    """x (b, s, d) -> (out (b, s, d), MoEStats): the JAX package's
+    (out, aux) with aux as ``stats.aux``.
+
+    Under a mesh (``sharding.set_mesh``) it takes the global batch and
+    returns the global output; inside a sharded model call x holds the
+    rank's rows.  The stats are the rank's group's, with aux averaged
+    over the groups."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return _moe_groups(p, cfg, x, 1)
+    split = sharding.rows_split()
+    if split is not None:
+        return _moe_mesh(p, cfg, x, mesh, split)
+    # a batch that does not divide by the data extent drops dp: one group
+    split = sharding.batch_split(mesh, x.shape[0])
+    x_loc = sharding.own_rows(mesh, x) if split else x
+    out, stats = _moe_mesh(p, cfg, x_loc, mesh, split)
+    return (sharding.gather_rows(mesh, out) if split else out), stats

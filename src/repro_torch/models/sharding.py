@@ -1,0 +1,237 @@
+"""Mesh-aware sharding helpers of the LM path.
+
+Model code names LOGICAL axes ("dp" the batch axes, "tp" the tensor and
+expert axis, "sp" the cache's sequence axis under context-parallel
+decode); :func:`resolve_spec` maps them onto whatever mesh is in context
+(none: no axis; the 16 x 16 pod: "data" / "model"; the 2 x 16 x 16
+multi-pod: ("pod", "data") / "model").  A spec is a tuple with one entry
+per dim, each an axis name, a tuple of names or None: a
+``PartitionSpec``'s entries.
+
+:func:`set_mesh` puts a mesh in context and :func:`current_mesh` reads it.
+The mesh is a ``torch.distributed`` ``DeviceMesh`` (ranks that run the
+sharded serving path: one rank is one shard) or a
+``launch.mesh.AbstractMesh`` (the production meshes, which only the
+partition rules read); :func:`mesh_shape` reads the axis sizes of either.
+
+Inside a sharded ``Model`` call the activations hold this rank's batch
+rows: the model enters :func:`model_rows`, and :func:`rows_split` tells
+the blocks whether those rows are the rank's block of the data axes or
+the whole batch (a batch that does not divide by the data extent).  A
+function called outside a model (an entry point) takes the global batch.
+
+The JAX package also has ``maybe_shard``, a layout hint to its compiler
+with no numeric effect; here each rank already holds only its slice, so
+there is nothing to hint.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import time
+
+import torch
+import torch.distributed as dist
+
+# logical -> candidate mesh axis names (those present in the mesh win)
+LOGICAL = {
+    "dp": ("pod", "data"),  # batch-parallel axes
+    "tp": ("model",),  # tensor / expert-parallel axis
+    "sp": ("model",),  # cache sequence axis under context-parallel decode
+}
+
+_MESHES: list = []
+_ROWS: list = []
+# collectives of the sharded LM path: calls and their host seconds
+_STATS = {"all_reduce": 0, "all_gather": 0, "seconds": 0.0}
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Put ``mesh`` in context for the block (``None`` is no mesh)."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_mesh():
+    """The mesh in context, or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or an ``AbstractMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, (int(s) for s in mesh.mesh.shape)))
+    return dict(mesh.shape)
+
+
+def resolve_spec(*logical_axes) -> tuple:
+    """Map logical axis names to a spec for the mesh in context (``()``
+    without one)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return ()
+    present = mesh_shape(mesh)
+    out = []
+    for ax in logical_axes:
+        if ax is None:
+            out.append(None)
+            continue
+        names = tuple(n for n in LOGICAL.get(ax, (ax,)) if n in present)
+        if not names:
+            out.append(None)
+        elif len(names) == 1:
+            out.append(names[0])
+        else:
+            out.append(names)
+    return tuple(out)
+
+
+def shardable(dim: int, logical: str) -> bool:
+    """True if ``dim`` divides evenly over the mesh extent of the logical
+    axis (False without a mesh)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    present = mesh_shape(mesh)
+    ext = 1
+    for n in LOGICAL.get(logical, (logical,)):
+        if n in present:
+            ext *= present[n]
+    return ext > 0 and dim % ext == 0
+
+
+# ---------------------------------------------------------------------------
+# The rank's place on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The mesh's data-parallel axes, outermost first."""
+    present = mesh_shape(mesh)
+    return tuple(a for a in LOGICAL["dp"] if a in present)
+
+
+def tp_axis(mesh) -> str | None:
+    return "model" if "model" in mesh_shape(mesh) else None
+
+
+def extent(mesh, axes) -> int:
+    """Product of the sizes of ``axes`` (a name, a tuple, or None)."""
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = mesh_shape(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+def batch_split(mesh, batch: int) -> bool:
+    """Whether ``batch`` rows split over the data axes: the axes exist and
+    the batch divides by their extent (else every rank holds them all)."""
+    dp = dp_axes(mesh)
+    return bool(dp) and batch % extent(mesh, dp) == 0
+
+
+def _index(mesh, axes) -> int:
+    """This rank's coordinate along ``axes``, row-major."""
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    idx = 0
+    for a in axes:
+        d = names.index(a)
+        idx = idx * mesh.size(d) + coord[d]
+    return idx
+
+
+def dp_index(mesh) -> int:
+    return _index(mesh, dp_axes(mesh))
+
+
+def tp_index(mesh) -> int:
+    ax = tp_axis(mesh)
+    return _index(mesh, (ax,)) if ax else 0
+
+
+def _group(mesh, axes):
+    from repro_torch.parallel import edge_group
+
+    return edge_group(mesh, axes)
+
+
+def data_group(mesh):
+    """The ranks that differ from this one only along the data axes."""
+    return _group(mesh, dp_axes(mesh))
+
+
+def model_group(mesh):
+    """The ranks that differ from this one only along "model"."""
+    return _group(mesh, (tp_axis(mesh),))
+
+
+def own_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``x``'s rows (dim 0) over the data axes."""
+    per = x.shape[0] // extent(mesh, dp_axes(mesh))
+    i = dp_index(mesh)
+    return x[i * per:(i + 1) * per]
+
+
+def gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The data group's row blocks of ``x``, concatenated in rank order."""
+    n = extent(mesh, dp_axes(mesh))
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, x.contiguous(), group=data_group(mesh))
+    _STATS["all_gather"] += 1
+    _STATS["seconds"] += time.perf_counter() - t0
+    return torch.cat(parts, dim=0)
+
+
+def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
+    """``x`` reduced by ``op`` over ``group`` (a contiguous copy where x
+    is not contiguous); a group of one rank returns x."""
+    if dist.get_world_size(group) == 1:
+        return x
+    x = x.contiguous()
+    t0 = time.perf_counter()
+    dist.all_reduce(x, op=op, group=group)
+    _STATS["all_reduce"] += 1
+    _STATS["seconds"] += time.perf_counter() - t0
+    return x
+
+
+def collective_stats() -> dict:
+    """All_reduce and all_gather calls of the sharded LM path since the
+    last reset, and their host seconds (each call timed on the host
+    clock around the blocking collective)."""
+    return dict(_STATS)
+
+
+def reset_collective_stats() -> None:
+    _STATS.update(all_reduce=0, all_gather=0, seconds=0.0)
+
+
+# ---------------------------------------------------------------------------
+# Rows of a sharded model call
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def model_rows(split: bool):
+    """Inside the block the activations hold this rank's rows: its block
+    of the data axes (``split``) or the whole batch."""
+    _ROWS.append(bool(split))
+    try:
+        yield
+    finally:
+        _ROWS.pop()
+
+
+def rows_split() -> bool | None:
+    """``model_rows``' ``split`` inside a sharded model call; None
+    outside one (the caller passes the global batch)."""
+    return _ROWS[-1] if _ROWS else None

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import Params, dense_init, init_rmsnorm, rmsnorm
+from repro_torch.models.layers import (Params, dense_init, init_rmsnorm, randn,
+                                       rmsnorm)
 
 
 def _dims(cfg: ArchConfig):
@@ -38,11 +39,9 @@ def init_ssm(gen: torch.Generator, cfg: ArchConfig) -> Params:
     return Params(
         w_zx=dense_init(gen, (d, 2 * d_in)),  # [z | x]
         w_bcdt=dense_init(gen, (d, 2 * n + nheads)),
-        conv_w_x=torch.randn((cfg.ssm_conv, d_in), generator=gen,
-                             device=dev) * 0.1,
+        conv_w_x=randn(gen, (cfg.ssm_conv, d_in)) * 0.1,
         conv_b_x=torch.zeros(d_in, device=dev),
-        conv_w_bc=torch.randn((cfg.ssm_conv, 2 * n), generator=gen,
-                              device=dev) * 0.1,
+        conv_w_bc=randn(gen, (cfg.ssm_conv, 2 * n)) * 0.1,
         conv_b_bc=torch.zeros(2 * n, device=dev),
         a_log=torch.zeros(nheads, device=dev),  # A = -exp(a_log) = -1
         d_skip=torch.ones(nheads, device=dev),

@@ -1234,3 +1234,39 @@ def test_sped_training_resumes_bitwise_on_the_card(dev, tmp_path):
     resumed = train.train_sped(train.parse_args(args), dev)
     assert resumed.steps == 50 and torch.equal(resumed.v, full.v)
     assert full.accuracy == 1.0
+
+
+def test_context_parallel_decode_on_two_ranks_matches_one_process(dev):
+    """qwen3's smoke model in f32 compute on a (1, 2) ("data", "model")
+    mesh of 2 gloo ranks on this card: each rank holds half of every KV
+    cache's positions and decodes context parallel (three all_reduces a
+    layer); the prefill and 8 decode steps equal the one-process run's
+    within 1e-4 (the order of the softmax's sums differs)."""
+    import torch_dist_ranks as ranks
+    from repro_torch import convert, parallel
+    from repro_torch.models import Model, layers
+
+    cfg = ranks.lm_config("qwen3-4b")
+    tree = convert.lm_params_to_numpy(
+        Model(cfg, device="cpu", generator=torch.Generator().manual_seed(3)))
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12),
+                                               dtype=np.int32)
+    steps, max_seq = 8, 20
+    old = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        model = convert.lm_params_from_numpy(cfg, tree, device=dev)
+        logits, state = model.prefill({"tokens": torch.from_numpy(tokens).to(dev)},
+                                      max_seq=max_seq)
+        want = [logits]
+        for _ in range(steps):
+            logits, state = model.decode_step(
+                state, want[-1].argmax(-1, keepdim=True).int())
+            want.append(logits)
+    finally:
+        layers.COMPUTE_DTYPE = old
+    results = parallel.run_ranks(2, ranks.card_cp_decode, tree, tokens, max_seq,
+                                 steps, device=dev, timeout=300.0)
+    for r in results:
+        got = torch.from_numpy(r.value).to(dev)
+        assert _rel_err(got, torch.stack(want)) <= 1e-4

@@ -403,6 +403,113 @@ def run_model(dev, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM mesh (tests/test_torch_lm_mesh.py): a (2, 2) ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+LM_MESH = (2, 2)
+
+
+def lm_config(arch: str, overrides=None):
+    """The port's smoke config of ``arch`` with ``overrides``."""
+    import dataclasses
+
+    from repro_torch import configs as tcfg
+
+    cfg = tcfg.smoke_config(tcfg.get_arch(arch))
+    return dataclasses.replace(cfg, **(overrides or {}))
+
+
+def lm_params(tree):
+    """A numpy parameter tree as the port's ``Params`` nodes."""
+    from repro_torch.models.layers import Params
+
+    return Params(**{k: lm_params(v) if isinstance(v, dict)
+                     else torch.tensor(np.asarray(v, np.float32))
+                     for k, v in tree.items()})
+
+
+def _rows(mesh, batch: int):
+    """(this rank's rows of an array, the global result of its rows')."""
+    from repro_torch.models import sharding
+
+    if not sharding.batch_split(mesh, batch):
+        return torch.as_tensor, (lambda a: a)
+    return (lambda a: sharding.own_rows(mesh, torch.as_tensor(a)),
+            lambda a: sharding.gather_rows(mesh, a))
+
+
+def _lm_cp_decode(mesh, case: dict) -> dict:
+    """One GQA decode step against a cache filled to ``k.shape[1]``
+    positions, each rank holding its shard (``attention.kv_layout``)."""
+    from repro_torch.models import attention as attn
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    b, max_seq = case["x"].shape[0], case["max_seq"]
+    rows, seq, shard = attn.kv_layout(b, max_seq)
+    own, gather = _rows(mesh, b)
+    cache = attn.init_kv_cache(cfg, rows, seq, cfg.num_kv_heads, cfg.head_dim,
+                               CPU, shard)
+    attn.cache_update(cache, own(case["k"]), own(case["v"]), 0)
+    start = 0 if shard is None else shard.start
+    held = max(0, min(case["k"].shape[1], start + seq) - start)
+    y, cache = attn.gqa_decode(lm_params(case["params"]), cfg,
+                               own(case["x"]), cache)
+    return {"out": gather(y), "length": cache.length, "sharded": shard is not None,
+            "held_before": held, "positions": cache.k.shape[1]}
+
+
+def _lm_moe(case: dict) -> dict:
+    """``moe_ffn`` under the mesh on the global x."""
+    from repro_torch.models import moe
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    out, stats = moe.moe_ffn(lm_params(case["params"]), cfg,
+                             torch.from_numpy(case["x"]))
+    return {"out": out, "aux": stats.aux}
+
+
+def _lm_model(mesh, case: dict) -> dict:
+    """A prefill and ``fed``'s decode steps of a model sharded in place
+    (``model.shard_model``), with the collectives of the last step."""
+    from repro_torch import convert
+    from repro_torch.models import sharding
+    from repro_torch.models.model import shard_model
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    model = shard_model(convert.lm_params_from_numpy(cfg, case["tree"],
+                                                     device=CPU), mesh)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    logits, state = model.prefill(batch, max_seq=case["max_seq"])
+    seq = [logits]
+    for tok in case["fed"]:
+        sharding.reset_collective_stats()
+        logits, state = model.decode_step(state, torch.from_numpy(tok))
+        seq.append(logits)
+    return {"logits": torch.stack(seq), "step_collectives":
+            sharding.collective_stats(),
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def run_lm_mesh(dev, inputs: dict) -> dict:
+    """Every LM mesh case on this rank of a (2, 2) world, in f32 compute;
+    returns {name: output}."""
+    from repro_torch.models import layers, sharding
+
+    torch.set_num_threads(1)  # several ranks share the test worker's CPU
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = parallel.make_mesh(LM_MESH, ("data", "model"), dev)
+    out: dict = {"coord": tuple(mesh.get_coordinate())}
+    with sharding.set_mesh(mesh):
+        for name, case in inputs["attn"].items():
+            out[f"attn/{name}"] = _lm_cp_decode(mesh, case)
+        for name, case in inputs["moe"].items():
+            out[f"moe/{name}"] = _lm_moe(case)
+        for name, case in inputs["model"].items():
+            out[f"model/{name}"] = _lm_model(mesh, case)
+    return out
+
+
 @contextlib.contextmanager
 def one_rank_world():
     """A gloo world of this one process (file rendezvous in a temporary
@@ -462,3 +569,28 @@ def card_model_tick(dev, graphs_np, n: int, capacity: int, cs, vs, lrs, chunks,
                         for st in stores], cs,
                        torch.from_numpy(vs).to(dev), lrs, chunks)
     return vs, res, prog.captures, (stats.plain, stats.fused)
+
+
+def card_cp_decode(dev, tree: dict, tokens, max_seq: int, steps: int):
+    """qwen3's smoke model from ``tree`` in f32 compute on a (1, S)
+    ("data", "model") mesh of this world: a prefill of ``tokens`` and
+    ``steps`` decode steps fed its argmax, the caches context parallel;
+    returns the logits of each call."""
+    from repro_torch import convert
+    from repro_torch.models import layers, sharding
+
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = parallel.make_mesh((1, dist.get_world_size()), ("data", "model"),
+                              dev)
+    cfg = lm_config("qwen3-4b")
+    model = convert.lm_params_from_numpy(cfg, tree, device=dev)
+    with sharding.set_mesh(mesh):
+        logits, state = model.prefill({"tokens": torch.from_numpy(tokens).to(dev)},
+                                      max_seq=max_seq)
+        seq = [logits]
+        for _ in range(steps):
+            logits, state = model.decode_step(
+                state, seq[-1].argmax(-1, keepdim=True).int())
+            seq.append(logits)
+    assert state.caches[0].shard is not None
+    return torch.stack(seq)
