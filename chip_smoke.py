@@ -257,12 +257,8 @@ outside a checkout.  Phases, one JSON line each:
              through train.train_lm, 10 steps of 8 x 1024 tokens (remat
              "full", f32 AdamW moments): ms a step against the FLOP +
              optimizer-bytes bound, tokens/s, peak bytes, losses, grad
-             norms; 5 steps, one save and one restore of the full
-             (params, opt_state) in the JAX package's layout (seconds,
-             bytes, bitwise), train_lm resumed from it to step 10 (its
-             losses within 1e-4 of the uninterrupted run's, its final
-             parameters and moments within 1e-5 of each leaf's largest
-             magnitude, its step equal); the profiler's device-busy share
+             norms (the checkpoint round trip and resume: phase 38, at
+             6 layers); the profiler's device-busy share
              of one more step; qwen3-4b at full width and depth, remat
              "full", bf16 moments, 4 steps of 4 x 1024 through
              dryrun.build_train_step: ms a step, peak bytes (both models'
@@ -291,7 +287,40 @@ outside a checkout.  Phases, one JSON line each:
              OptState, batch and caches: granite train 8 x 1024 (f32
              moments) and decode 4 x 544, the bytes requested within 512
              bytes a tensor, memory_allocated's growth beside them
-38. kernels - per kernel: launches on the main path (phases 3-37 but the
+38. lm_train_dp - the data-parallel train step with ZeRO-1 moments:
+             granite-moe-1b-a400m at full width cut to 6 of 24 layers on
+             a (2, 1) ("data", "model") mesh of 2 gloo ranks on this card,
+             3 steps of the 8 x 1024 global batch (4 x 1024 a rank, remat
+             "full", f32 moments) through dryrun.build_train_step under
+             the mesh; held to one process on the card computing each
+             half-batch's gradient, averaging the two and applying
+             (losses 1e-4, parameters and each rank's moment slices 1e-5
+             of each leaf's largest magnitude, the reference run in each
+             rank), the ranks' parameters bitwise equal, each
+             rank's moment bytes (requested) equal to dryrun.reckon's
+             optimizer_bytes of the mesh; then at full depth each rank
+             builds the model and its ZeRO-1 state only (no step), the
+             moment bytes held to the reckoning under the FSDP specs.
+             The checkpoint round trip through launch.train.train_lm in
+             the same world at 6 layers: a train_lm of 2 steps with
+             --ckpt-dir (moments gathered, rank 0 writes the JAX
+             package's layout, 5.06 GB), then a train_lm resuming from
+             it to step 3 (the step resumed from, its loss within 1e-4,
+             its parameters and moment slices within 1e-5 of each
+             leaf's largest magnitude of the run above, the step equal).
+             Per rank: ms a step, gloo calls and their host seconds a
+             step, peak bytes, losses
+39. dryrun_sped - launch.dryrun_sped: the 8 cells' report (run-time
+             all_reduce counts, reckoned bytes); the four variants on 2
+             gloo ranks at n = 2^14, E = 2^18, k = 32, each held to one
+             process's step of the same variant (f32 1e-5, bf16 2e-3 of
+             the panel's largest magnitude), its all_reduces a step and
+             payload bytes; one cheb64_fused step on one process at the
+             production shape (n = 2^22, E = 2^26, k = 32): ms, peak
+             bytes, and the bytes the panel and edges request on the card
+             held to dryrun_sped.argument_bytes(1), the report's
+             reckoning for one device
+40. kernels - per kernel: launches on the main path (phases 3-39 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -540,19 +569,15 @@ LM_ENCDEC_HOLD_DEPTH = 12
 # clusters, degree 51, 600 steps, 1024 edges a factor, a checkpoint every
 # 200 steps), then resumes from step SPED_RESUME_AT.  lm_train trains
 # granite-moe-1b-a400m at full width and depth through train_lm for
-# LM_TRAIN_STEPS steps of LM_TRAIN_SHAPE (batch, sequence), again for
-# LM_TRAIN_RESUME_AT steps (saved, restored, resumed to LM_TRAIN_STEPS),
-# then qwen3-4b at full width and depth with remat "full" and bf16 moments
-# for LM_TRAIN_BIG_STEPS steps of LM_TRAIN_BIG_SHAPE.  The bound of a step
+# LM_TRAIN_STEPS steps of LM_TRAIN_SHAPE (batch, sequence), then qwen3-4b
+# at full width and depth with remat "full" and bf16 moments for
+# LM_TRAIN_BIG_STEPS steps of LM_TRAIN_BIG_SHAPE.  The bound of a step
 # is the FLOP bound (8 x active non-embedding parameters x tokens under
 # full remat, 6 without, plus 6 x d_model x vocab x tokens) at the bf16
 # peak plus the optimizer's bytes (read p, g, m, v; write p, m, v: 28
 # bytes a parameter with f32 moments, 20 with bf16) at the HBM rate.  The
-# resumed run's losses are held to the uninterrupted run's at
-# LM_RESUME_TOL, and its final parameters and both moments to the
-# uninterrupted run's at REL_TOL of each leaf's largest magnitude (the
-# optimizer's step equal), so a resume that restored the parameters but
-# lost the moments or the step fails; the restored tree is held bitwise.
+# LM checkpoint round trip and resume run in lm_train_dp, at 6 layers
+# (5.06 GB where 24 layers write 16.6 GB).
 # train_sped also holds K1 at its shapes (n = 200, k = clusters + 1 = 5,
 # the narrowest load width) to the plain twin on each of one step's drawn
 # factors, and the kernel operator to the segment operator on that draw,
@@ -564,11 +589,9 @@ SPED_ERROR_BAR = 0.5
 LM_TRAIN_ARCH = "granite-moe-1b-a400m"
 LM_TRAIN_SHAPE = (8, 1024)
 LM_TRAIN_STEPS = 10
-LM_TRAIN_RESUME_AT = 5
 LM_TRAIN_BIG_ARCH = "qwen3-4b"
 LM_TRAIN_BIG_SHAPE = (4, 1024)
 LM_TRAIN_BIG_STEPS = 4
-LM_RESUME_TOL = 1e-4
 
 # the LM mesh (lm_mesh): granite-moe-1b-a400m at full width and depth on
 # LM_MESH_SHAPE ("data", "model") = 4 gloo ranks sharing the card (each
@@ -610,6 +633,34 @@ LM_MESH_RUNS = (("f32", "float32", None, LM_MESH_RUN[2]),
                 ("bf16_depth2", "bfloat16", 2, LM_MESH_RUN[2]))
 LM_MESH_TIMEOUT_S = 600.0
 DRYRUN_ALLOC_SLACK = 512
+
+# the data-parallel train step (lm_train_dp): granite at full width cut to
+# LM_TRAIN_DP_DEPTH layers (the gradients and the re-assembled parameters
+# cross the host through gloo, about 1.7 GB each way a step at 6 layers
+# against 5.5 GB at 24) on LM_TRAIN_DP_RANKS gloo ranks of the card, the
+# global batch LM_TRAIN_SHAPE, LM_TRAIN_DP_STEPS steps at lm_train's
+# optimizer settings.  Its losses are held to one process's at
+# LM_TRAIN_DP_TOL, its parameters and gathered moments at REL_TOL of
+# each leaf's largest magnitude; train_lm, run in the same world for
+# LM_TRAIN_DP_SAVE_AT steps with a checkpoint (5.06 GB: the LM
+# checkpoint round trip, cut from lm_train's 16.6 GB at 24 layers), then
+# resumed from it to the end, is held to the run at REL_TOL; at full
+# depth the ranks only build.
+# dryrun_sped: the four variants at DRYRUN_SPED_SMALL (n, E, k) on
+# DRYRUN_SPED_RANKS ranks, held to one process's step at REL_TOL (f32)
+# and DRYRUN_SPED_BF16_TOL (bf16) of the panel's largest magnitude; the
+# graph keeps the production 16 edges a node, whose spectrum stays near
+# the series' [0, RHO_UB] (at 64 edges a node the Chebyshev series,
+# evaluated far outside its interval, overflows to NaN)
+LM_TRAIN_DP_DEPTH = 6
+LM_TRAIN_DP_RANKS = 2
+LM_TRAIN_DP_STEPS = 3
+LM_TRAIN_DP_SAVE_AT = 2
+LM_TRAIN_DP_TOL = 1e-4
+LM_TRAIN_DP_TIMEOUT_S = 600.0
+DRYRUN_SPED_SMALL = (1 << 14, 1 << 18, 32)
+DRYRUN_SPED_RANKS = 2
+DRYRUN_SPED_BF16_TOL = 2e-3
 
 
 _T0 = time.perf_counter()
@@ -3182,58 +3233,37 @@ def _warm_median(ms: list) -> float:
     return warm[len(warm) // 2]
 
 
-def _state_diff(run, want) -> dict:
-    """The largest difference of ``run``'s parameters, first and second
-    moments from ``want``'s, leaf by leaf, as a share of the leaf's largest
-    magnitude in ``want``; and whether the optimizer steps agree."""
-    import torch
-
-    def worst(got: dict, ref: dict) -> float:
-        assert got.keys() == ref.keys()
-        out = 0.0
-        for k, r in ref.items():
-            r = r.float()
-            err = float((got[k].float() - r).abs().max())
-            top = float(r.abs().max())
-            out = max(out, err / top if top > 0 else err)
-        return out
-
-    with torch.no_grad():
-        return {"params": worst(dict(run.model.named_parameters()),
-                                dict(want.model.named_parameters())),
-                "mu": worst(run.opt_state.mu, want.opt_state.mu),
-                "nu": worst(run.opt_state.nu, want.opt_state.nu),
-                "step_equal": bool(torch.equal(run.opt_state.step,
-                                               want.opt_state.step)),
-                "tol": REL_TOL}
+def _leaf_rel(got: dict, want: dict) -> float:
+    """The largest difference of ``got``'s tensors from ``want``'s, leaf
+    by leaf, as a share of the leaf's largest magnitude in ``want``."""
+    out = 0.0
+    for k, w in want.items():
+        w = w.detach().float()
+        top = float(w.abs().max())
+        err = float((got[k].detach().float() - w).abs().max())
+        out = max(out, err / top if top > 0 else err)
+    return out
 
 
 def lm_train_phase(dev, gpu: str) -> dict:
     """LM training on the card: granite-moe-1b-a400m at full width and
     depth through launch.train.train_lm (LM_TRAIN_STEPS steps of
     LM_TRAIN_SHAPE, remat "full", f32 moments): ms a step against its
-    bound, tokens/s, peak bytes, losses, grad norms; a run of
-    LM_TRAIN_RESUME_AT steps whose (params, opt_state) is saved and
-    restored (seconds, bytes, bitwise), then resumed by train_lm to
-    LM_TRAIN_STEPS, its losses and final state against the uninterrupted
-    run's; the device-busy share and the host-clock split of one more
-    step; then qwen3-4b at full width and depth, remat "full", bf16
+    bound, tokens/s, peak bytes, losses, grad norms; the device-busy
+    share and the host-clock split of one more step; then qwen3-4b at full width and depth, remat "full", bf16
     moments, LM_TRAIN_BIG_STEPS steps through dryrun.build_train_step: ms
     a step and peak bytes.  Returns the launch counts of the port's
     kernels over the phase (none runs on this path)."""
     import gc
     import math
-    import shutil
 
     import torch
 
-    from repro_torch import convert
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import dryrun, train
     from repro_torch.models import Model
-    from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optimizer as opt_lib
 
     def free():
@@ -3243,8 +3273,6 @@ def lm_train_phase(dev, gpu: str) -> dict:
     b, s = LM_TRAIN_SHAPE
     base = ["--mode", "lm", "--arch", LM_TRAIN_ARCH, "--batch", str(b),
             "--seq", str(s), "--log-every", str(LM_TRAIN_STEPS)]
-    ck_dir = ROOT / "build" / "lm_train_ckpt"
-    shutil.rmtree(ck_dir, ignore_errors=True)
     reset_launch_counts()
     free()
     torch.cuda.reset_peak_memory_stats()
@@ -3267,42 +3295,6 @@ def lm_train_phase(dev, gpu: str) -> dict:
                "peak_bytes": peak, "losses": whole.losses,
                "ln_vocab": math.log(whole.model.cfg.vocab_size),
                "grad_norms": whole.grad_norms}
-
-    # one save and one restore of the full (params, opt_state); the
-    # uninterrupted run stays on the card for the resumed run's check
-    part = train.train_lm(train.parse_args(
-        base + ["--steps", str(LM_TRAIN_RESUME_AT)]), dev)
-    tree, tree_s = host_s(lambda: convert.lm_train_tree(part.model,
-                                                        part.opt_state))
-    del part
-    free()
-    path, save_s = host_s(lambda: ckpt.save(str(ck_dir), LM_TRAIN_RESUME_AT,
-                                            tree))
-    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
-    (restored, _, at), restore_s = host_s(
-        lambda: ckpt.restore_with_fallback(str(ck_dir), tree))
-    bitwise = at == LM_TRAIN_RESUME_AT and all(
-        torch.equal(x, y) for x, y in zip(ckpt.leaves(restored),
-                                          ckpt.leaves(tree)))
-    del restored, tree
-    gc.collect()
-    # train_lm resumes from the checkpoint and runs to LM_TRAIN_STEPS
-    resumed = train.train_lm(train.parse_args(
-        base + ["--steps", str(LM_TRAIN_STEPS), "--ckpt-dir", str(ck_dir),
-                "--ckpt-every", str(10 * LM_TRAIN_STEPS)]), dev)
-    want = granite["losses"][LM_TRAIN_RESUME_AT:]
-    resume_diff = max(abs(x - y) for x, y in zip(resumed.losses, want))
-    state_diff = _state_diff(resumed, whole)
-    granite["checkpoint"] = {
-        "tree_to_host_s": tree_s, "save_s": save_s, "restore_s": restore_s,
-        "bytes": nbytes, "arrays": len(list(Path(path).glob("arr_*.npy"))),
-        "restored_bitwise": bitwise}
-    granite["resume"] = {"start": resumed.start, "losses": resumed.losses,
-                         "uninterrupted": want, "max_abs_diff": resume_diff,
-                         "tol": LM_RESUME_TOL, "state": state_diff}
-    del resumed
-    shutil.rmtree(ck_dir)
-    free()
 
     # the device-busy share of one more step, then the step's parts on
     # the host clock: forward alone, forward and backward (the recompute
@@ -3364,13 +3356,6 @@ def lm_train_phase(dev, gpu: str) -> dict:
     free()
     counts = launch_counts()
     failed = []
-    if not bitwise:
-        failed.append("the restored (params, opt_state) differs from the saved")
-    if granite["resume"]["start"] != LM_TRAIN_RESUME_AT or not (
-            resume_diff <= LM_RESUME_TOL and state_diff["step_equal"]
-            and max(state_diff[k] for k in ("params", "mu", "nu"))
-            <= REL_TOL):
-        failed.append(f"resume: {granite['resume']}")
     if not all(math.isfinite(x) for x in losses):
         failed.append(f"{LM_TRAIN_BIG_ARCH} losses {losses}")
     emit({"phase": "lm_train", "granite": granite, "qwen": qwen, "gpu": gpu,
@@ -3790,6 +3775,433 @@ def dryrun_report_phase(dev, gpu: str) -> dict:
         failed.append(f"cells: {statuses}")
     if failed:
         raise AssertionError(f"dryrun_report: {failed}")
+    return counts
+
+
+def _opt_bytes(state) -> int:
+    """Bytes of an OptState's step and moments."""
+    return state.step.element_size() + sum(
+        t.numel() * t.element_size() for d in (state.mu, state.nu)
+        for t in d.values())
+
+
+def _lm_train_dp_reference(cfg, opt_cfg, batches: list, dev, state_dp,
+                           params: dict) -> dict:
+    """One process on the card computing what the mesh step computes:
+    each half-batch's gradient, the two averaged, then AdamW, from the
+    same seed; held to the mesh run's parameters and to this rank's
+    moment slices (cut by ``state_dp``'s ZeRO-1 layout)."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt_lib
+
+    model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+    ref = dict(model.named_parameters())
+    state = opt_lib.init(opt_cfg, ref)
+    losses, norms = [], []
+    for batch in batches:
+        rows = batch["tokens"].shape[0]
+        half_losses, half_grads = [], []
+        for h in (slice(0, rows // 2), slice(rows // 2, rows)):
+            loss, _ = model.train_loss({k: v[h] for k, v in batch.items()})
+            loss.backward()
+            half_losses.append(loss.detach())
+            half_grads.append({k: p.grad for k, p in ref.items()})
+            model.zero_grad(set_to_none=True)
+        grads = {k: (half_grads[0][k] + half_grads[1][k]) / 2 for k in ref}
+        del half_grads
+        _, state, m = opt_lib.apply(opt_cfg, state, ref, grads)
+        del grads
+        losses.append(float((half_losses[0] + half_losses[1]) / 2))
+        norms.append(float(m["grad_norm"]))
+    def mine(moments: dict) -> dict:
+        return {k: state_dp.layout.part(k, moments[k]) for k in state_dp.mu}
+
+    return {"losses": losses, "grad_norms": norms,
+            "params_rel": _leaf_rel(params, ref),
+            "mu_rel": _leaf_rel(state_dp.mu, mine(state.mu)),
+            "nu_rel": _leaf_rel(state_dp.nu, mine(state.nu))}
+
+
+def _lm_train_dp_resume(dev, params: dict, state) -> dict:
+    """launch.train.train_lm in this world, as torchrun runs it (the
+    (ranks, 1) mesh, ZeRO-1 moments; every rank gathers a save, rank 0
+    writes it), with granite cut to LM_TRAIN_DP_DEPTH: LM_TRAIN_DP_SAVE_AT
+    steps saved with --ckpt-dir, then a second train_lm resuming from
+    that checkpoint to LM_TRAIN_DP_STEPS; its parameters and moment
+    slices held to ``params`` and ``state``, the run of the same steps
+    without the round trip (train_lm draws the same model, batches and
+    schedule: seed 0, lr 3e-4, 20 warm-up steps)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    ck_dir = ROOT / "build" / "lm_train_dp_ckpt"
+    b, s = LM_TRAIN_SHAPE
+    base = ["--mode", "lm", "--arch", LM_TRAIN_ARCH, "--batch", str(b),
+            "--seq", str(s), "--log-every", str(LM_TRAIN_DP_STEPS),
+            "--ckpt-dir", str(ck_dir)]
+    lead = dist.get_rank() == 0
+    if lead:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    dist.barrier()
+    get_arch = train.get_arch  # train_lm has no depth flag: cut it here
+    train.get_arch = lambda name: dataclasses.replace(
+        get_arch(name), num_layers=LM_TRAIN_DP_DEPTH)
+    try:
+        first, first_s = host_s(lambda: train.train_lm(train.parse_args(
+            base + ["--steps", str(LM_TRAIN_DP_SAVE_AT)]), dev))
+        del first
+        dist.barrier()  # rank 0's save is on disk before anyone resumes
+        out = {"first_run_s": first_s}
+        if lead:
+            path = ck_dir / f"step_{LM_TRAIN_DP_SAVE_AT:09d}"
+            out["checkpoint_bytes"] = sum(f.stat().st_size
+                                          for f in path.iterdir())
+        run, out["resumed_run_s"] = host_s(lambda: train.train_lm(
+            train.parse_args(base + ["--steps", str(LM_TRAIN_DP_STEPS)]), dev))
+    finally:
+        train.get_arch = get_arch
+    dist.barrier()
+    if lead:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    got = dict(run.model.named_parameters())
+    out.update(from_step=run.start, losses=run.losses,
+               step_s=run.step_s,
+               params_bitwise=all(torch.equal(got[k], p)
+                                  for k, p in params.items()),
+               params_rel=_leaf_rel(got, params),
+               mu_rel=_leaf_rel(run.opt_state.mu, state.mu),
+               nu_rel=_leaf_rel(run.opt_state.nu, state.nu),
+               step_equal=int(run.opt_state.step) == int(state.step))
+    return out
+
+
+def lm_train_dp_rank(dev) -> dict:
+    """One rank of phase lm_train_dp: granite cut to LM_TRAIN_DP_DEPTH on
+    the (ranks, 1) mesh, LM_TRAIN_DP_STEPS data-parallel steps with ZeRO-1
+    moments (ms, collectives, losses, peak), the parameters' digest and
+    the moments' bytes against dryrun.reckon; the checkpoint round trip
+    through train_lm (``_lm_train_dp_resume``); the run held to one
+    process's halves, computed in this rank; then the full-depth build
+    against the reckoning."""
+    import gc
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model, sharding
+    from repro_torch.train import optimizer as opt_lib
+
+    full = get_arch(LM_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=LM_TRAIN_DP_DEPTH)
+    b, s = LM_TRAIN_SHAPE
+    opt_cfg = opt_lib.OptConfig(lr=3e-4, warmup_steps=20,
+                                total_steps=LM_TRAIN_DP_STEPS)
+    mesh = make_local_mesh(dev)
+    pipe = TokenPipeline(cfg.vocab_size, b, s, 0)
+    batches = [pipe.batch_at(i, dev) for i in range(LM_TRAIN_DP_STEPS)]
+    out = {"coord": [int(c) for c in mesh.get_coordinate()]}
+    with sharding.set_mesh(mesh):
+        model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        req = _requested_bytes()
+        state = opt_lib.init(opt_cfg, params)
+        torch.cuda.synchronize()
+        out["moment_bytes_requested"] = _requested_bytes() - req
+        out["moment_bytes"] = _opt_bytes(state)
+        out["reckoned_optimizer_bytes"] = dryrun.reckon(
+            cfg, "train", b, s, mesh, opt_cfg)["optimizer_bytes"]
+        step = dryrun.build_train_step(cfg, opt_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, step_ms, coll = [], [], [], []
+        for batch in batches:
+            sharding.reset_collective_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, m = step(model, state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            coll.append(sharding.collective_stats())
+        out.update(losses=losses, grad_norms=norms, step_ms=step_ms,
+                   collectives=coll, peak_bytes=torch.cuda.max_memory_allocated(),
+                   moments_held=len(state.mu), params_total=len(params))
+        sha = hashlib.sha256()
+        for p in params.values():
+            sha.update(p.detach().cpu().numpy().tobytes())
+        out["params_sha256"] = sha.hexdigest()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resume"] = _lm_train_dp_resume(dev, params, state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # every rank runs the reference and holds its own moment slices to it
+    out["reference"] = _lm_train_dp_reference(cfg, opt_cfg, batches, dev,
+                                              state, params)
+    del model, params, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    # full depth: the model and its ZeRO-1 state, no step
+    with sharding.set_mesh(mesh):
+        torch.cuda.synchronize()
+        base = _requested_bytes()
+        model = Model(full, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        params_req = _requested_bytes() - base
+        state = opt_lib.init(opt_cfg, params)
+        torch.cuda.synchronize()
+        want = dryrun.reckon(full, "train", b, s, mesh, opt_cfg)
+        out["full_depth"] = {
+            "layers": full.num_layers, "params_bytes_requested": params_req,
+            "moment_bytes_requested": _requested_bytes() - base - params_req,
+            "moment_bytes": _opt_bytes(state),
+            "reckoned_optimizer_bytes": want["optimizer_bytes"],
+            "reckoned_params_bytes": want["params_bytes"],
+            "whole_moment_bytes": 2 * sum(p.numel() * 4
+                                          for p in params.values()) + 4}
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_dp_phase(dev, gpu: str) -> dict:
+    """Phase lm_train_dp (see the module docstring).  Returns the launch
+    counts of the port's kernels over the phase (none runs on it)."""
+    import gc
+
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    results, wall = host_s(lambda: parallel.run_ranks(
+        LM_TRAIN_DP_RANKS, lm_train_dp_rank, timeout=LM_TRAIN_DP_TIMEOUT_S))
+    outs = [r.value for r in results]
+    ref = outs[0]["reference"]
+    failed = []
+    loss_diff = max(abs(x - y) for o in outs
+                    for x, y in zip(o["losses"], o["reference"]["losses"]))
+    if not loss_diff <= LM_TRAIN_DP_TOL:
+        failed.append(f"losses {loss_diff} from one process's > "
+                      f"{LM_TRAIN_DP_TOL}")
+    for o in outs:
+        for key in ("params_rel", "mu_rel", "nu_rel"):
+            if not o["reference"][key] <= REL_TOL:
+                failed.append(f"rank {o['coord']}: {key} "
+                              f"{o['reference'][key]} > {REL_TOL}")
+    if len({o["params_sha256"] for o in outs}) != 1:
+        failed.append("the ranks' parameters differ")
+    for o in outs:
+        r = o["resume"]
+        loss_gap = max(abs(x - y) for x, y in zip(
+            r["losses"], o["losses"][LM_TRAIN_DP_SAVE_AT:]))
+        if not (r["from_step"] == LM_TRAIN_DP_SAVE_AT and r["step_equal"]
+                and loss_gap <= LM_TRAIN_DP_TOL and max(
+                    r[k] for k in ("params_rel", "mu_rel", "nu_rel"))
+                <= REL_TOL):
+            failed.append(f"rank {o['coord']} resume: {r}")
+    for o in outs:
+        for where in (o, o["full_depth"]):
+            # the tensors' bytes exactly; the bytes they asked the caching
+            # allocator for within its slack a tensor
+            want = where["reckoned_optimizer_bytes"]
+            slack = DRYRUN_ALLOC_SLACK * (1 + 2 * o["moments_held"])
+            if where["moment_bytes"] != want or abs(
+                    where["moment_bytes_requested"] - want) > slack:
+                failed.append(f"rank {o['coord']}: moments "
+                              f"{where['moment_bytes']} (requested "
+                              f"{where['moment_bytes_requested']}), "
+                              f"reckoned {want}")
+    counts = launch_counts()
+    emit({"phase": "lm_train_dp", "arch": LM_TRAIN_ARCH,
+          "depth": LM_TRAIN_DP_DEPTH, "ranks": LM_TRAIN_DP_RANKS,
+          "mesh": [LM_TRAIN_DP_RANKS, 1], "backend": "gloo",
+          "global_batch": LM_TRAIN_SHAPE, "steps": LM_TRAIN_DP_STEPS,
+          "world_wall_s": wall, "loss_max_abs_diff": loss_diff,
+          "loss_bar": LM_TRAIN_DP_TOL, "rel_bar": REL_TOL,
+          "reference": {"losses": ref["losses"],
+                        "grad_norms": ref["grad_norms"],
+                        **{f"rank{i}_{k}": o["reference"][k]
+                           for i, o in enumerate(outs)
+                           for k in ("params_rel", "mu_rel", "nu_rel")}},
+          "per_rank": [{
+              "coord": o["coord"], "losses": o["losses"],
+              "grad_norms": o["grad_norms"], "step_ms": o["step_ms"],
+              "ms_per_step": _warm_median(o["step_ms"]),
+              "all_reduce_per_step": [c["all_reduce"] for c in o["collectives"]],
+              "all_gather_per_step": [c["all_gather"] for c in o["collectives"]],
+              "collective_host_s_per_step": [c["seconds"]
+                                             for c in o["collectives"]],
+              "peak_bytes": o["peak_bytes"], "moment_bytes": o["moment_bytes"],
+              "moment_bytes_requested": o["moment_bytes_requested"],
+              "reckoned_optimizer_bytes": o["reckoned_optimizer_bytes"],
+              "moments_held": o["moments_held"], "params": o["params_total"],
+              "resume": o["resume"],
+              "full_depth": o["full_depth"]} for o in outs],
+          "params_bitwise_equal": len({o["params_sha256"] for o in outs}) == 1,
+          "gpu": gpu, "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"lm_train_dp: {failed}")
+    return counts
+
+
+def dryrun_sped_rank(dev, n: int, e: int, k: int) -> dict:
+    """One rank of phase dryrun_sped: every variant of
+    launch.dryrun_sped.build_step on this rank's edge slice of the
+    (ranks, 1) mesh, then (rank 0) the same variant in one process (no
+    mesh), both from the same seeded edges and panel: ms a step, the
+    all_reduces and their bytes, the largest difference."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import parallel
+    from repro_torch.core import solvers
+    from repro_torch.launch import dryrun_sped
+
+    mesh = parallel.default_edge_mesh(device=dev)
+    edges = dryrun_sped.random_edges(n, e, seed=LM_SEED, device=dev)
+    v = solvers.init_state(torch.Generator(device=dev).manual_seed(LM_SEED),
+                           n, k).v
+    out = {}
+    dryrun_sped.build_step("cheb64_fused", mesh, ("data", "model"))(v, edges)
+    for variant in dryrun_sped.VARIANTS:  # timed after that one warm-up
+        step = dryrun_sped.build_step(variant, mesh, ("data", "model"))
+        dryrun_sped.reset_stats()
+        got, ev, host = _timed(lambda: step(v, edges))
+        st = dryrun_sped.stats()
+        row = {"ms": ev, "host_ms": host, "all_reduce": st["all_reduce"],
+               "bytes": st["bytes"], "finite": bool(torch.isfinite(got).all())}
+        if dist.get_rank() == 0:
+            one = dryrun_sped.build_step(variant, None, ())
+            want, one_ms, _ = _timed(lambda: one(v, edges))
+            row.update(one_process_ms=one_ms,
+                       max_abs_err=float((got - want).abs().max()),
+                       largest=float(want.abs().max()))
+        out[variant] = row
+    return out
+
+
+def dryrun_sped_phase(dev, gpu: str) -> dict:
+    """Phase dryrun_sped (see the module docstring).  Returns the launch
+    counts of the port's kernels over the phase (none runs on it)."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun_sped
+    from repro_torch.core import solvers
+
+    reset_launch_counts()
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        (code, report_s) = host_s(lambda: dryrun_sped.main(
+            ["--out", tmp, "--device", str(dev)]))
+        cells = {p.stem: json.loads(p.read_text())
+                 for p in Path(tmp).glob("*.json")}
+    if code != 0 or len(cells) != 8:
+        failed.append(f"report: exit {code}, {len(cells)} cells")
+    n, e, k = DRYRUN_SPED_SMALL
+    results, wall = host_s(lambda: parallel.run_ranks(
+        DRYRUN_SPED_RANKS, dryrun_sped_rank, n, e, k,
+        timeout=LM_TRAIN_DP_TIMEOUT_S))
+    outs = [r.value for r in results]
+    per_matvec = {"limit251": 2, "cheb64": 2, "cheb64_fused": 1,
+                  "cheb64_bf16": 1}
+    small = {}
+    for variant in dryrun_sped.VARIANTS:
+        r0 = outs[0][variant]
+        matvecs = dryrun_sped.make_series(variant).degree + (
+            0 if variant == "limit251" else 1)  # Clenshaw: degree + 1
+        count = matvecs * per_matvec[variant]
+        item = 2 if variant.endswith("bf16") else 4
+        tol = (DRYRUN_SPED_BF16_TOL if variant.endswith("bf16")
+               else REL_TOL) * r0["largest"]
+        small[variant] = {"ranks": [o[variant] for o in outs],
+                          "expected_all_reduce": count, "tolerance": tol}
+        if not r0["max_abs_err"] <= tol:
+            failed.append(f"{variant}: {r0['max_abs_err']} > {tol}")
+        for o in outs:
+            if (o[variant]["all_reduce"], o[variant]["bytes"]) != (
+                    count, count * n * k * item) or not o[variant]["finite"]:
+                failed.append(f"{variant}: {o[variant]}")
+        cell = cells.get(f"sped__{variant}__pod")
+        if cell is None or cell["collectives"]["count"]["all-reduce"] != count:
+            failed.append(f"{variant}: the report's count")
+    del results, outs
+    # one cheb64_fused step at the production shape, one process
+    gc.collect()
+    torch.cuda.empty_cache()
+    N, E, K = dryrun_sped.N_NODES, dryrun_sped.N_EDGES, dryrun_sped.K
+    torch.cuda.synchronize()
+    req = _requested_bytes()
+    t0 = time.perf_counter()
+    edges = dryrun_sped.random_edges(N, E, seed=LM_SEED, device=dev)
+    v = solvers.init_state(torch.Generator(device=dev).manual_seed(LM_SEED),
+                           N, K).v
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    args_requested = _requested_bytes() - req
+    args = v.numel() * v.element_size() + sum(
+        t.numel() * t.element_size() for t in edges.values())
+    step = dryrun_sped.build_step("cheb64_fused", None, ())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, ms, host_ms = _timed(lambda: step(v, edges))
+    prod = {"n": N, "num_edges": E, "k": K, "ms": ms, "host_ms": host_ms,
+            "setup_s": setup_s, "argument_bytes": args,
+            "argument_bytes_requested": args_requested,
+            "reckoned_argument_bytes": dryrun_sped.argument_bytes(1),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_over_arguments": torch.cuda.max_memory_allocated() - base,
+            "finite": bool(torch.isfinite(out).all())}
+    # the report's reckoning for one device, against the bytes the panel
+    # and edges asked the card's allocator for (what stays live of their
+    # making), within its slack a tensor
+    want_args = dryrun_sped.argument_bytes(1)
+    if args != want_args or abs(args_requested - want_args) > (
+            DRYRUN_ALLOC_SLACK * (1 + len(edges))):
+        failed.append(f"production arguments {args} (requested "
+                      f"{args_requested}), reckoned {want_args}")
+    if not prod["finite"]:
+        failed.append("the production step is not finite")
+    del edges, v, out, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    emit({"phase": "dryrun_sped", "report_s": report_s,
+          "cells": {t: {"count": c["collectives"]["count"]["all-reduce"],
+                        "total_bytes": c["collectives"]["total_bytes"],
+                        "argument_bytes": c["memory"]["argument_bytes"]}
+                    for t, c in sorted(cells.items())},
+          "small": {"n": n, "num_edges": e, "k": k,
+                    "ranks": DRYRUN_SPED_RANKS, "world_wall_s": wall,
+                    **small},
+          "production": prod, "gpu": gpu, "launches": counts,
+          "failed": failed})
+    if failed:
+        raise AssertionError(f"dryrun_sped: {failed}")
     return counts
 
 
@@ -5487,7 +5899,13 @@ def main() -> int:
     # ---- 37. the dry-run's cell report ----------------------------------------
     counts_dryrun = dryrun_report_phase(dev, gpu)
 
-    # ---- 38. kernel list -------------------------------------------------
+    # ---- 38. the data-parallel train step with ZeRO-1 ----------------------
+    counts_lm_train_dp = lm_train_dp_phase(dev, gpu)
+
+    # ---- 39. the SPED dry-run ---------------------------------------------
+    counts_dryrun_sped = dryrun_sped_phase(dev, gpu)
+
+    # ---- 40. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -5499,7 +5917,8 @@ def main() -> int:
                  counts_series_degree, counts_transforms, counts_linkpred,
                  counts_walks_paper, counts_lm_serve, counts_lm_moe,
                  counts_lm_ssm, counts_train_sped, counts_lm_train,
-                 counts_lm_mesh, counts_dryrun)
+                 counts_lm_mesh, counts_dryrun, counts_lm_train_dp,
+                 counts_dryrun_sped)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

@@ -23,6 +23,7 @@ from repro_torch.models.model import Model
 from repro_torch.spectral.probes import ProbeResult
 from repro_torch.stream.graph_store import EdgeBatch, GraphStore
 from repro_torch.stream.updates import EigenEstimate
+from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.optimizer import OptState
 
 _BACKEND_NAMES = {"pallas": "kernel"}
@@ -255,24 +256,46 @@ def lm_train_tree(model: Model, opt_state: OptState) -> tuple:
     CPU: ``(params, OptState(step, mu, nu, error))``, each of the dicts
     stacked as ``lm_tree_from_named`` stacks it (``error`` None without
     compression).  ``train.checkpoint`` saves it in ``repro``'s leaf
-    order."""
+    order.  ZeRO-1 moment slices are gathered whole first
+    (``optimizer.whole_moments``, a collective of the data group of the
+    state's layout), so every rank's tree is the one a single
+    process holding the same state makes."""
 
     def tree(named):
         return lm_tree_from_named({k: t.detach().cpu() for k, t in named.items()})
 
-    return (tree(dict(model.named_parameters())), OptState(
-        step=opt_state.step.cpu(), mu=tree(opt_state.mu),
-        nu=tree(opt_state.nu),
+    params = dict(model.named_parameters())
+    mu, nu = opt_lib.whole_moments(opt_state, params)
+    return (tree(params), OptState(
+        step=opt_state.step.cpu(), mu=tree(mu), nu=tree(nu),
+        error=None if opt_state.error is None else tree(opt_state.error)))
+
+
+def lm_train_like(model: Model, opt_state: OptState) -> tuple:
+    """A tree of ``lm_train_tree``'s form, shapes and dtypes, of
+    uninitialized CPU tensors (no collective): what
+    ``train.checkpoint.restore`` restores into."""
+    params = dict(model.named_parameters())
+    mdt = next(iter(opt_state.mu.values())).dtype
+
+    def tree(named, dtype=None):
+        return lm_tree_from_named({k: torch.empty(t.shape, dtype=dtype or t.dtype)
+                                   for k, t in named.items()})
+
+    return (tree(params), OptState(
+        step=torch.empty((), dtype=torch.int32), mu=tree(params, mdt),
+        nu=tree(params, mdt),
         error=None if opt_state.error is None else tree(opt_state.error)))
 
 
 def load_lm_train_tree(model: Model, opt_state: OptState, tree) -> OptState:
     """Copy a tree of ``lm_train_tree``'s form into the model's
     parameters and ``opt_state``'s moments and residuals, in place;
-    returns the state with the tree's step."""
+    returns the state with the tree's step.  Where the state holds
+    ZeRO-1 slices, each moment is sliced for this rank of the state's
+    layout (``optimizer.load_moments``), whatever mesh wrote the tree."""
     params, state = tree
-    pairs = [(dict(model.named_parameters()), params),
-             (opt_state.mu, state.mu), (opt_state.nu, state.nu)]
+    pairs = [(dict(model.named_parameters()), params)]
     if opt_state.error is not None:
         pairs.append((opt_state.error, state.error))
     with torch.no_grad():
@@ -280,4 +303,6 @@ def load_lm_train_tree(model: Model, opt_state: OptState, tree) -> OptState:
             src = lm_named_from_tree(src)
             for name, t in dst.items():
                 t.copy_(src[name])
+    opt_lib.load_moments(opt_state, lm_named_from_tree(state.mu),
+                         lm_named_from_tree(state.nu))
     return opt_state._replace(step=state.step.to(opt_state.step.device))

@@ -111,13 +111,28 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_lib.OptConfig,
     (``optimizer.apply``); the gradients are freed after the step.
     Metrics are 0-dim tensors on the model's device: "loss", "xent",
     "aux", "grad_norm", "lr".
+
+    Under a ``DeviceMesh`` (``sharding.set_mesh``) the step takes the
+    global batch on every rank and runs the rank's rows (its block of the
+    data axes; every row where the batch does not divide by their
+    extent), its microbatches being slices of those rows.  The gradients
+    are then averaged over the data group in flat f32 buckets
+    (``sharding.mean_buckets``), the loss and xent reported are the data
+    group's means (aux already is one), and ``optimizer.apply`` updates
+    the parameters under ZeRO-1.  With one data rank the step is the
+    step without a mesh.
     """
 
     def train_step(model: Model, opt_state: opt_lib.OptState, batch: dict):
         _check(model, cfg)
         params = dict(model.named_parameters())
         model.zero_grad(set_to_none=True)
+        mesh = sharding.current_mesh()
         rows = next(iter(batch.values())).shape[0]
+        split = mesh is not None and sharding.batch_split(mesh, rows)
+        if split:
+            batch = {k: sharding.own_rows(mesh, v) for k, v in batch.items()}
+            rows = next(iter(batch.values())).shape[0]
         if rows % microbatches:
             raise ValueError(f"a batch of {rows} rows does not split into "
                              f"{microbatches} microbatches")
@@ -125,25 +140,33 @@ def build_train_step(cfg: ArchConfig, opt_cfg: opt_lib.OptConfig,
         slices = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
                   for i in range(microbatches)]
         losses, xents, auxs = [], [], []
-        for piece in slices:
-            loss, metrics = model.train_loss(piece)
-            loss.backward()
-            losses.append(loss.detach())
-            xents.append(metrics["xent"].detach())
-            auxs.append(metrics["aux"].detach())
+        with sharding.model_rows(split):  # no mesh: nothing reads it
+            for piece in slices:
+                loss, metrics = model.train_loss(piece)
+                loss.backward()
+                losses.append(loss.detach())
+                xents.append(metrics["xent"].detach())
+                auxs.append(metrics["aux"].detach())
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.items()}
         if microbatches > 1:
             for g in grads.values():
                 g.div_(microbatches)
+        if split:
+            sharding.mean_buckets(list(grads.values()), mesh)
         _, opt_state, om = opt_lib.apply(opt_cfg, opt_state, params, grads)
         model.zero_grad(set_to_none=True)
 
         def mean(xs):
             return torch.stack(xs).mean()
 
-        return model, opt_state, {"xent": mean(xents), "aux": mean(auxs),
-                                  **om, "loss": mean(losses)}
+        loss, xent = mean(losses), mean(xents)
+        if split:
+            both = torch.stack([loss, xent])
+            sharding.mean_buckets([both], mesh)
+            loss, xent = both[0], both[1]
+        return model, opt_state, {"xent": xent, "aux": mean(auxs),
+                                  **om, "loss": loss}
 
     return train_step
 

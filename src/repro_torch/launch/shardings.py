@@ -20,7 +20,9 @@ package decides on: nested dicts keyed like its parameter tree, each
 layer stack one (L, ...) leaf (:func:`stacked_param_shapes`, made from
 the port's per-layer parameters as meta tensors, with no copies), and a
 ``ServeState`` whose caches are each one stacked cache
-(:func:`stacked_cache_shapes`).  The rules align a parameter's rule to
+(:func:`stacked_cache_shapes`).  :func:`zero1_layout` maps the moment
+specs back onto the port's per-layer tensors, for the data-parallel
+step's ZeRO-1 optimizer state.  The rules align a parameter's rule to
 its rightmost dims, so the layer axis of a parameter is never split; a
 moment's may be (``moment_specs`` takes the first free divisible dim,
 often the layer axis), and then a rank holds whole layers.
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -335,3 +338,132 @@ def cache_specs(cfg: ArchConfig, mesh, cache_shapes: ServeState) -> ServeState:
     return ServeState(caches=dispatch(cache_shapes.caches),
                       cross_kv=dispatch(cache_shapes.cross_kv),
                       attn_caches=dispatch(cache_shapes.attn_caches))
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1: the moment specs on the port's per-layer parameters
+# --------------------------------------------------------------------------
+
+class MomentSplit(NamedTuple):
+    """How one parameter's moments split over the data axes.  ``owner``
+    set: the stacked tree's layer axis splits, so this layer's tensor is
+    held whole by data rank ``owner`` only; else ``dim`` None: whole on
+    every rank, or the tensor's ``dim`` splits into equal blocks, data
+    rank r holding block r."""
+    dim: int | None
+    owner: int | None
+
+
+@dataclasses.dataclass(frozen=True)
+class Zero1Layout:
+    """Where the moments of the port's parameters (``layers.<i>.…``
+    names) live on the data ranks of ``mesh``: ``splits`` by name, ``dp``
+    the data extent, ``index`` this rank's data index."""
+
+    splits: dict
+    dp: int
+    index: int
+    mesh: object
+
+    def part(self, name: str, t: torch.Tensor, index: int | None = None):
+        """Data rank ``index``'s (default: this rank's) part of ``t``, a
+        tensor of the parameter's shape: a view, or None where that rank
+        holds none of it."""
+        index = self.index if index is None else index
+        sp = self.splits[name]
+        if sp.owner is not None:
+            return t if sp.owner == index else None
+        if sp.dim is None:
+            return t
+        n = t.shape[sp.dim] // self.dp
+        return t.narrow(sp.dim, index * n, n)
+
+    def held(self, index: int | None = None) -> list[str]:
+        """The split parameters data rank ``index`` holds a part of, in
+        the parameters' order (the parameters whole on every rank are
+        left out)."""
+        index = self.index if index is None else index
+        return [k for k, sp in self.splits.items()
+                if (sp.owner == index) or (sp.owner is None
+                                           and sp.dim is not None)]
+
+    def gather(self, local: dict, dest: dict) -> None:
+        """Write every data rank's parts into ``dest`` (whole tensors by
+        name), this rank's from ``local`` (its parts by name, of one
+        dtype): each rank's parts go flat through ONE all_gather of the
+        data group (as bytes), then into their places.  Every rank holds
+        1/dp of every split tensor, so the flat buffers are equal."""
+        from repro_torch.models.sharding import all_gather_flat, data_group
+
+        names = [self.held(r) for r in range(self.dp)]
+        if not names[self.index]:
+            return
+        mine = torch.cat([local[k].reshape(-1) for k in names[self.index]])
+        dtype = mine.dtype
+        parts = all_gather_flat(mine.view(torch.uint8),
+                                data_group(self.mesh))
+        for r, flat in enumerate(parts):
+            flat, off = flat.view(dtype), 0
+            for k in names[r]:
+                view = self.part(k, dest[k], r)
+                view.copy_(flat[off:off + view.numel()].view(view.shape))
+                off += view.numel()
+            if off != flat.numel():
+                raise RuntimeError(f"data rank {r}'s parts hold {off} of "
+                                   f"{flat.numel()} gathered elements")
+
+
+def zero1_layout(named: dict, mesh, index: int | None = None
+                 ) -> Zero1Layout | None:
+    """The ZeRO-1 layout of the parameters ``named`` (tensors, or meta
+    tensors, keyed by the port's names) on ``mesh``: the JAX package's
+    ``moment_specs(param_specs(cfg, shapes, mesh), shapes, mesh)`` on the
+    stacked tree, mapped onto each layer's tensor.  A split on a stacked
+    layer axis gives data rank r layers [r L/dp, (r+1) L/dp) whole; a
+    split on another axis slices each layer's tensor on that axis; an
+    unsplit leaf stays whole on every rank.  None where the data extent
+    is 1.  ``index`` is the data rank the layout is for (default: this
+    rank of the ``DeviceMesh``; an ``AbstractMesh`` needs one).  Only
+    the data axes are read: a mesh whose "model" axis holds several
+    ranks raises (tensor-parallel training is not ported)."""
+    from repro_torch.convert import _STACKED, lm_tree_from_named
+    from repro_torch.models.sharding import dp_index
+
+    dp, tp = mesh_axes(mesh)
+    dp_ext = _extent(mesh, dp)
+    if dp_ext == 1:
+        return None
+    if _extent(mesh, tp) > 1:
+        raise NotImplementedError("ZeRO-1 on a mesh whose model axis holds "
+                                  "several ranks: tensor-parallel training "
+                                  "is not ported")
+    shapes = lm_tree_from_named({
+        k: torch.empty(t.shape, dtype=t.dtype, device="meta")
+        for k, t in named.items()})
+    # the rules read the names and shapes only, not the config
+    specs = moment_specs(param_specs(None, shapes, mesh), shapes, mesh)
+    dp_entry = dp if len(dp) > 1 else dp[0]
+    splits = {}
+    for name in named:
+        stack, _, rest = name.partition(".")
+        layer = None
+        if stack in _STACKED:
+            i, _, rest = rest.partition(".")
+            layer, path = int(i), [stack] + rest.split(".")
+        else:
+            path = name.split(".")
+        node, leaf = specs, shapes
+        for key in path:
+            node, leaf = node[key], leaf[key]
+        entries = list(node)
+        j = entries.index(dp_entry) if dp_entry in entries else None
+        if j is None:
+            splits[name] = MomentSplit(None, None)
+        elif layer is None:
+            splits[name] = MomentSplit(j, None)
+        elif j == 0:
+            splits[name] = MomentSplit(None, layer // (leaf.shape[0] // dp_ext))
+        else:
+            splits[name] = MomentSplit(j - 1, None)
+    return Zero1Layout(splits, dp_ext,
+                       dp_index(mesh) if index is None else index, mesh)

@@ -23,17 +23,33 @@ Runs on the CUDA card unless --device names another device; without a
 card and without --device it exits with code 2 and the device rule's
 message.  Step i draws its batch from a generator seeded from (seed,
 step), so a resumed run replays nothing.
+
+``--mode lm`` is data parallel, as the JAX package's ``train_lm`` is
+under ``make_local_mesh()``: started by torchrun (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` in the environment),
+``main`` joins that world over gloo and each rank runs its rows of
+every global batch on a
+(world, 1) ("data", "model") mesh, with ZeRO-1 moments; otherwise it
+runs a world of one, which computes what no mesh computes.  Only rank 0
+prints and writes checkpoints.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --mode lm \
+      --arch qwen3-4b --smoke --steps 20 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.configs import get_arch, smoke_config
@@ -44,7 +60,9 @@ from repro_torch.core.kmeans import cluster_agreement, kmeans
 from repro_torch.data.pipeline import TokenPipeline, mixed_seed
 from repro_torch.device import resolve_device
 from repro_torch.launch.dryrun import build_train_step
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.frontends import synthetic_frontend
+from repro_torch.models import sharding
 from repro_torch.models.model import Model
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import fault
@@ -78,55 +96,93 @@ def _sync(device: torch.device) -> None:
 
 
 def train_lm(args, device: torch.device) -> LMRun:
+    """The LM loop, on the (world, 1) mesh of the initialized world (no
+    mesh where none is): every rank feeds the global batch, runs its
+    rows and holds its ZeRO-1 moment slices; rank 0 alone prints and
+    saves (a save gathers the moments on every rank first)."""
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
         batch_size, seq = 4, 64
     else:
         batch_size, seq = args.batch, args.seq
+    world = dist.is_initialized()
+    lead = not world or dist.get_rank() == 0
     opt_cfg = opt_lib.OptConfig(lr=args.lr, warmup_steps=20,
                                 total_steps=args.steps,
                                 compress_grads=args.compress_grads)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=batch_size,
                          seq_len=seq, seed=args.seed)
-    model = Model(cfg, device, torch.Generator(device=device).manual_seed(args.seed))
-    opt_state = opt_lib.init(opt_cfg, dict(model.named_parameters()))
-    start = 0
-    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
-        tree, _, start = ckpt.restore_with_fallback(
-            args.ckpt_dir, convert.lm_train_tree(model, opt_state))
-        opt_state = convert.load_lm_train_tree(model, opt_state, tree)
-        log.info("resumed from step %d", start)
 
-    train_step = build_train_step(cfg, opt_cfg)
-    run = LMRun([], [], [], start, model, opt_state)
-    for step in range(start, args.steps):
-        t0 = time.perf_counter()
-        batch = pipe.batch_at(step, device)
-        fe_gen = torch.Generator(device=device).manual_seed(
-            mixed_seed(args.seed + 1, step))
-        batch.update(synthetic_frontend(fe_gen, cfg, batch_size))
-        model, opt_state, m = train_step(model, opt_state, batch)
-        loss = float(m["loss"])
-        run.step_s.append(time.perf_counter() - t0)
-        run.losses.append(loss)
-        run.grad_norms.append(float(m["grad_norm"]))
-        if step % args.log_every == 0:
-            print(f"step {step} loss {loss:.4f} gnorm {run.grad_norms[-1]:.3f}"
-                  f" lr {float(m['lr']):.2e}", flush=True)
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            fault.retrying(ckpt.save)(
-                args.ckpt_dir, step + 1, convert.lm_train_tree(model, opt_state),
-                extra={"loss": loss})
-    if args.ckpt_dir:
-        fault.retrying(ckpt.save)(args.ckpt_dir, args.steps,
-                                  convert.lm_train_tree(model, opt_state))
+    def save(step, model, opt_state, **kw):
+        tree = convert.lm_train_tree(model, opt_state)  # every rank gathers
+        if lead:
+            fault.retrying(ckpt.save)(args.ckpt_dir, step, tree, **kw)
+
+    with sharding.set_mesh(make_local_mesh(device) if world else None):
+        model = Model(cfg, device,
+                      torch.Generator(device=device).manual_seed(args.seed))
+        opt_state = opt_lib.init(opt_cfg, dict(model.named_parameters()))
+        start = 0
+        if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+            tree, _, start = ckpt.restore_with_fallback(
+                args.ckpt_dir, convert.lm_train_like(model, opt_state))
+            opt_state = convert.load_lm_train_tree(model, opt_state, tree)
+            log.info("resumed from step %d", start)
+
+        train_step = build_train_step(cfg, opt_cfg)
+        run = LMRun([], [], [], start, model, opt_state)
+        for step in range(start, args.steps):
+            t0 = time.perf_counter()
+            batch = pipe.batch_at(step, device)
+            fe_gen = torch.Generator(device=device).manual_seed(
+                mixed_seed(args.seed + 1, step))
+            batch.update(synthetic_frontend(fe_gen, cfg, batch_size))
+            model, opt_state, m = train_step(model, opt_state, batch)
+            loss = float(m["loss"])
+            run.step_s.append(time.perf_counter() - t0)
+            run.losses.append(loss)
+            run.grad_norms.append(float(m["grad_norm"]))
+            if lead and step % args.log_every == 0:
+                print(f"step {step} loss {loss:.4f} gnorm "
+                      f"{run.grad_norms[-1]:.3f} lr {float(m['lr']):.2e}",
+                      flush=True)
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                save(step + 1, model, opt_state, extra={"loss": loss})
+        if args.ckpt_dir:
+            save(args.steps, model, opt_state)
     if not np.isfinite(run.losses).all():
         raise FloatingPointError("training diverged")
-    if run.losses:
+    if lead and run.losses:
         print(f"final loss {run.losses[-1]:.4f} (start {run.losses[0]:.4f})")
     run.opt_state = opt_state
     return run
+
+
+@contextlib.contextmanager
+def _world(device: torch.device):
+    """The world ``train_lm`` runs in: torchrun's, where it launched this
+    process (gloo, which lets several ranks share one card; rank r takes
+    card r % cards), else a gloo world of this one process; yields the
+    rank's device."""
+    if dist.is_torchelastic_launched():
+        dist.init_process_group("gloo", init_method="env://")
+        if device.type == "cuda":
+            device = torch.device("cuda", dist.get_rank()
+                                  % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        try:
+            yield device
+        finally:
+            dist.destroy_process_group()
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", rank=0, world_size=1,
+                                init_method=(Path(tmp) / "init").as_uri())
+        try:
+            yield device
+        finally:
+            dist.destroy_process_group()
 
 
 def sped_problem(args, device: torch.device, backend: str = "auto"):
@@ -228,7 +284,8 @@ def main(argv=None) -> int:
         return 2
     logging.basicConfig(level=logging.INFO)
     if args.mode == "lm":
-        train_lm(args, device)
+        with _world(device) as device:
+            train_lm(args, device)
     else:
         train_sped(args, device)
     return 0

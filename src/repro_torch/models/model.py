@@ -22,7 +22,8 @@ Under a mesh (``sharding.set_mesh`` with a ``DeviceMesh``; one rank is
 one shard) ``prefill`` and ``decode_step`` take the global batch, run
 this rank's rows (its block of the data axes, or every row where the
 batch does not divide) and return the global logits, gathered over the
-data group.  Each GQA cache holds the rank's rows and its slice of the
+data group; ``train_loss`` takes the global batch and returns the loss
+of the rank's rows.  Each GQA cache holds the rank's rows and its slice of the
 sequence over "model" (context-parallel decode); MLA caches, SSM state
 and whisper's cross K/V hold the rank's rows, whole along "model"; the
 MoE runs the rank's experts (``shard_model`` drops the others' weights);
@@ -304,18 +305,38 @@ class Model(nn.Module):
         """(xent + aux_weight * aux, {"xent", "aux"}): aux is the MoE
         load-balancing loss summed over the layers, 0 for other blocks.
         Under autograd each unit of ``_remat_units`` runs under its remat
-        policy; the policy moves no value."""
-        x = self._input_embeddings(batch)
-        cross = self._cross_kvs(batch)
-        auxs = []
-        for unit, policy in self._remat_units():
-            crosses = [None if cross is None else cross[i] for _, _, i in unit]
-            x, aux = _remat(policy, _train_blocks, [b for b, _, _ in unit], x,
-                            crosses)
-            auxs.append(aux)
-        aux = torch.cat(auxs).sum()
-        h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
-        loss = self._chunked_xent(h, batch["labels"])
+        policy; the policy moves no value.
+
+        Under a mesh it takes the global batch and runs this rank's rows
+        (``_rows``): xent is the mean over the rank's valid tokens, and
+        aux the mean of the data groups' (``moe.moe_ffn``, autograd-aware),
+        so the global loss is the mean of the ranks' losses.  That holds
+        because every rank holds the same number of valid tokens: the
+        labels are the rolled tokens (``data.pipeline``), valid at every
+        position, and the chunk padding is the same on every rank.  The
+        mean is the caller's (``dryrun.build_train_step``); the loss here
+        is the rank's.  A mesh whose "model" axis holds several ranks
+        raises: tensor-parallel training is not ported."""
+        mesh = sharding.current_mesh()
+        if mesh is not None and sharding.extent(
+                mesh, sharding.tp_axis(mesh)) > 1:
+            raise NotImplementedError(
+                "train_loss under a mesh whose model axis holds several "
+                "ranks: tensor-parallel training is not ported")
+        with self._rows(batch["labels"].shape[0]) as own:
+            batch = {k: own(v) for k, v in batch.items()}
+            x = self._input_embeddings(batch)
+            cross = self._cross_kvs(batch)
+            auxs = []
+            for unit, policy in self._remat_units():
+                crosses = [None if cross is None else cross[i]
+                           for _, _, i in unit]
+                x, aux = _remat(policy, _train_blocks, [b for b, _, _ in unit],
+                                x, crosses)
+                auxs.append(aux)
+            aux = torch.cat(auxs).sum()
+            h = rmsnorm(self.final_norm, x, self.cfg.rms_eps)
+            loss = self._chunked_xent(h, batch["labels"])
         return loss + aux_weight * aux, {"xent": loss, "aux": aux}
 
     # ---- serving: prefill + decode -------------------------------------------
@@ -387,9 +408,11 @@ class Model(nn.Module):
         """This rank's rows of a global batch of ``batch`` under a mesh:
         yields ``own`` (x -> the rank's rows of x) with ``own.gather``
         (the rank's rows of a result -> the global result); without a
-        mesh both return their input."""
+        mesh, or inside a caller's ``sharding.model_rows`` (whose input
+        already holds the rank's rows), both return their input."""
         mesh = sharding.current_mesh()
-        if mesh is None:
+        if mesh is None or sharding.rows_split() is not None:
+            # no mesh, or the caller already holds the rank's rows
             yield _Rows(None, False)
             return
         split = sharding.batch_split(mesh, batch)

@@ -22,7 +22,8 @@ tokens, runs only its ``E / tp`` experts (expert stacks sliced on the
 expert dim, shared experts on the hidden dim) and adds its partial
 combine to the other model ranks' with ONE all_reduce in the compute
 dtype; the load-balancing loss is averaged over the data group
-(``_moe_ffn_shard_map``).  A batch that does not divide by the data
+(``_moe_ffn_shard_map``) by ``sharding.mean_over``, whose backward
+gives each group's aux the gradient it has in the global loss.  A batch that does not divide by the data
 extent is one group held by every rank; experts (or a shared hidden
 dim) that do not divide by the model extent take the grouped form, every
 rank computing all experts of ``_num_groups`` groups.
@@ -246,7 +247,8 @@ def _moe_ffn_shard_map(p: Params, cfg: ArchConfig, x, mesh, split: bool):
     """The expert-sharded form on this rank's rows x (b, s, d): its
     group's routing, its experts' outputs and partial combine, then one
     all_reduce (SUM) over the model group in the compute dtype; aux
-    averaged over the data group where the rows are split."""
+    averaged over the data group where the rows are split (autograd
+    sees the mean)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.moe_top_k
     tp = sharding.tp_axis(mesh)
@@ -260,8 +262,7 @@ def _moe_ffn_shard_map(p: Params, cfg: ArchConfig, x, mesh, split: bool):
     aux = _aux_loss(probs, expert_ids, e)
     dp_ext = sharding.extent(mesh, sharding.dp_axes(mesh))
     if split and dp_ext > 1:
-        aux = sharding.all_reduce(aux, dist.ReduceOp.SUM,
-                                  sharding.data_group(mesh)) / dp_ext
+        aux = sharding.mean_over(aux, sharding.data_group(mesh))
     flat_token, order, sorted_expert, rank = _sorted_pairs(expert_ids)
     keep = rank < cap
 
@@ -302,8 +303,8 @@ def _moe_mesh(p: Params, cfg: ArchConfig, x, mesh, split: bool):
     out, stats = _moe_groups(p, cfg, x,
                              1 if split else _num_groups(x.shape[0], mesh))
     if split and dp_ext > 1:
-        stats = stats._replace(aux=sharding.all_reduce(
-            stats.aux, dist.ReduceOp.SUM, sharding.data_group(mesh)) / dp_ext)
+        stats = stats._replace(aux=sharding.mean_over(
+            stats.aux, sharding.data_group(mesh)))
     return out, stats
 
 

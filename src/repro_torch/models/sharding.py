@@ -20,6 +20,11 @@ the blocks whether those rows are the rank's block of the data axes or
 the whole batch (a batch that does not divide by the data extent).  A
 function called outside a model (an entry point) takes the global batch.
 
+A collective that a training forward pass reaches is autograd-aware
+(:func:`mean_over`): its backward reduces the upstream gradients over
+the same group, as the JAX package's ``psum`` transposes.  The data
+parallel step averages its gradients with :func:`mean_buckets`.
+
 The JAX package also has ``maybe_shard``, a layout hint to its compiler
 with no numeric effect; here each rank already holds only its slice, so
 there is nothing to hint.
@@ -44,6 +49,9 @@ _MESHES: list = []
 _ROWS: list = []
 # collectives of the sharded LM path: calls and their host seconds
 _STATS = {"all_reduce": 0, "all_gather": 0, "seconds": 0.0}
+# the data-parallel step's gradients go over the data group in flat f32
+# buckets of at most this many bytes (a larger tensor is one bucket)
+BUCKET_BYTES = 256 * 2 ** 20
 
 
 @contextlib.contextmanager
@@ -203,6 +211,74 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     _STATS["all_reduce"] += 1
     _STATS["seconds"] += time.perf_counter() - t0
     return x
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The SUM over a group; the backward sums the upstream gradients
+    over the same group (each rank's loss is one term of the total)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over ``group``, autograd-aware: where every rank
+    adds the result into its loss and the data-parallel step then
+    averages the gradients, each rank's ``x`` gets the gradient the mean
+    has in the global loss.  A group of one rank returns x."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    return _SumOverGroup.apply(x, group) / n
+
+
+def mean_buckets(tensors: list, mesh) -> None:
+    """Average ``tensors`` (f32, the same names and shapes in the same
+    order on every rank) over the data group of ``mesh``, in place: they
+    are packed in order into flat buckets of at most ``BUCKET_BYTES``,
+    each bucket is one all_reduce (SUM), then divided by the data
+    extent."""
+    group = data_group(mesh)
+    n = dist.get_world_size(group)
+    if n == 1:
+        return
+    limit = BUCKET_BYTES // 4
+    start = 0
+    while start < len(tensors):
+        stop, size = start, 0
+        while stop < len(tensors) and (stop == start
+                                       or size + tensors[stop].numel() <= limit):
+            size += tensors[stop].numel()
+            stop += 1
+        part = tensors[start:stop]
+        flat = all_reduce(torch.cat([t.reshape(-1) for t in part]),
+                          dist.ReduceOp.SUM, group)
+        flat.div_(n)
+        off = 0
+        for t in part:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+        start = stop
+
+
+def all_gather_flat(x: torch.Tensor, group) -> list:
+    """Every rank's ``x`` (1-D, the same length on every rank) in rank
+    order of ``group``: one all_gather."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return [x]
+    parts = [torch.empty_like(x) for _ in range(n)]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, x.contiguous(), group=group)
+    _STATS["all_gather"] += 1
+    _STATS["seconds"] += time.perf_counter() - t0
+    return parts
 
 
 def collective_stats() -> dict:

@@ -11,7 +11,10 @@ The mitigations and where they live:
   * elastic re-mesh        - `elastic_mesh` below rebuilds the largest
                              usable (pod, data, model) mesh from the
                              surviving ranks; checkpoints are numpy on
-                             disk and carry no sharding.
+                             disk and carry no sharding, so the
+                             survivors restore and re-slice their
+                             ZeRO-1 moments for the smaller mesh
+                             (`restore_on_mesh`).
   * straggler mitigation   - SPED's walker estimates are unbiased for
                              any subset of walkers, so a deadline-based
                              sum of what arrived, scaled by the live
@@ -30,7 +33,10 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch import parallel
+from repro_torch import convert, parallel
+from repro_torch.models import sharding
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import optimizer as opt_lib
 
 log = logging.getLogger(__name__)
 
@@ -54,6 +60,21 @@ def elastic_mesh(ranks: Sequence[int] | None = None, model_axis: int = 16,
     mesh = parallel.make_mesh((usable_pods, per_pod // model, model), AXES,
                               device, ranks=ranks[:usable])
     return mesh, ranks[usable:]
+
+
+def restore_on_mesh(ckpt_dir: str, model, opt_cfg: opt_lib.OptConfig,
+                    mesh) -> tuple[opt_lib.OptState, int]:
+    """The survivors' restore after :func:`elastic_mesh`: under ``mesh``
+    (this rank must be in it), a fresh optimizer state laid out for it
+    (ZeRO-1 slices of its data extent), then the model's parameters and
+    that state filled from the newest valid checkpoint in ``ckpt_dir``,
+    whatever mesh wrote it.  Returns (state, step)."""
+    with sharding.set_mesh(mesh):
+        state = opt_lib.init(opt_cfg, dict(model.named_parameters()))
+        tree, _, step = ckpt.restore_with_fallback(
+            ckpt_dir, convert.lm_train_like(model, state))
+        state = convert.load_lm_train_tree(model, state, tree)
+    return state, step
 
 
 def straggler_scale(contributions_arrived, total_workers: int) -> torch.Tensor:

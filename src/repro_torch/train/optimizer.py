@@ -2,8 +2,12 @@
 
   * global-norm gradient clipping;
   * a cosine schedule with linear warmup;
-  * ZeRO-1's field (moments sharded over the data axis): without a mesh
-    the moments stay whole, as the JAX package's are without one;
+  * ZeRO-1 (``zero1``): under a ``DeviceMesh`` whose data axes hold
+    several ranks (``models.sharding.set_mesh``), each rank holds only
+    its slice of each moment, laid out by the JAX package's
+    ``moment_specs`` (``launch.shardings.zero1_layout``), updates its
+    slice of each parameter from it and all_gathers the parameters;
+    without a mesh, or with one data rank, the moments stay whole;
   * optional gradient COMPRESSION with error feedback (int8 quantization
     of the data-parallel all-reduce payload; the residual carries to the
     next step);
@@ -11,7 +15,9 @@
     stays f32), halving their bytes.
 
 Parameters, gradients and moments are dicts of tensors keyed by
-parameter name (``dict(model.named_parameters())``).  ``apply`` updates
+parameter name (``dict(model.named_parameters())``); under ZeRO-1 the
+moment dicts hold the rank's slices, and no entry for a layer another
+rank owns.  ``apply`` updates
 the parameters, the moments and the residuals IN PLACE, as torch.optim
 does, and returns them; the schedule, the bias corrections and the
 clipping scale are f32 tensors on the parameters' device, computed as
@@ -23,6 +29,9 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.launch import shardings
+from repro_torch.models import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +55,9 @@ class OptState(NamedTuple):
     mu: dict  # first moments
     nu: dict  # second moments
     error: dict | None  # compression residuals, None without compression
+    # the ZeRO-1 layout the moments were made for (None: whole), chosen
+    # once by ``init``; not a tensor, so no checkpoint leaf
+    layout: shardings.Zero1Layout | None = None
 
 
 def schedule(cfg: OptConfig, step) -> torch.Tensor:
@@ -63,17 +75,65 @@ def _moment_dtype(cfg: OptConfig) -> torch.dtype:
     return getattr(torch, cfg.moment_dtype)
 
 
+def _parts(lay, params: dict) -> dict:
+    """The rank's part of each parameter (all of it without a layout)."""
+    if lay is None:
+        return params
+    parts = {k: lay.part(k, p) for k, p in params.items()}
+    return {k: p for k, p in parts.items() if p is not None}
+
+
 def init(cfg: OptConfig, params: dict) -> OptState:
+    """Zero moments and, with compression, whole zero residuals.  With
+    ``zero1`` under a ``DeviceMesh`` (``sharding.set_mesh``) whose data
+    axes hold several ranks, the moments are the rank's slices of
+    ``launch.shardings.zero1_layout``, which the state carries."""
     mdt = _moment_dtype(cfg)
     first = next(iter(params.values()))
+    mesh = sharding.current_mesh()
+    lay = (shardings.zero1_layout(params, mesh)
+           if cfg.zero1 and getattr(mesh, "mesh_dim_names", None) is not None
+           else None)
+    parts = _parts(lay, params)
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         mu={k: torch.zeros(p.shape, dtype=mdt, device=p.device)
-            for k, p in params.items()},
+            for k, p in parts.items()},
         nu={k: torch.zeros(p.shape, dtype=mdt, device=p.device)
-            for k, p in params.items()},
+            for k, p in parts.items()},
         error=({k: torch.zeros_like(p) for k, p in params.items()}
-               if cfg.compress_grads else None))
+               if cfg.compress_grads else None),
+        layout=lay)
+
+
+def whole_moments(state: OptState, params: dict):
+    """(mu, nu) whole, on the parameters' device: the state's own dicts
+    where they are whole, else every rank's slices gathered over the
+    data group of the state's layout (a collective)."""
+    lay = state.layout
+    if lay is None:
+        return state.mu, state.nu
+    out = []
+    for local in (state.mu, state.nu):
+        dtype = next(iter(local.values())).dtype
+        whole = {k: torch.empty(p.shape, dtype=dtype, device=p.device)
+                 for k, p in params.items()}
+        for k, sp in lay.splits.items():
+            if sp.owner is None and sp.dim is None:
+                whole[k].copy_(local[k])
+        lay.gather(local, whole)
+        out.append(whole)
+    return tuple(out)
+
+
+def load_moments(state: OptState, mu: dict, nu: dict) -> None:
+    """Copy whole moments ``mu``, ``nu`` (by name) into the state's, in
+    place: the rank's slices where the state holds slices."""
+    lay = state.layout
+    with torch.no_grad():
+        for local, whole in ((state.mu, mu), (state.nu, nu)):
+            for k, t in local.items():
+                t.copy_(whole[k] if lay is None else lay.part(k, whole[k]))
 
 
 def _quantize_int8(g: torch.Tensor):
@@ -96,7 +156,14 @@ def compress_decompress(g: torch.Tensor, err: torch.Tensor):
 @torch.no_grad()
 def apply(cfg: OptConfig, state: OptState, params: dict, grads: dict):
     """One AdamW step, in place.  Returns (params, new state, metrics
-    {"grad_norm", "lr"} as 0-dim f32 tensors)."""
+    {"grad_norm", "lr"} as 0-dim f32 tensors).
+
+    ``grads`` are whole (under a mesh: already averaged over the data
+    group, the same on every rank), so the clip norm is global.  Under
+    ZeRO-1 each rank updates its part of each parameter from its moment
+    slices, and one all_gather of the data group re-assembles the
+    parameters: they stay bitwise equal on every rank."""
+    lay = state.layout
     if cfg.compress_grads:
         hat = {}
         for k, g in grads.items():
@@ -113,12 +180,16 @@ def apply(cfg: OptConfig, state: OptState, params: dict, grads: dict):
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
 
-    for k, p in params.items():
-        g = grads[k].float() * scale
+    parts = _parts(lay, params)
+    for k, p in parts.items():
+        g = grads[k] if lay is None else lay.part(k, grads[k])
+        g = g.float() * scale
         m = cfg.b1 * state.mu[k].float() + (1 - cfg.b1) * g
         v = cfg.b2 * state.nu[k].float() + (1 - cfg.b2) * g * g
         upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
         p.copy_(p - lr * (upd + cfg.weight_decay * p))
         state.mu[k].copy_(m)
         state.nu[k].copy_(v)
+    if lay is not None:
+        lay.gather(parts, params)
     return params, state._replace(step=step), {"grad_norm": gnorm, "lr": lr}

@@ -1270,3 +1270,86 @@ def test_context_parallel_decode_on_two_ranks_matches_one_process(dev):
     for r in results:
         got = torch.from_numpy(r.value).to(dev)
         assert _rel_err(got, torch.stack(want)) <= 1e-4
+
+
+def test_data_parallel_step_on_two_ranks_matches_one_process(dev):
+    """granite's smoke model in f32 compute on a (2, 1) ("data", "model")
+    mesh of 2 gloo ranks on this card: 2 data-parallel steps with ZeRO-1
+    moments against one process on the card computing each half-batch's
+    gradient, averaging them and applying: losses within 1e-4, the
+    parameters within 1e-5 of each leaf's largest magnitude, the ranks'
+    parameters bitwise equal.  Adam's eps is its default 1e-8, whose
+    1/eps slope at a gradient of 0 turns a last-bit difference there
+    into a step of up to the learning rate: the bar holds only where the
+    data-parallel step gives the halves' gradients to the last bit, the
+    same kernels on the same rows (the CPU tests against the JAX package
+    take eps 1e-3 for this reason)."""
+    import torch_dist_ranks as ranks
+    from repro_torch import convert, parallel
+    from repro_torch.models import Model, layers
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = ranks.lm_config("granite-moe-1b-a400m")
+    tree = convert.lm_params_to_numpy(
+        Model(cfg, device="cpu", generator=torch.Generator().manual_seed(5)))
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(2):
+        toks = rng.integers(0, cfg.vocab_size, (4, 32), dtype=np.int32)
+        batches.append({"tokens": toks, "labels": np.roll(toks, -1, axis=1)})
+    fields = dict(lr=1e-3, warmup_steps=0, total_steps=2)
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        model = convert.lm_params_from_numpy(cfg, tree, device=dev)
+        params = dict(model.named_parameters())
+        ocfg = opt_lib.OptConfig(**fields)
+        state = opt_lib.init(ocfg, params)
+        want_losses = []
+        for batch in batches:
+            halves = []
+            for h in (slice(0, 2), slice(2, 4)):
+                loss, _ = model.train_loss({k: torch.from_numpy(v[h]).to(dev)
+                                            for k, v in batch.items()})
+                loss.backward()
+                halves.append((float(loss.detach()),
+                               {k: p.grad for k, p in params.items()}))
+                model.zero_grad(set_to_none=True)
+            grads = {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in params}
+            _, state, _ = opt_lib.apply(ocfg, state, params, grads)
+            want_losses.append((halves[0][0] + halves[1][0]) / 2)
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    results = parallel.run_ranks(2, ranks.card_train_dp, tree, batches, fields,
+                                 device=dev, timeout=300.0)
+    for r in results:
+        losses, got = r.value
+        assert np.abs(losses - np.array(want_losses)).max() <= 1e-4
+        for k, p in params.items():
+            w = p.detach().cpu().numpy()
+            assert np.abs(got[k] - w).max() <= 1e-5 * np.abs(w).max(), k
+    for k in params:
+        assert parallel.bitwise_equal([r.value[1][k] for r in results]), k
+
+
+def test_dryrun_sped_fused_on_two_ranks_matches_one_process(dev):
+    """``launch.dryrun_sped``'s cheb64_fused step on 2 gloo ranks of this
+    card (each scattering its half of the edges, one all_reduce a
+    matvec) against the one-process step on the card, within 1e-5 of the
+    panel's largest magnitude, bitwise equal on the ranks."""
+    import torch_dist_ranks as ranks
+    from repro_torch import parallel
+    from repro_torch.launch import dryrun_sped
+
+    edges = {k: t.numpy() for k, t in dryrun_sped.random_edges(
+        4096, 1 << 16, seed=6, device="cpu").items()}
+    v = np.linalg.qr(np.random.default_rng(6).standard_normal((4096, 8)))[0]
+    v = np.ascontiguousarray(v, np.float32)
+    want = dryrun_sped.build_step("cheb64_fused", None, ())(
+        torch.from_numpy(v).to(dev),
+        {k: torch.from_numpy(a).to(dev) for k, a in edges.items()})
+    results = parallel.run_ranks(2, ranks.card_dryrun_sped, edges, v,
+                                 "cheb64_fused", device=dev, timeout=300.0)
+    got = [r.value for r in results]
+    assert parallel.bitwise_equal(got)
+    assert _rel_err(torch.from_numpy(got[0]).to(dev), want) <= REL

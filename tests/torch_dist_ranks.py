@@ -1,5 +1,7 @@
-"""Rank bodies and shared inputs of tests/test_torch_distributed.py and
-tests/test_torch_model_sharded.py.
+"""Rank bodies and shared inputs of the port's tests that spawn worlds:
+tests/test_torch_distributed.py, tests/test_torch_model_sharded.py,
+tests/test_torch_lm_mesh.py, tests/test_torch_dryrun_sped.py and
+tests/test_torch_train_dp.py.
 
 The test spawns one world per shard count (``parallel.run_ranks``); each
 rank imports this module by name (the spawned interpreter gets the
@@ -510,6 +512,158 @@ def run_lm_mesh(dev, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the SPED dry-run step (tests/test_torch_dryrun_sped.py): a (S, 1) mesh
+# ---------------------------------------------------------------------------
+
+SPED_EDGE_AXES = ("data", "model")
+
+
+def run_dryrun_sped(dev, inputs: dict) -> dict:
+    """Every variant of ``launch.dryrun_sped.build_step`` on this rank's
+    edge slice of a (world, 1) mesh: {variant: (panel, all_reduces,
+    payload bytes)}."""
+    from repro_torch.launch import dryrun_sped
+
+    torch.set_num_threads(1)
+    mesh = parallel.default_edge_mesh(device=dev)
+    edges = {k: torch.from_numpy(v) for k, v in inputs["edges"].items()}
+    v = torch.from_numpy(inputs["v"])
+    out = {}
+    for variant in dryrun_sped.VARIANTS:
+        step = dryrun_sped.build_step(variant, mesh, SPED_EDGE_AXES)
+        dryrun_sped.reset_stats()
+        got = step(v, edges)
+        st = dryrun_sped.stats()
+        out[variant] = (got, st["all_reduce"], st["bytes"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel train step (tests/test_torch_train_dp.py): (2, 1) mesh
+# ---------------------------------------------------------------------------
+
+def _dp_case(mesh, case: dict) -> dict:
+    """``case["steps"]`` steps of ``dryrun.build_train_step`` under the
+    mesh from the numpy tree: each step's loss and grad norm, then the
+    parameters, the rank's moment slices and the whole moments."""
+    from repro_torch import convert
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    model = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+    ocfg = opt_lib.OptConfig(**case["opt"])
+    losses, norms = [], []
+    with sharding.set_mesh(mesh):
+        params = dict(model.named_parameters())
+        state = opt_lib.init(ocfg, params)
+        step = dryrun.build_train_step(cfg, ocfg, case.get("microbatches", 1))
+        if case.get("aux_weight") is not None:
+            train_loss = model.train_loss
+            model.train_loss = lambda b: train_loss(
+                b, aux_weight=case["aux_weight"])
+        for batch in case["batches"]:
+            model, state, m = step(model, state, {
+                k: torch.from_numpy(v) for k, v in batch.items()})
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        mu, nu = opt_lib.whole_moments(state, params)
+    return {"losses": torch.stack(losses), "grad_norms": torch.stack(norms),
+            "params": convert.lm_params_to_numpy(model),
+            "mu_local": {k: t.clone() for k, t in state.mu.items()},
+            "mu": mu, "nu": nu,
+            "moment_bytes": sum(t.numel() * t.element_size()
+                                for d in (state.mu, state.nu)
+                                for t in d.values())}
+
+
+def _dp_checkpoint(mesh, case: dict, tmp: str) -> dict:
+    """Two steps, a save by the ranks (rank 0 writes), a restore of a
+    one-process save into a fresh state (the reverse direction) and its
+    save again, then ``elastic_mesh`` dropping the last rank and the
+    survivor's restore."""
+    from repro_torch import convert
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = lm_config(case["arch"])
+    ocfg = opt_lib.OptConfig(**case["opt"])
+    model = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+    rank = dist.get_rank()
+    out = {}
+    with sharding.set_mesh(mesh):
+        state = opt_lib.init(ocfg, dict(model.named_parameters()))
+        step = dryrun.build_train_step(cfg, ocfg)
+        for batch in case["batches"]:
+            model, state, _ = step(model, state, {
+                k: torch.from_numpy(v) for k, v in batch.items()})
+        tree = convert.lm_train_tree(model, state)
+        if rank == 0:
+            ckpt.save(f"{tmp}/dp", 2, tree)
+        dist.barrier()
+        # the reverse: a one-process save restored on the ranks, saved again
+        fresh = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+        fstate = opt_lib.init(ocfg, dict(fresh.named_parameters()))
+        restored, _ = ckpt.restore(case["one_dir"],
+                                   convert.lm_train_like(fresh, fstate))
+        fstate = convert.load_lm_train_tree(fresh, fstate, restored)
+        out["reverse_mu_local"] = {k: t.clone() for k, t in fstate.mu.items()}
+        again = convert.lm_train_tree(fresh, fstate)
+        if rank == 0:
+            ckpt.save(f"{tmp}/again", int(fstate.step), again)
+        dist.barrier()
+    # rank 1 is lost: the survivors (rank 0) re-mesh
+    mesh1, dropped = fault.elastic_mesh(ranks=[0], model_axis=1, device=CPU)
+    out["dropped"] = dropped
+    out["mesh_ranks"] = mesh1.mesh.flatten().tolist()
+    if rank == 0:
+        survivor = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+        sstate, sstep = fault.restore_on_mesh(f"{tmp}/dp", survivor, ocfg,
+                                              mesh1)
+        out["survivor"] = {"step": sstep, "params":
+                           convert.lm_params_to_numpy(survivor),
+                           "mu": dict(sstate.mu)}
+    return out
+
+
+TRAIN_LM_ARGS = ["--mode", "lm", "--arch", "qwen3-4b", "--smoke", "--steps",
+                 "3", "--device", "cpu", "--log-every", "100"]
+
+
+def _dp_train_lm(dev, tmp: str) -> dict:
+    """``launch.train.train_lm`` in this world (what ``main`` runs under
+    torchrun), checkpointing at its end."""
+    from repro_torch.launch import train
+
+    run = train.train_lm(train.parse_args(
+        TRAIN_LM_ARGS + ["--ckpt-dir", f"{tmp}/lm"]), dev)
+    return {"losses": run.losses, "grad_norms": run.grad_norms,
+            "moments": len(run.opt_state.mu)}
+
+
+def run_train_dp(dev, inputs: dict) -> dict:
+    """Every data-parallel case on this rank of a (2, 1) ("data",
+    "model") world, f32 compute; returns {name: output}."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers
+
+    torch.set_num_threads(1)
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = make_local_mesh(dev)
+    out: dict = {"coord": tuple(mesh.get_coordinate())}
+    for name, case in inputs["cases"].items():
+        out[name] = _dp_case(mesh, case)
+    out["checkpoint"] = _dp_checkpoint(mesh, inputs["checkpoint"],
+                                       inputs["tmp"])
+    out["train_lm"] = _dp_train_lm(dev, inputs["tmp"])
+    return out
+
+
 @contextlib.contextmanager
 def one_rank_world():
     """A gloo world of this one process (file rendezvous in a temporary
@@ -594,3 +748,41 @@ def card_cp_decode(dev, tree: dict, tokens, max_seq: int, steps: int):
             seq.append(logits)
     assert state.caches[0].shard is not None
     return torch.stack(seq)
+
+
+def card_train_dp(dev, tree: dict, batches: list, opt_fields: dict):
+    """granite's smoke model from ``tree`` in f32 compute on the (world,
+    1) mesh of this world: ``dryrun.build_train_step``'s data-parallel
+    steps with ZeRO-1 moments on ``batches``; returns the losses and the
+    parameters."""
+    from repro_torch import convert
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers, sharding
+    from repro_torch.train import optimizer as opt_lib
+
+    layers.COMPUTE_DTYPE = torch.float32
+    cfg = lm_config("granite-moe-1b-a400m")
+    model = convert.lm_params_from_numpy(cfg, tree, device=dev)
+    ocfg = opt_lib.OptConfig(**opt_fields)
+    losses = []
+    with sharding.set_mesh(make_local_mesh(dev)):
+        state = opt_lib.init(ocfg, dict(model.named_parameters()))
+        step = dryrun.build_train_step(cfg, ocfg)
+        for batch in batches:
+            model, state, m = step(model, state, {
+                k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            losses.append(m["loss"])
+    return torch.stack(losses), {k: p.detach()
+                                 for k, p in model.named_parameters()}
+
+
+def card_dryrun_sped(dev, edges: dict, v, variant: str):
+    """One step of ``launch.dryrun_sped``'s ``variant`` on this rank's
+    edge slice of the (world, 1) mesh, on the card."""
+    from repro_torch.launch import dryrun_sped
+
+    mesh = parallel.default_edge_mesh(device=dev)
+    step = dryrun_sped.build_step(variant, mesh, SPED_EDGE_AXES)
+    return step(torch.from_numpy(v).to(dev),
+                {k: torch.from_numpy(a).to(dev) for k, a in edges.items()})
