@@ -320,7 +320,22 @@ outside a checkout.  Phases, one JSON line each:
              bytes, and the bytes the panel and edges request on the card
              held to dryrun_sped.argument_bytes(1), the report's
              reckoning for one device
-40. kernels - per kernel: launches on the main path (phases 3-39 but the
+40. lm_train_tp - tensor parallelism and parameter FSDP of the LM train
+             step: qwen3-4b and granite-moe-1b-a400m at full width cut to
+             2 layers, each rank drawing its slices of the (2, 2)
+             ("data", "model") training layout with fsdp=True on 4 gloo
+             ranks of the card, 2 steps of a 4 x 512 batch (remat full,
+             f32 compute and moments, Adam's eps 1e-3), held to one
+             process's halves run
+             in rank 0 once the sharded state is freed (losses 1e-4,
+             parameters 1e-5 of each leaf's largest magnitude), the
+             slices two data ranks both hold bitwise equal; per rank ms
+             a step by CUDA events and the host clock, gloo calls and
+             their host seconds, GB; then qwen3-4b at full depth built
+             with fsdp=None, its requested parameter and moment bytes
+             held to dryrun.reckon's.  lm_train_dp's full-depth granite
+             build is sharded too (FSDP over 2 data ranks)
+41. kernels - per kernel: launches on the main path (phases 3-40 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -335,6 +350,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -658,6 +674,32 @@ LM_TRAIN_DP_STEPS = 3
 LM_TRAIN_DP_SAVE_AT = 2
 LM_TRAIN_DP_TOL = 1e-4
 LM_TRAIN_DP_TIMEOUT_S = 600.0
+# lm_train_tp: LM_TRAIN_TP_ARCHS at full width cut to LM_TRAIN_TP_DEPTH
+# layers on 4 gloo ranks of the card in the (2, 2) ("data", "model")
+# training layout with fsdp=True, LM_TRAIN_TP_STEPS steps of the global
+# batch LM_TRAIN_TP_SHAPE (remat full, f32 compute and moments,
+# train_lm's optimizer at eps LM_TRAIN_TP_EPS), held to one process's
+# halves (losses at
+# LM_TRAIN_TP_TOL, parameters at REL_TOL of each leaf's largest
+# magnitude); then LM_TRAIN_TP_FULL_ARCH at full depth built only, its
+# requested bytes held to dryrun.reckon at LM_TRAIN_TP_FULL_SHAPE
+LM_TRAIN_TP_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m")
+LM_TRAIN_TP_DEPTH = 2
+LM_TRAIN_TP_MESH = (2, 2)
+LM_TRAIN_TP_SHAPE = (4, 512)
+LM_TRAIN_TP_STEPS = 2
+LM_TRAIN_TP_TOL = 1e-4
+# Adam's eps for the trained runs: train_lm's optimizer but for eps 1e-3.
+# The model ranks' partial sums reorder f32 additions, so a gradient
+# differs from one process's in its last bits, and at the default eps
+# 1e-8 Adam's slope 1/eps at g = 0 turns that into a step of up to the
+# learning rate (measured: parameters 8.5e-5 (qwen3-4b) and 1.7e-4
+# (granite) of a leaf's largest magnitude apart after 2 steps, losses
+# 9.5e-7), as tests/test_torch_train_dp.py argues for its eps
+LM_TRAIN_TP_EPS = 1e-3
+LM_TRAIN_TP_FULL_ARCH = "qwen3-4b"
+LM_TRAIN_TP_FULL_SHAPE = (4, 1024)
+LM_TRAIN_TP_TIMEOUT_S = 600.0
 DRYRUN_SPED_SMALL = (1 << 14, 1 << 18, 32)
 DRYRUN_SPED_RANKS = 2
 DRYRUN_SPED_BF16_TOL = 2e-3
@@ -3954,25 +3996,32 @@ def lm_train_dp_rank(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
-    # full depth: the model and its ZeRO-1 state, no step
+    # full depth: the model in its training layout (FSDP by the
+    # threshold) and its ZeRO-1 state, no step
     with sharding.set_mesh(mesh):
         torch.cuda.synchronize()
         base = _requested_bytes()
-        model = Model(full, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+        model = Model(full, dev, torch.Generator(device=dev).manual_seed(LM_SEED),
+                      train_mesh=mesh)
         params = dict(model.named_parameters())
         torch.cuda.synchronize()
         params_req = _requested_bytes() - base
-        state = opt_lib.init(opt_cfg, params)
+        state = opt_lib.init(opt_cfg, params, model.train_layout)
         torch.cuda.synchronize()
         want = dryrun.reckon(full, "train", b, s, mesh, opt_cfg)
+        whole = sum(math.prod(sp.shape) * 4
+                    for sp in model.train_layout.splits.values())
         out["full_depth"] = {
-            "layers": full.num_layers, "params_bytes_requested": params_req,
+            "layers": full.num_layers, "fsdp": model.train_layout.fsdp,
+            "params_bytes_requested": params_req,
+            "params_bytes": sum(p.numel() * 4 for p in params.values()),
+            "params_held": len(params),
             "moment_bytes_requested": _requested_bytes() - base - params_req,
             "moment_bytes": _opt_bytes(state),
             "reckoned_optimizer_bytes": want["optimizer_bytes"],
             "reckoned_params_bytes": want["params_bytes"],
-            "whole_moment_bytes": 2 * sum(p.numel() * 4
-                                          for p in params.values()) + 4}
+            "whole_params_bytes": whole,
+            "whole_moment_bytes": 2 * whole + 4}
     del model, params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4030,6 +4079,15 @@ def lm_train_dp_phase(dev, gpu: str) -> dict:
                               f"{where['moment_bytes']} (requested "
                               f"{where['moment_bytes_requested']}), "
                               f"reckoned {want}")
+        fd = o["full_depth"]
+        want = fd["reckoned_params_bytes"]
+        if not fd["fsdp"] or fd["params_bytes"] != want or abs(
+                fd["params_bytes_requested"] - want) > (
+                    DRYRUN_ALLOC_SLACK * fd["params_held"]):
+            failed.append(f"rank {o['coord']}: full-depth parameters "
+                          f"{fd['params_bytes']} (requested "
+                          f"{fd['params_bytes_requested']}, fsdp "
+                          f"{fd['fsdp']}), reckoned {want}")
     counts = launch_counts()
     emit({"phase": "lm_train_dp", "arch": LM_TRAIN_ARCH,
           "depth": LM_TRAIN_DP_DEPTH, "ranks": LM_TRAIN_DP_RANKS,
@@ -4060,6 +4118,291 @@ def lm_train_dp_phase(dev, gpu: str) -> dict:
           "gpu": gpu, "launches": counts, "failed": failed})
     if failed:
         raise AssertionError(f"lm_train_dp: {failed}")
+    return counts
+
+
+def _lm_train_tp_run(dev, mesh, arch: str, batches: list, opt_cfg) -> dict:
+    """One trained run of phase lm_train_tp in this rank: ``arch`` at full
+    width cut to LM_TRAIN_TP_DEPTH, drawn in the (2, 2) mesh's training
+    layout with fsdp=True, LM_TRAIN_TP_STEPS steps of build_train_step
+    (ms by CUDA events and by the host clock, gloo calls and their host
+    seconds, bytes); whether the slices that two data ranks both hold are
+    bitwise equal; rank 0 keeps the parameters gathered whole on the
+    host for the reference."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, sharding
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=LM_TRAIN_TP_DEPTH)
+    with sharding.set_mesh(mesh):
+        torch.cuda.synchronize()
+        base = _requested_bytes()
+        model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED),
+                      train_mesh=mesh, fsdp=True)
+        lay = model.train_layout
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        params_req = _requested_bytes() - base
+        state = opt_lib.init(opt_cfg, params, lay)
+        torch.cuda.synchronize()
+        moments_req = _requested_bytes() - base - params_req
+        step = dryrun.build_train_step(cfg, opt_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, host_ms, event_ms, coll = [], [], [], [], []
+        for batch in batches:
+            sharding.reset_collective_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            model, state, m = step(model, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            coll.append(sharding.collective_stats())
+        peak = torch.cuda.max_memory_allocated()
+        # the leaves no data split covers are held alike by both data ranks
+        rep = [p.detach().reshape(-1) for k, p in params.items()
+               if lay.splits[k].data is None]
+        mine = torch.cat(rep) if rep else torch.zeros(0, device=dev)
+        theirs = sharding.all_gather_flat(mine, sharding.data_group(mesh))
+        shared_bitwise = all(torch.equal(t, theirs[0]) for t in theirs)
+        lead = sharding.tp_index(mesh) == 0 and sharding.dp_index(mesh) == 0
+        whole = {}
+        for k, p in params.items():  # every rank gathers, rank 0 keeps
+            w = lay.whole(k, p.detach())
+            if lead:
+                whole[k] = w.cpu()
+            del w
+    out = {"arch": arch, "layers": cfg.num_layers, "losses": losses,
+           "grad_norms": norms, "host_ms": host_ms, "event_ms": event_ms,
+           "collectives": coll, "peak_bytes": peak,
+           "params_bytes": sum(p.numel() * 4 for p in params.values()),
+           "params_bytes_requested": params_req,
+           "moment_bytes": _opt_bytes(state),
+           "moment_bytes_requested": moments_req,
+           "shared_bytes": mine.numel() * 4,
+           "shared_bitwise": shared_bitwise, "whole": whole}
+    del model, params, state, step, mine, theirs, rep
+    return out
+
+
+def _lm_train_tp_reference(dev, arch: str, batches: list, opt_cfg,
+                           got: dict) -> dict:
+    """One process on the card computing what the (2, 2) step computes:
+    each data half's gradient, the two averaged, then AdamW, from the
+    same seed; the run's losses, grad norms and its parameters held to
+    ``got`` (gathered whole) as a share of each leaf's largest
+    magnitude."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = dataclasses.replace(get_arch(arch), num_layers=LM_TRAIN_TP_DEPTH)
+    model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+    ref = dict(model.named_parameters())
+    state = opt_lib.init(opt_cfg, ref)
+    losses, norms = [], []
+    for batch in batches:
+        rows = batch["tokens"].shape[0]
+        grads, half_losses = None, []
+        for h in (slice(0, rows // 2), slice(rows // 2, rows)):
+            loss, _ = model.train_loss({k: v[h] for k, v in batch.items()})
+            loss.backward()
+            half_losses.append(float(loss.detach()))
+            if grads is None:
+                grads = {k: p.grad for k, p in ref.items()}
+            else:
+                for k, p in ref.items():
+                    grads[k] = (grads[k] + p.grad) / 2
+            model.zero_grad(set_to_none=True)
+        _, state, m = opt_lib.apply(opt_cfg, state, ref, grads)
+        del grads
+        losses.append((half_losses[0] + half_losses[1]) / 2)
+        norms.append(float(m["grad_norm"]))
+    rel = {k: _leaf_rel({k: got[k].to(dev)}, {k: p}) for k, p in ref.items()}
+    worst = max(rel, key=rel.get)
+    del model, ref, state
+    return {"losses": losses, "grad_norms": norms, "params_rel": rel[worst],
+            "worst_leaf": worst}
+
+
+def _lm_train_tp_full_build(dev, mesh) -> dict:
+    """qwen3-4b at full depth drawn in the (2, 2) mesh's training layout
+    with fsdp=None (the threshold turns FSDP on) and its ZeRO-1 state, no
+    step: the bytes requested against dryrun.reckon's."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, sharding
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = get_arch(LM_TRAIN_TP_FULL_ARCH)
+    opt_cfg = opt_lib.OptConfig(lr=3e-4, warmup_steps=20,
+                                total_steps=LM_TRAIN_TP_STEPS)
+    with sharding.set_mesh(mesh):
+        torch.cuda.synchronize()
+        base = _requested_bytes()
+        t0 = time.perf_counter()
+        model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED),
+                      train_mesh=mesh)
+        params = dict(model.named_parameters())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        params_req = _requested_bytes() - base
+        state = opt_lib.init(opt_cfg, params, model.train_layout)
+        torch.cuda.synchronize()
+        want = dryrun.reckon(cfg, "train", *LM_TRAIN_TP_FULL_SHAPE, mesh,
+                             opt_cfg)
+        out = {"arch": LM_TRAIN_TP_FULL_ARCH, "layers": cfg.num_layers,
+               "fsdp": model.train_layout.fsdp, "build_s": build_s,
+               "params_held": len(params), "moments_held": len(state.mu),
+               "params_bytes": sum(p.numel() * 4 for p in params.values()),
+               "params_bytes_requested": params_req,
+               "moment_bytes": _opt_bytes(state),
+               "moment_bytes_requested": _requested_bytes() - base - params_req,
+               "reckoned_params_bytes": want["params_bytes"],
+               "reckoned_optimizer_bytes": want["optimizer_bytes"],
+               "whole_params_bytes": sum(
+                   math.prod(sp.shape) * 4
+                   for sp in model.train_layout.splits.values())}
+    del model, params, state
+    return out
+
+
+def lm_train_tp_rank(dev) -> dict:
+    """One rank of phase lm_train_tp: the trained runs of LM_TRAIN_TP_ARCHS
+    on the (2, 2) mesh in f32 compute, each held to one process's halves
+    run in rank 0 once the sharded state is freed; then the full-depth
+    build."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import parallel
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer as opt_lib
+
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = parallel.make_mesh(LM_TRAIN_TP_MESH, ("data", "model"), dev)
+    out = {"coord": [int(c) for c in mesh.get_coordinate()], "runs": []}
+    b, s = LM_TRAIN_TP_SHAPE
+    opt_cfg = opt_lib.OptConfig(lr=3e-4, warmup_steps=20,
+                                total_steps=LM_TRAIN_TP_STEPS,
+                                eps=LM_TRAIN_TP_EPS)
+    for arch in LM_TRAIN_TP_ARCHS:
+        pipe = TokenPipeline(get_arch(arch).vocab_size, b, s, 0)
+        batches = [pipe.batch_at(i, dev) for i in range(LM_TRAIN_TP_STEPS)]
+        run = _lm_train_tp_run(dev, mesh, arch, batches, opt_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        whole = run.pop("whole")
+        if whole:
+            run["reference"] = _lm_train_tp_reference(dev, arch, batches,
+                                                       opt_cfg, whole)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out["runs"].append(run)
+    layers.COMPUTE_DTYPE = torch.bfloat16
+    out["full_depth"] = _lm_train_tp_full_build(dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_tp_phase(dev, gpu: str) -> dict:
+    """Phase lm_train_tp (see the module docstring).  Returns the launch
+    counts of the port's kernels over the phase (none runs on it)."""
+    import gc
+
+    import torch
+
+    from repro_torch import parallel
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = math.prod(LM_TRAIN_TP_MESH)
+    results, wall = host_s(lambda: parallel.run_ranks(
+        ranks, lm_train_tp_rank, timeout=LM_TRAIN_TP_TIMEOUT_S))
+    outs = [r.value for r in results]
+    failed, runs = [], []
+    for i, arch in enumerate(LM_TRAIN_TP_ARCHS):
+        ref = outs[0]["runs"][i]["reference"]
+        loss_diff = max(abs(x - y) for o in outs
+                        for x, y in zip(o["runs"][i]["losses"], ref["losses"]))
+        if not loss_diff <= LM_TRAIN_TP_TOL:
+            failed.append(f"{arch}: losses {loss_diff} from one process's "
+                          f"> {LM_TRAIN_TP_TOL}")
+        if not ref["params_rel"] <= REL_TOL:
+            failed.append(f"{arch}: parameters {ref['params_rel']} of a "
+                          f"leaf's max from one process's > {REL_TOL}")
+        for o in outs:
+            r = o["runs"][i]
+            if not r["shared_bitwise"]:
+                failed.append(f"{arch} rank {o['coord']}: the data ranks' "
+                              "shared slices differ")
+        runs.append({
+            "arch": arch, "layers": LM_TRAIN_TP_DEPTH,
+            "loss_max_abs_diff": loss_diff, "reference": ref,
+            "per_rank": [{
+                "coord": o["coord"], "losses": o["runs"][i]["losses"],
+                "grad_norms": o["runs"][i]["grad_norms"],
+                "host_ms": o["runs"][i]["host_ms"],
+                "event_ms": o["runs"][i]["event_ms"],
+                "all_gather_per_step": [c["all_gather"] for c in
+                                        o["runs"][i]["collectives"]],
+                "all_reduce_per_step": [c["all_reduce"] for c in
+                                        o["runs"][i]["collectives"]],
+                "reduce_scatter_per_step": [c["reduce_scatter"] for c in
+                                            o["runs"][i]["collectives"]],
+                "collective_host_s_per_step": [c["seconds"] for c in
+                                               o["runs"][i]["collectives"]],
+                "gb_params": o["runs"][i]["params_bytes"] / 1e9,
+                "gb_moments": o["runs"][i]["moment_bytes"] / 1e9,
+                "gb_peak": o["runs"][i]["peak_bytes"] / 1e9,
+                "shared_bytes": o["runs"][i]["shared_bytes"],
+                "shared_bitwise": o["runs"][i]["shared_bitwise"]}
+                for o in outs]})
+    for o in outs:
+        fd = o["full_depth"]
+        slack = DRYRUN_ALLOC_SLACK
+        if not (fd["fsdp"] and fd["params_bytes"] == fd["reckoned_params_bytes"]
+                and abs(fd["params_bytes_requested"]
+                        - fd["reckoned_params_bytes"])
+                <= slack * fd["params_held"]
+                and fd["moment_bytes"] == fd["reckoned_optimizer_bytes"]
+                and abs(fd["moment_bytes_requested"]
+                        - fd["reckoned_optimizer_bytes"])
+                <= slack * (1 + 2 * fd["moments_held"])):
+            failed.append(f"rank {o['coord']} full depth: {fd}")
+    counts = launch_counts()
+    emit({"phase": "lm_train_tp", "mesh": list(LM_TRAIN_TP_MESH),
+          "backend": "gloo", "fsdp": True, "compute": "float32",
+          "global_batch": LM_TRAIN_TP_SHAPE, "steps": LM_TRAIN_TP_STEPS,
+          "world_wall_s": wall, "loss_bar": LM_TRAIN_TP_TOL,
+          "rel_bar": REL_TOL, "runs": runs,
+          "full_depth": [o["full_depth"] for o in outs],
+          "gpu": gpu, "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"lm_train_tp: {failed}")
     return counts
 
 
@@ -5905,7 +6248,10 @@ def main() -> int:
     # ---- 39. the SPED dry-run ---------------------------------------------
     counts_dryrun_sped = dryrun_sped_phase(dev, gpu)
 
-    # ---- 40. kernel list -------------------------------------------------
+    # ---- 40. tensor parallelism and FSDP of the LM train step ----------
+    counts_lm_train_tp = lm_train_tp_phase(dev, gpu)
+
+    # ---- 41. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -5918,7 +6264,7 @@ def main() -> int:
                  counts_walks_paper, counts_lm_serve, counts_lm_moe,
                  counts_lm_ssm, counts_train_sped, counts_lm_train,
                  counts_lm_mesh, counts_dryrun, counts_lm_train_dp,
-                 counts_dryrun_sped)
+                 counts_dryrun_sped, counts_lm_train_tp)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

@@ -238,11 +238,21 @@ def lm_params_from_numpy(cfg: ArchConfig, params: dict, device=None) -> Model:
     return model
 
 
+def _whole_named(model: Model, named: dict) -> dict:
+    """``named`` (tensors of the parameters' shapes, by name) whole on the
+    CPU: a model in its training layout holds slices, gathered one by one
+    (a collective of every rank of its mesh)."""
+    lay = model.train_layout
+    return {k: (t if lay is None else lay.whole(k, t)).detach().cpu()
+            for k, t in named.items()}
+
+
 def lm_params_to_numpy(model: Model) -> dict:
     """The model's parameters as the JAX package's tree: nested dicts of
-    numpy arrays, each of ``_STACKED`` stacked on axis 0."""
-    tree = lm_tree_from_named({name: p.detach().cpu()
-                               for name, p in model.named_parameters()})
+    numpy arrays, each of ``_STACKED`` stacked on axis 0; whole, gathered
+    where the model is in its training layout."""
+    tree = lm_tree_from_named(_whole_named(model,
+                                           dict(model.named_parameters())))
     return _map_dict(lambda t: t.numpy(), tree)
 
 
@@ -256,13 +266,15 @@ def lm_train_tree(model: Model, opt_state: OptState) -> tuple:
     CPU: ``(params, OptState(step, mu, nu, error))``, each of the dicts
     stacked as ``lm_tree_from_named`` stacks it (``error`` None without
     compression).  ``train.checkpoint`` saves it in ``repro``'s leaf
-    order.  ZeRO-1 moment slices are gathered whole first
+    order.  ZeRO-1 moment slices are gathered first
     (``optimizer.whole_moments``, a collective of the data group of the
-    state's layout), so every rank's tree is the one a single
+    state's layout), then, for a model in its training layout, every
+    parameter, moment and residual slice over both groups
+    (``TrainLayout.whole``), so every rank's tree is the one a single
     process holding the same state makes."""
 
     def tree(named):
-        return lm_tree_from_named({k: t.detach().cpu() for k, t in named.items()})
+        return lm_tree_from_named(_whole_named(model, named))
 
     params = dict(model.named_parameters())
     mu, nu = opt_lib.whole_moments(opt_state, params)
@@ -277,10 +289,13 @@ def lm_train_like(model: Model, opt_state: OptState) -> tuple:
     ``train.checkpoint.restore`` restores into."""
     params = dict(model.named_parameters())
     mdt = next(iter(opt_state.mu.values())).dtype
+    lay = model.train_layout
 
     def tree(named, dtype=None):
-        return lm_tree_from_named({k: torch.empty(t.shape, dtype=dtype or t.dtype)
-                                   for k, t in named.items()})
+        return lm_tree_from_named({
+            k: torch.empty(t.shape if lay is None else lay.splits[k].shape,
+                           dtype=dtype or t.dtype)
+            for k, t in named.items()})
 
     return (tree(params), OptState(
         step=torch.empty((), dtype=torch.int32), mu=tree(params, mdt),
@@ -291,10 +306,13 @@ def lm_train_like(model: Model, opt_state: OptState) -> tuple:
 def load_lm_train_tree(model: Model, opt_state: OptState, tree) -> OptState:
     """Copy a tree of ``lm_train_tree``'s form into the model's
     parameters and ``opt_state``'s moments and residuals, in place;
-    returns the state with the tree's step.  Where the state holds
-    ZeRO-1 slices, each moment is sliced for this rank of the state's
-    layout (``optimizer.load_moments``), whatever mesh wrote the tree."""
+    returns the state with the tree's step.  A model in its training
+    layout takes its slice of each parameter and residual; where the
+    state holds ZeRO-1 slices, each moment is sliced for this rank of the
+    state's layout (``optimizer.load_moments``), whatever mesh wrote the
+    tree."""
     params, state = tree
+    lay = model.train_layout
     pairs = [(dict(model.named_parameters()), params)]
     if opt_state.error is not None:
         pairs.append((opt_state.error, state.error))
@@ -302,7 +320,7 @@ def load_lm_train_tree(model: Model, opt_state: OptState, tree) -> OptState:
         for dst, src in pairs:
             src = lm_named_from_tree(src)
             for name, t in dst.items():
-                t.copy_(src[name])
+                t.copy_(src[name] if lay is None else lay.local(name, src[name]))
     opt_lib.load_moments(opt_state, lm_named_from_tree(state.mu),
                          lm_named_from_tree(state.nu))
     return opt_state._replace(step=state.step.to(opt_state.step.device))

@@ -97,76 +97,104 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int):
 # Programs
 # --------------------------------------------------------------------------
 
-def build_train_step(cfg: ArchConfig, opt_cfg: opt_lib.OptConfig,
-                     microbatches: int = 1):
-    """``train_step(model, opt_state, batch) -> (model, opt_state,
-    metrics)`` for a ``Model`` of ``cfg``.
+def train_grads(model: Model, batch: dict, microbatches: int = 1):
+    """(gradients by parameter name, {"loss", "xent", "aux"}) of one step
+    of ``build_train_step`` on ``batch``: what the step hands to
+    ``optimizer.apply``.  The parameters' ``.grad`` are left set.
 
     With ``microbatches`` > 1 the batch splits into that many sequential
     slices along its first axis, which shrinks the live activations by
     the same factor: each slice's gradients add into the parameters'
-    ``.grad`` (f32), the sum is divided by ``microbatches``, and the
-    optimizer applies once.  The loss and the metrics are the slices'
-    means.  The parameters and the state update in place
-    (``optimizer.apply``); the gradients are freed after the step.
-    Metrics are 0-dim tensors on the model's device: "loss", "xent",
-    "aux", "grad_norm", "lr".
+    ``.grad`` (f32), and the sum is divided by ``microbatches``.  The
+    loss and the metrics are the slices' means, 0-dim tensors.
 
-    Under a ``DeviceMesh`` (``sharding.set_mesh``) the step takes the
-    global batch on every rank and runs the rank's rows (its block of the
-    data axes; every row where the batch does not divide by their
-    extent), its microbatches being slices of those rows.  The gradients
-    are then averaged over the data group in flat f32 buckets
-    (``sharding.mean_buckets``), the loss and xent reported are the data
-    group's means (aux already is one), and ``optimizer.apply`` updates
-    the parameters under ZeRO-1.  With one data rank the step is the
-    step without a mesh.
+    Under a ``DeviceMesh`` (``sharding.set_mesh``) it takes the global
+    batch on every rank and runs the rank's rows (its block of the data
+    axes; every row where the batch does not divide by their extent),
+    its microbatches being slices of those rows.  The gradients are
+    averaged over the data group in flat f32 buckets
+    (``sharding.mean_buckets``), but for the parameters that the
+    model's training layout splits over the data axes (FSDP): their
+    gather's backward already took that mean.  The loss and xent
+    reported are the data group's means (aux already is one)."""
+    params = dict(model.named_parameters())
+    model.zero_grad(set_to_none=True)
+    mesh = sharding.current_mesh()
+    rows = next(iter(batch.values())).shape[0]
+    split = mesh is not None and sharding.batch_split(mesh, rows)
+    if split:
+        batch = {k: sharding.own_rows(mesh, v) for k, v in batch.items()}
+        rows = next(iter(batch.values())).shape[0]
+    if rows % microbatches:
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{microbatches} microbatches")
+    size = rows // microbatches
+    slices = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+              for i in range(microbatches)]
+    losses, xents, auxs = [], [], []
+    with sharding.model_rows(split):  # no mesh: nothing reads it
+        for piece in slices:
+            loss, metrics = model.train_loss(piece)
+            loss.backward()
+            losses.append(loss.detach())
+            xents.append(metrics["xent"].detach())
+            auxs.append(metrics["aux"].detach())
+    grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+             for k, p in params.items()}
+    if microbatches > 1:
+        for g in grads.values():
+            g.div_(microbatches)
+    lay = model.train_layout
+    if split:
+        sharding.mean_buckets([g for k, g in grads.items()
+                               if lay is None or lay.splits[k].data is None],
+                              mesh)
+
+    def mean(xs):
+        return torch.stack(xs).mean()
+
+    loss, xent = mean(losses), mean(xents)
+    if split:
+        both = torch.stack([loss, xent])
+        sharding.mean_buckets([both], mesh)
+        loss, xent = both[0], both[1]
+    return grads, {"xent": xent, "aux": mean(auxs), "loss": loss}
+
+
+def build_train_step(cfg: ArchConfig, opt_cfg: opt_lib.OptConfig,
+                     microbatches: int = 1):
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics)`` for a ``Model`` of ``cfg``: the gradients of
+    :func:`train_grads` (``microbatches`` as there), then
+    ``optimizer.apply`` once.  The parameters and the state update in
+    place; the gradients are freed after the step.  Metrics are 0-dim
+    tensors on the model's device: "loss", "xent", "aux", "grad_norm",
+    "lr".
+
+    Under a ``DeviceMesh`` the step runs the rank's rows and averages the
+    gradients over the data group (:func:`train_grads`), and
+    ``optimizer.apply`` updates the parameters under ZeRO-1.  A model in
+    its training layout (``model.shard_model(..., train=True)``) holds
+    and updates the rank's slices; its layers gather what they need and
+    compute on "model" slices where they can.  With one rank the step is
+    the step without a mesh.
     """
 
     def train_step(model: Model, opt_state: opt_lib.OptState, batch: dict):
         _check(model, cfg)
-        params = dict(model.named_parameters())
+        sliced = (model.train_layout is not None
+                  and model.train_layout.holds_slices)
+        if (opt_state.shards is None) == sliced:
+            raise ValueError("the optimizer state was not made for the "
+                             "model's training layout (optimizer.init(..., "
+                             "shards=model.train_layout))")
+        grads, metrics = train_grads(model, batch, microbatches)
+        _, opt_state, om = opt_lib.apply(opt_cfg, opt_state,
+                                         dict(model.named_parameters()), grads)
         model.zero_grad(set_to_none=True)
-        mesh = sharding.current_mesh()
-        rows = next(iter(batch.values())).shape[0]
-        split = mesh is not None and sharding.batch_split(mesh, rows)
-        if split:
-            batch = {k: sharding.own_rows(mesh, v) for k, v in batch.items()}
-            rows = next(iter(batch.values())).shape[0]
-        if rows % microbatches:
-            raise ValueError(f"a batch of {rows} rows does not split into "
-                             f"{microbatches} microbatches")
-        size = rows // microbatches
-        slices = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                  for i in range(microbatches)]
-        losses, xents, auxs = [], [], []
-        with sharding.model_rows(split):  # no mesh: nothing reads it
-            for piece in slices:
-                loss, metrics = model.train_loss(piece)
-                loss.backward()
-                losses.append(loss.detach())
-                xents.append(metrics["xent"].detach())
-                auxs.append(metrics["aux"].detach())
-        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
-                 for k, p in params.items()}
-        if microbatches > 1:
-            for g in grads.values():
-                g.div_(microbatches)
-        if split:
-            sharding.mean_buckets(list(grads.values()), mesh)
-        _, opt_state, om = opt_lib.apply(opt_cfg, opt_state, params, grads)
-        model.zero_grad(set_to_none=True)
-
-        def mean(xs):
-            return torch.stack(xs).mean()
-
-        loss, xent = mean(losses), mean(xents)
-        if split:
-            both = torch.stack([loss, xent])
-            sharding.mean_buckets([both], mesh)
-            loss, xent = both[0], both[1]
-        return model, opt_state, {"xent": xent, "aux": mean(auxs),
-                                  **om, "loss": loss}
+        return model, opt_state, {"xent": metrics["xent"],
+                                  "aux": metrics["aux"], **om,
+                                  "loss": metrics["loss"]}
 
     return train_step
 

@@ -20,9 +20,10 @@ package decides on: nested dicts keyed like its parameter tree, each
 layer stack one (L, ...) leaf (:func:`stacked_param_shapes`, made from
 the port's per-layer parameters as meta tensors, with no copies), and a
 ``ServeState`` whose caches are each one stacked cache
-(:func:`stacked_cache_shapes`).  :func:`zero1_layout` maps the moment
-specs back onto the port's per-layer tensors, for the data-parallel
-step's ZeRO-1 optimizer state.  The rules align a parameter's rule to
+(:func:`stacked_cache_shapes`).  :func:`train_layout` maps the
+parameter specs back onto the port's per-layer tensors (the training
+layout: each rank's slice of every parameter), and :func:`zero1_layout`
+the moment specs, for the step's ZeRO-1 optimizer state.  The rules align a parameter's rule to
 its rightmost dims, so the layer axis of a parameter is never split; a
 moment's may be (``moment_specs`` takes the first free divisible dim,
 often the layer axis), and then a rank holds whole layers.
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.model import ServeState
 from repro_torch.models.sharding import dp_axes, tp_axis
@@ -197,15 +199,21 @@ def _leaves(tree: dict):
             yield v
 
 
+def fsdp_default(params_shapes: dict, mesh) -> bool:
+    """FSDP where the parameters' f32 bytes a TP shard exceed
+    ``FSDP_THRESHOLD``: ``param_specs``' choice for ``fsdp`` None."""
+    tp_ext = _extent(mesh, tp_axis(mesh))
+    total_bytes = sum(math.prod(l.shape) * 4 for l in _leaves(params_shapes))
+    return total_bytes / max(tp_ext, 1) > FSDP_THRESHOLD
+
+
 def param_specs(cfg: ArchConfig, params_shapes: dict, mesh,
                 fsdp: bool | None = None) -> dict:
     """The spec tree of ``params_shapes`` (a stacked tree); ``fsdp`` None
     decides FSDP by the parameters' f32 bytes a TP shard."""
     dp, tp = mesh_axes(mesh)
     if fsdp is None:
-        tp_ext = _extent(mesh, tp)
-        total_bytes = sum(math.prod(l.shape) * 4 for l in _leaves(params_shapes))
-        fsdp = total_bytes / max(tp_ext, 1) > FSDP_THRESHOLD
+        fsdp = fsdp_default(params_shapes, mesh)
 
     def one(names, leaf):
         shape = leaf.shape
@@ -341,6 +349,132 @@ def cache_specs(cfg: ArchConfig, mesh, cache_shapes: ServeState) -> ServeState:
 
 
 # --------------------------------------------------------------------------
+# The training layout: the parameter specs on the port's per-layer tensors
+# --------------------------------------------------------------------------
+
+def _meta_tree(shapes: dict) -> dict:
+    """The stacked tree of meta tensors of ``shapes`` (port name ->
+    shape)."""
+    from repro_torch.convert import lm_tree_from_named
+
+    return lm_tree_from_named({k: torch.empty(v, device="meta")
+                               for k, v in shapes.items()})
+
+
+def _named_entry(name: str, specs: dict, shapes: dict):
+    """(spec, stacked leaf, layer or None) of the port's parameter
+    ``name`` in a stacked spec tree and its shape tree; a stacked
+    leaf's spec leads with its layer axis."""
+    from repro_torch.convert import _STACKED
+
+    stack, _, rest = name.partition(".")
+    layer = None
+    if stack in _STACKED:
+        i, _, rest = rest.partition(".")
+        layer, path = int(i), [stack] + rest.split(".")
+    else:
+        path = name.split(".")
+    node, leaf = specs, shapes
+    for key in path:
+        node, leaf = node[key], leaf[key]
+    return tuple(node), leaf, layer
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """The training layout on ``mesh``: ``splits`` maps each of the port's
+    parameter names to its ``sharding.ParamSplit`` under the JAX
+    package's ``param_specs(cfg, stacked shapes, mesh, fsdp)`` (an
+    axis of extent 1 splits nothing); ``index`` is the (data, model)
+    coordinate whose slices the rank holds."""
+
+    splits: dict
+    mesh: object
+    fsdp: bool
+    index: tuple
+
+    def bounds(self, name: str, index: tuple | None = None) -> tuple:
+        """(start, size) along each dim of the slice coordinate ``index``
+        (default: this rank's) holds of parameter ``name``."""
+        sp = self.splits[name]
+        di, ti = self.index if index is None else index
+        out = []
+        for d, size in enumerate(sp.shape):
+            if d == sp.data:
+                n = size // _extent(self.mesh, dp_axes(self.mesh))
+                out.append((di * n, n))
+            elif d == sp.model:
+                n = size // _extent(self.mesh, tp_axis(self.mesh))
+                out.append((ti * n, n))
+            else:
+                out.append((0, size))
+        return tuple(out)
+
+    def local(self, name: str, t: torch.Tensor, index: tuple | None = None):
+        """The slice ``index`` (default: this rank's) of ``t``, a whole
+        tensor of parameter ``name``'s shape: a view."""
+        for d, (start, size) in enumerate(self.bounds(name, index)):
+            if size != t.shape[d]:
+                t = t.narrow(d, start, size)
+        return t
+
+    def replicas(self, name: str) -> int:
+        """How many ranks of the mesh hold the same slice of ``name``."""
+        sp = self.splits[name]
+        dp_ext = _extent(self.mesh, dp_axes(self.mesh))
+        tp_ext = _extent(self.mesh, tp_axis(self.mesh))
+        return (1 if sp.data is not None else dp_ext) * (
+            1 if sp.model is not None else tp_ext)
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of which ``t`` (parameter ``name``'s shape) is
+        this rank's slice: a collective of every rank of the mesh."""
+        return sharding.gather_whole(t, self.splits[name], self.mesh)
+
+    @property
+    def holds_slices(self) -> bool:
+        """Whether any parameter is split (else every rank holds the
+        whole model)."""
+        return any(sp.data is not None or sp.model is not None
+                   for sp in self.splits.values())
+
+
+def train_layout(cfg: ArchConfig, mesh, fsdp: bool | None = None,
+                 index: tuple | None = None) -> TrainLayout:
+    """The training layout of ``cfg``'s model on ``mesh`` (a
+    ``DeviceMesh``, or an ``AbstractMesh`` with the (data, model)
+    ``index`` to hold): ``param_specs(cfg, shapes, mesh, fsdp)`` of the
+    stacked tree (``fsdp`` None: by the threshold), each leaf's spec
+    mapped onto each layer's tensor (a parameter's layer axis is never
+    split), with ``models.model.computes_sliced`` for its "model" dim."""
+    from repro_torch.models.model import Model, computes_sliced
+
+    named = {k: tuple(p.shape)
+             for k, p in Model(cfg, device="meta").named_parameters()}
+    shapes = _meta_tree(named)
+    if fsdp is None:
+        fsdp = fsdp_default(shapes, mesh)
+    specs = param_specs(cfg, shapes, mesh, fsdp=fsdp)
+    dp, tp = mesh_axes(mesh)
+    dp_ext, tp_ext = _extent(mesh, dp), _extent(mesh, tp)
+    dp_entry = (dp if len(dp) > 1 else dp[0]) if dp else None
+    splits = {}
+    for name, shape in named.items():
+        spec, _, layer = _named_entry(name, specs, shapes)
+        if layer is not None:
+            spec = spec[1:]
+        spec = list(spec) + [None] * (len(shape) - len(spec))
+        data = spec.index(dp_entry) if dp_ext > 1 and dp_entry in spec else None
+        model = spec.index(tp) if tp_ext > 1 and tp in spec else None
+        splits[name] = sharding.ParamSplit(
+            shape, data, model,
+            model is not None and computes_sliced(cfg, name, tp_ext))
+    if index is None:
+        index = (sharding.dp_index(mesh), sharding.tp_index(mesh))
+    return TrainLayout(splits, mesh, bool(fsdp), tuple(index))
+
+
+# --------------------------------------------------------------------------
 # ZeRO-1: the moment specs on the port's per-layer parameters
 # --------------------------------------------------------------------------
 
@@ -413,8 +547,8 @@ class Zero1Layout:
                                    f"{flat.numel()} gathered elements")
 
 
-def zero1_layout(named: dict, mesh, index: int | None = None
-                 ) -> Zero1Layout | None:
+def zero1_layout(named: dict, mesh, index: int | None = None,
+                 shards: TrainLayout | None = None) -> Zero1Layout | None:
     """The ZeRO-1 layout of the parameters ``named`` (tensors, or meta
     tensors, keyed by the port's names) on ``mesh``: the JAX package's
     ``moment_specs(param_specs(cfg, shapes, mesh), shapes, mesh)`` on the
@@ -423,41 +557,33 @@ def zero1_layout(named: dict, mesh, index: int | None = None
     split on another axis slices each layer's tensor on that axis; an
     unsplit leaf stays whole on every rank.  None where the data extent
     is 1.  ``index`` is the data rank the layout is for (default: this
-    rank of the ``DeviceMesh``; an ``AbstractMesh`` needs one).  Only
-    the data axes are read: a mesh whose "model" axis holds several
-    ranks raises (tensor-parallel training is not ported)."""
-    from repro_torch.convert import _STACKED, lm_tree_from_named
+    rank of the ``DeviceMesh``; an ``AbstractMesh`` needs one).
+
+    With ``shards`` (the model's training layout) ``named`` holds the
+    rank's slices: the specs come from the whole shapes under
+    ``param_specs(..., shards.fsdp)``, a moment slices the rank's
+    parameter slice (the free dims it splits are whole there), and an
+    FSDP leaf's moment is its parameter's slice, unsplit further."""
     from repro_torch.models.sharding import dp_index
 
-    dp, tp = mesh_axes(mesh)
+    dp, _ = mesh_axes(mesh)
     dp_ext = _extent(mesh, dp)
     if dp_ext == 1:
         return None
-    if _extent(mesh, tp) > 1:
-        raise NotImplementedError("ZeRO-1 on a mesh whose model axis holds "
-                                  "several ranks: tensor-parallel training "
-                                  "is not ported")
-    shapes = lm_tree_from_named({
-        k: torch.empty(t.shape, dtype=t.dtype, device="meta")
-        for k, t in named.items()})
+    whole = ({k: shards.splits[k].shape for k in named} if shards is not None
+             else {k: tuple(t.shape) for k, t in named.items()})
+    shapes = _meta_tree(whole)
     # the rules read the names and shapes only, not the config
-    specs = moment_specs(param_specs(None, shapes, mesh), shapes, mesh)
+    p_specs = param_specs(None, shapes, mesh,
+                          fsdp=None if shards is None else shards.fsdp)
+    specs = moment_specs(p_specs, shapes, mesh)
     dp_entry = dp if len(dp) > 1 else dp[0]
     splits = {}
     for name in named:
-        stack, _, rest = name.partition(".")
-        layer = None
-        if stack in _STACKED:
-            i, _, rest = rest.partition(".")
-            layer, path = int(i), [stack] + rest.split(".")
-        else:
-            path = name.split(".")
-        node, leaf = specs, shapes
-        for key in path:
-            node, leaf = node[key], leaf[key]
-        entries = list(node)
+        entries, leaf, layer = _named_entry(name, specs, shapes)
         j = entries.index(dp_entry) if dp_entry in entries else None
-        if j is None:
+        if j is None or (shards is not None
+                         and shards.splits[name].data is not None):
             splits[name] = MomentSplit(None, None)
         elif layer is None:
             splits[name] = MomentSplit(j, None)

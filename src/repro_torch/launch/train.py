@@ -29,9 +29,10 @@ under ``make_local_mesh()``: started by torchrun (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` in the environment),
 ``main`` joins that world over gloo and each rank runs its rows of
 every global batch on a
-(world, 1) ("data", "model") mesh, with ZeRO-1 moments; otherwise it
-runs a world of one, which computes what no mesh computes.  Only rank 0
-prints and writes checkpoints.
+(world, 1) ("data", "model") mesh, with ZeRO-1 moments and the model in
+its training layout (FSDP of the parameters where the JAX package's
+threshold puts it); otherwise it runs a world of one, which computes
+what no mesh computes.  Only rank 0 prints and writes checkpoints.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --mode lm \
       --arch qwen3-4b --smoke --steps 20 --device cpu
@@ -98,8 +99,10 @@ def _sync(device: torch.device) -> None:
 def train_lm(args, device: torch.device) -> LMRun:
     """The LM loop, on the (world, 1) mesh of the initialized world (no
     mesh where none is): every rank feeds the global batch, runs its
-    rows and holds its ZeRO-1 moment slices; rank 0 alone prints and
-    saves (a save gathers the moments on every rank first)."""
+    rows and holds its parameter slices (the training layout at
+    ``fsdp=None``, drawn block by block) and its ZeRO-1 moment slices;
+    rank 0 alone prints and saves (a save gathers the tree on every rank
+    first)."""
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -119,10 +122,13 @@ def train_lm(args, device: torch.device) -> LMRun:
         if lead:
             fault.retrying(ckpt.save)(args.ckpt_dir, step, tree, **kw)
 
-    with sharding.set_mesh(make_local_mesh(device) if world else None):
+    mesh = make_local_mesh(device) if world else None
+    with sharding.set_mesh(mesh):
         model = Model(cfg, device,
-                      torch.Generator(device=device).manual_seed(args.seed))
-        opt_state = opt_lib.init(opt_cfg, dict(model.named_parameters()))
+                      torch.Generator(device=device).manual_seed(args.seed),
+                      train_mesh=mesh)
+        opt_state = opt_lib.init(opt_cfg, dict(model.named_parameters()),
+                                 model.train_layout)
         start = 0
         if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
             tree, _, start = ckpt.restore_with_fallback(

@@ -18,6 +18,13 @@ the ranks' partial softmaxes with three all_reduces over the "model"
 group (``_decode_attention_cp``).  A sequence that does not divide by the
 "model" extent is held whole on every rank and decodes by the plain
 path, as in the JAX package.
+
+In training under the training layout a ``sliced`` attention node holds
+the rank's heads (Megatron style): GQA's wq / wk / wv and their biases
+by columns, MLA's wq and w_kv_up by columns, wo by rows; the head count
+is read from the weights, and the partial output of wo is summed over
+the model group.  That is the form where the heads divide by the model
+extent; otherwise the node gathers its weights whole on use.
 """
 from __future__ import annotations
 
@@ -261,9 +268,20 @@ def cache_kv(cache: KVCache, dtype):
 # GQA forward
 # --------------------------------------------------------------------------
 
+def _norm_scale(p: Params, name: str):
+    """The qk-norm node ``name``; under a ``sliced`` node its scale, which
+    every head shares, enters the head-sliced region."""
+    node = p[name]
+    if not p.sliced:
+        return node
+    return {"scale": sharding.model_enter(node["scale"], p.mesh)}
+
+
 def _project_qkv(p: Params, cfg: ArchConfig, x, positions):
+    """(q, k, v) per head of the heads the node holds (all, or the rank's
+    under a ``sliced`` node, whose x has entered the region)."""
     dt = x.dtype
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     q = x @ p["wq"].to(dt)
     k = x @ p["wk"].to(dt)
     v = x @ p["wv"].to(dt)
@@ -272,12 +290,12 @@ def _project_qkv(p: Params, cfg: ArchConfig, x, positions):
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     b, s, _ = x.shape
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = q.reshape(b, s, q.shape[-1] // hd, hd)
+    k = k.reshape(b, s, k.shape[-1] // hd, hd)
+    v = v.reshape(b, s, v.shape[-1] // hd, hd)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.rms_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.rms_eps)
+        q = rmsnorm(_norm_scale(p, "q_norm"), q, cfg.rms_eps)
+        k = rmsnorm(_norm_scale(p, "k_norm"), k, cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -290,16 +308,18 @@ def gqa_train(p: Params, cfg: ArchConfig, x, *, causal: bool = True,
     (out, (k, v)) with k/v before the KV-head broadcast."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    kb = _broadcast_kv(k, cfg.num_heads)
-    vb = _broadcast_kv(v, cfg.num_heads)
+    xe = sharding.model_enter(x, p.mesh) if p.sliced else x
+    q, k, v = _project_qkv(p, cfg, xe, positions)
+    h = q.shape[2]
+    kb = _broadcast_kv(k, h)
+    vb = _broadcast_kv(v, h)
     if s <= 2048:
         out = _dense_attention(q, kb, vb, causal=causal, q_offset=0)
     else:
         out = _chunked_attention(q, kb, vb, causal=causal, q_offset=0,
                                  chunk=chunk)
-    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
-    return out @ p["wo"].to(x.dtype), (k, v)
+    out = out.reshape(b, s, h * cfg.head_dim) @ p["wo"].to(x.dtype)
+    return (sharding.model_sum(out, p.mesh) if p.sliced else out), (k, v)
 
 
 def _decode_attention_cp(q, cache: KVCache):
@@ -393,12 +413,14 @@ def mla_cache_update(cache: MLACache, c_kv, k_rope, pos: int) -> MLACache:
 
 
 def _mla_qkv(p: Params, cfg: ArchConfig, x, positions):
-    """(q_nope, q_rope) per head, the normalised latent c_kv and the
-    roped k_rope shared by the heads."""
+    """(q_nope, q_rope) per head of the heads the node holds, the
+    normalised latent c_kv and the roped k_rope shared by the heads."""
     dt = x.dtype
-    h, hd, rd = cfg.num_heads, cfg.head_dim, cfg.qk_rope_head_dim
+    hd, rd = cfg.head_dim, cfg.qk_rope_head_dim
     b, s, _ = x.shape
-    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd + rd)
+    xq = sharding.model_enter(x, p.mesh) if p.sliced else x
+    q = xq @ p["wq"].to(dt)
+    q = q.reshape(b, s, q.shape[-1] // (hd + rd), hd + rd)
     q_nope = q[..., :hd]
     q_rope = apply_rope(q[..., hd:], positions, cfg.rope_theta)
     c_kv = rmsnorm(p["kv_norm"], x @ p["w_kv_down"].to(dt), cfg.rms_eps)
@@ -412,11 +434,12 @@ def _mla_qkv(p: Params, cfg: ArchConfig, x, positions):
 def _mla_attend(p: Params, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope, *,
                 causal: bool, q_offset: int):
     """Attention with c_kv expanded to per-head K_nope and V (training
-    and prefill)."""
+    and prefill), over the heads of q; under a ``sliced`` node the
+    partial output of wo, which the caller sums."""
     dt = q_nope.dtype
-    h, hd, vd = cfg.num_heads, cfg.head_dim, cfg.v_head_dim
+    hd, vd = cfg.head_dim, cfg.v_head_dim
     b, sk, _ = c_kv.shape
-    sq = q_nope.shape[1]
+    sq, h = q_nope.shape[1], q_nope.shape[2]
     kv = (c_kv @ p["w_kv_up"].to(dt)).reshape(b, sk, h, hd + vd)
     k_nope, v = kv[..., :hd], kv[..., hd:]
     logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
@@ -440,18 +463,22 @@ def mla_train(p: Params, cfg: ArchConfig, x, *, causal: bool = True):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    # the latents every head reads enter the head-sliced region
+    ce, ke = ((sharding.model_enter(c_kv, p.mesh),
+               sharding.model_enter(k_rope, p.mesh)) if p.sliced
+              else (c_kv, k_rope))
     if s > 4096:
         qc = 1024
         out = torch.zeros((b, s, cfg.d_model), dtype=x.dtype, device=x.device)
         for i in range(s // qc):
             sl = slice(i * qc, (i + 1) * qc)
             out[:, sl] = _mla_attend(p, cfg, q_nope[:, sl], q_rope[:, sl],
-                                     c_kv, k_rope, causal=causal,
-                                     q_offset=i * qc)
-        return out, (c_kv, k_rope)
-    out = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, causal=causal,
-                      q_offset=0)
-    return out, (c_kv, k_rope)
+                                     ce, ke, causal=causal, q_offset=i * qc)
+    else:
+        out = _mla_attend(p, cfg, q_nope, q_rope, ce, ke, causal=causal,
+                          q_offset=0)
+    return (sharding.model_sum(out, p.mesh) if p.sliced else out), (c_kv,
+                                                                      k_rope)
 
 
 def mla_decode(p: Params, cfg: ArchConfig, x, cache: MLACache):

@@ -7,6 +7,12 @@ f32 accumulations and f32 norm statistics; parameters are stored f32
 and cast at use.  ``COMPUTE_DTYPE`` is read when ``embed`` runs, and
 every later op follows ``x.dtype``, so patching it to ``torch.float32``
 runs a whole model in f32.
+
+In the training layout a node holds its leaves' slices (``splits``) and
+``p[name]`` gathers what its layer needs (``sharding.read_param``); a
+node whose layer computes on its "model" slices (``sliced``: the MLP's
+hidden dim, the embedding's vocabulary) closes that layer with a sum
+over the model group.
 """
 from __future__ import annotations
 
@@ -16,12 +22,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import sharding
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
 class Params(nn.Module):
     """One node of the parameter tree: tensors become parameters, modules
-    sub-nodes; ``p[name]`` and ``name in p`` read either."""
+    sub-nodes; ``p[name]`` and ``name in p`` read either.
+
+    The training form of ``model.shard_model`` sets ``splits`` (leaf name
+    -> ``sharding.ParamSplit``) and ``mesh`` on a node whose leaves it
+    slices, and ``sliced`` where the node's layer computes on its "model"
+    slices; ``p[name]`` then reads a leaf through
+    ``sharding.read_param``."""
+
+    splits: dict = {}
+    mesh = None
+    sliced = False
 
     def __init__(self, **children):
         super().__init__()
@@ -32,7 +50,11 @@ class Params(nn.Module):
                 self.register_parameter(name, nn.Parameter(value))
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        value = getattr(self, name)
+        split = self.splits.get(name)
+        if split is None:
+            return value
+        return sharding.read_param(value, split, self.mesh)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
@@ -106,14 +128,19 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU when 'w_gate' is present, the classic GELU MLP (tanh
-    approximation, as jax.nn.gelu's default) otherwise."""
+    approximation, as jax.nn.gelu's default) otherwise.  A ``sliced``
+    node holds the rank's columns of w_gate / w_up and rows of w_down:
+    its partial output is summed over the model group."""
     dt = x.dtype
+    if p.sliced:
+        x = sharding.model_enter(x, p.mesh)
     u = x @ p["w_up"].to(dt)
     if "w_gate" in p:
         h = F.silu(x @ p["w_gate"].to(dt)) * u
     else:
         h = F.gelu(u, approximate="tanh")
-    return h @ p["w_down"].to(dt)
+    out = h @ p["w_down"].to(dt)
+    return sharding.model_sum(out, p.mesh) if p.sliced else out
 
 
 # --- Embedding --------------------------------------------------------------
@@ -122,9 +149,25 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int) -> Params:
     return Params(table=randn(gen, (vocab, d_model)) * 0.01)
 
 
+def vocab_range(p: Params) -> tuple[int, int]:
+    """[lo, lo + n) of the vocabulary a ``sliced`` table node holds: the
+    rank's block over "model"."""
+    n = p.table.shape[0]
+    return sharding.tp_index(p.mesh) * n, n
+
+
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     # rows gathered, then cast: the same values as casting the table first
-    return p["table"][tokens.long()].to(COMPUTE_DTYPE)
+    table = p["table"]
+    if not p.sliced:
+        return table[tokens.long()].to(COMPUTE_DTYPE)
+    # the rank's block of the vocabulary: its tokens' rows, zeros for the
+    # others, summed over the model group (one nonzero term each: exact)
+    lo, n = vocab_range(p)
+    local = tokens.long() - lo
+    held = (local >= 0) & (local < n)
+    rows = torch.where(held[..., None], table[local.clamp(0, n - 1)], 0.0)
+    return sharding.model_sum(rows, p.mesh).to(COMPUTE_DTYPE)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,19 @@ and whisper's cross K/V hold the rank's rows, whole along "model"; the
 MoE runs the rank's experts (``shard_model`` drops the others' weights);
 every other projection runs whole on every rank.
 
+For training under a mesh the model takes its TRAINING LAYOUT
+(``shard_model(model, mesh, train=True)``, or ``Model(...,
+train_mesh=mesh)``, which slices each block as soon as it is drawn):
+each rank holds its slice of every parameter under the JAX package's
+``param_specs`` (``launch.shardings.train_layout``).  A layer gathers
+what it cannot compute on when it reads a parameter
+(``sharding.read_param``: the FSDP dim over the data axes always, the
+"model" dim in the gather form) and computes on the rest Megatron style:
+attention by heads where they divide by the model extent, the MLP's
+hidden dim, the MoE's experts, the vocabulary of the tables
+(``computes_sliced``).  ``prefill`` and ``decode_step`` refuse such a
+model, whose head-split K/V must not reach a context-parallel cache.
+
 ``cfg.remat_policy`` sets what ``train_loss`` keeps for the backward
 pass, block by block (``torch.utils.checkpoint``): "full" (the default)
 keeps a block's input and runs the block again, "dots" keeps the
@@ -42,6 +55,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -118,13 +132,79 @@ class _Rows(NamedTuple):
         return sharding.gather_rows(self.mesh, x) if self.split else x
 
 
-def shard_model(model: "Model", mesh) -> "Model":
-    """Drop the expert weights this rank does not own, in place: each MoE
-    block keeps experts [j E/tp, (j+1) E/tp) of its stacks and, with
-    shared experts, that slice of their hidden dim, j being the rank's
-    "model" coordinate of ``mesh``.  Experts that do not divide by the
-    model extent stay whole (the grouped form runs them all).  Returns
-    the model."""
+def computes_sliced(cfg: ArchConfig, name: str, tp: int) -> bool:
+    """Whether the layer of parameter ``name`` (the port's name) computes
+    on its "model" slice at a model extent ``tp`` (else a "model" split
+    of the parameter is gathered on use: the gather form).  Gathered: the
+    Mamba2 mixer, whose [z | x] projection splits between z and x, not
+    between heads, and whose gated norm runs over all of d_inner; and
+    attention whose heads (GQA: query and KV heads) do not divide by
+    ``tp``.  The MoE computes on its slices where the experts and the
+    shared hidden dim divide; the MLP's hidden dim and the tables'
+    vocabulary always do."""
+    path = name.split(".")
+    if "ssm" in path:
+        return False
+    if "moe" in path:
+        return moe_mod.expert_sharded(cfg, tp)
+    heads = cfg.num_heads % tp == 0
+    if "cross" in path or ("attn" in path and cfg.use_mla):
+        return heads
+    if "attn" in path:
+        return heads and cfg.num_kv_heads % tp == 0
+    return True
+
+
+def _slice_tree(module: nn.Module, prefix: str, layout) -> None:
+    """Slice the parameters of ``module`` (``prefix`` its name in the
+    model) to this rank's by ``layout`` (a ``shardings.TrainLayout``), in
+    place, and mark each ``Params`` node that holds a slice."""
+    with torch.no_grad():
+        for mod_name, node in module.named_modules(prefix=prefix):
+            if not isinstance(node, Params):
+                continue
+            splits = {}
+            for leaf, t in list(node._parameters.items()):
+                name = f"{mod_name}.{leaf}"
+                split = layout.splits[name]
+                if split.data is None and split.model is None:
+                    continue
+                if tuple(t.shape) != split.shape:
+                    raise ValueError(f"{name}: shape {tuple(t.shape)}, the "
+                                     f"layout's whole {split.shape}")
+                node._parameters[leaf] = nn.Parameter(
+                    layout.local(name, t).clone())
+                splits[leaf] = split
+            if splits:
+                node.splits = splits
+                node.mesh = layout.mesh
+                node.sliced = any(sp.model is not None and sp.sliced
+                                  for sp in splits.values())
+
+
+def shard_model(model: "Model", mesh, *, train: bool = False,
+                fsdp: bool | None = None) -> "Model":
+    """Shard a whole model for ``mesh``, in place; returns it.
+
+    Serving (``train`` False): drop the expert weights this rank does not
+    own: each MoE block keeps experts [j E/tp, (j+1) E/tp) of its stacks
+    and, with shared experts, that slice of their hidden dim, j being the
+    rank's "model" coordinate of ``mesh``.  Experts that do not divide by
+    the model extent stay whole (the grouped form runs them all).
+
+    Training (``train`` True): the training layout of ``mesh`` (a
+    ``DeviceMesh``) under ``param_specs(..., fsdp)`` (None: FSDP where
+    the JAX package's threshold puts it): every parameter becomes this
+    rank's slice, and the layout is kept as ``model.train_layout``."""
+    if model.train_layout is not None:
+        raise ValueError("the model is already in a training layout")
+    if train:
+        from repro_torch.launch import shardings
+
+        layout = shardings.train_layout(model.cfg, mesh, fsdp)
+        _slice_tree(model, "", layout)
+        model.train_layout = layout
+        return model
     cfg = model.cfg
     tp_ext = sharding.extent(mesh, sharding.tp_axis(mesh))
     if cfg.family != "moe" or tp_ext == 1 or not moe_mod.expert_sharded(
@@ -151,6 +231,22 @@ def shard_model(model: "Model", mesh) -> "Model":
     return model
 
 
+def _sliced_xent_terms(logits, local, n: int, mesh):
+    """(logsumexp, gold logit) of each position over the whole vocabulary
+    from the rank's block of its logits (n columns): the max (MAX) and
+    the sum of exponentials (SUM) over the model group, the gold logit
+    from the rank that holds the label (``local``: the label's column in
+    the block, out of [0, n) on the other ranks)."""
+    group = sharding.model_group(mesh)
+    m = sharding.all_reduce(logits.detach().amax(dim=-1), dist.ReduceOp.MAX,
+                            group)
+    lse = m + torch.log(sharding.model_sum(
+        torch.exp(logits - m[..., None]).sum(dim=-1), mesh))
+    held = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return lse, sharding.model_sum(torch.where(held, gold, 0.0), mesh)
+
+
 class ServeState(NamedTuple):
     # per layer, written in place: an attention.KVCache (MLACache under
     # MLA), or an ssm.SSMCache for the SSM layers of ssm and hybrid
@@ -166,49 +262,82 @@ class Model(nn.Module):
     ``generator`` (seed 0 on ``device`` when None) on its device, stored
     f32, and live on ``device`` (the CUDA card when None).  On the meta
     device nothing is drawn or allocated: the parameters have their
-    shapes only."""
+    shapes only.
+
+    With ``train_mesh`` (a ``DeviceMesh``) the model is built in that
+    mesh's training layout (``shard_model``'s training form, ``fsdp`` as
+    there): each block is sliced as soon as it is drawn, so the whole
+    model is never held, and the values are the slices of the whole
+    model drawn from the same generator."""
+
+    # the training layout (``launch.shardings.TrainLayout``) the
+    # parameters are sliced by; None: whole
+    train_layout = None
 
     def __init__(self, cfg: ArchConfig, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, *,
+                 train_mesh=None, fsdp: bool | None = None):
         super().__init__()
         dev = resolve_device(device)
         if generator is None:
             generator = (MetaGenerator() if dev.type == "meta" else
                          torch.Generator(device=dev).manual_seed(0))
         self.cfg = cfg
-        self.init(generator)
+        layout = None
+        if train_mesh is not None:
+            from repro_torch.launch import shardings
+
+            layout = shardings.train_layout(cfg, train_mesh, fsdp)
+        self.init(generator, layout)
         self.to(dev)
+        self.train_layout = layout
 
-    def init(self, gen: torch.Generator) -> None:
-        """The parameter layout of the JAX package's ``model.init``."""
+    def init(self, gen: torch.Generator, layout=None) -> None:
+        """The parameter layout of the JAX package's ``model.init``; with
+        ``layout``, each top-level node and block sliced by it once
+        drawn."""
         cfg = self.cfg
-        self.embed = init_embedding(gen, cfg.vocab_size, cfg.d_model)
-        self.final_norm = init_rmsnorm(cfg.d_model, gen.device)
-        if not cfg.tie_embeddings:
-            self.unembed = Params(table=dense_init(
-                gen, (cfg.vocab_size, cfg.d_model), in_axis=1))
 
-        def stack(kind, n):
-            return nn.ModuleList(Block(cfg, gen, kind) for _ in range(n))
+        def put(name, module):
+            if layout is not None:
+                _slice_tree(module, name, layout)
+            return module
+
+        self.embed = put("embed", init_embedding(gen, cfg.vocab_size,
+                                                 cfg.d_model))
+        self.final_norm = put("final_norm",
+                              init_rmsnorm(cfg.d_model, gen.device))
+        if not cfg.tie_embeddings:
+            self.unembed = put("unembed", Params(table=dense_init(
+                gen, (cfg.vocab_size, cfg.d_model), in_axis=1)))
+
+        def stack(name, kind, n):
+            return nn.ModuleList(put(f"{name}.{i}", Block(cfg, gen, kind))
+                                 for i in range(n))
 
         if cfg.family == "hybrid":
             n_groups, per_group, trailing = _hybrid_layout(cfg)
-            self.ssm_layers = stack("ssm", n_groups * per_group + trailing)
-            self.shared_attn = Block(cfg, gen, "dense")
+            self.ssm_layers = stack("ssm_layers", "ssm",
+                                    n_groups * per_group + trailing)
+            self.shared_attn = put("shared_attn", Block(cfg, gen, "dense"))
         elif cfg.family == "encdec":
-            self.enc_layers = stack("dense", cfg.encoder_layers)
-            self.enc_norm = init_rmsnorm(cfg.d_model, gen.device)
-            self.layers = stack("cross", cfg.num_layers)
+            self.enc_layers = stack("enc_layers", "dense", cfg.encoder_layers)
+            self.enc_norm = put("enc_norm",
+                                init_rmsnorm(cfg.d_model, gen.device))
+            self.layers = stack("layers", "cross", cfg.num_layers)
         else:
-            self.layers = stack({"moe": "moe", "ssm": "ssm"}.get(
+            self.layers = stack("layers", {"moe": "moe", "ssm": "ssm"}.get(
                 cfg.family, "dense"), cfg.num_layers)
 
     @property
     def device(self) -> torch.device:
-        return self.embed["table"].device
+        return self.embed.table.device
+
+    def _table_node(self) -> Params:
+        return self.embed if self.cfg.tie_embeddings else self.unembed
 
     def _table(self) -> torch.Tensor:
-        return (self.embed if self.cfg.tie_embeddings else self.unembed)["table"]
+        return self._table_node()["table"]
 
     def _blocks(self) -> list:
         """The blocks in the order the residual stream runs through them,
@@ -266,8 +395,14 @@ class Model(nn.Module):
     def _chunked_xent(self, hidden, labels, chunk: int = 512):
         """Mean cross entropy over labels >= 0, with the (b, s, vocab) f32
         logits formed one sequence chunk at a time; the padded tail of
-        the last chunk carries label -1."""
-        table = self._table().float()
+        the last chunk carries label -1.  A ``sliced`` table holds the
+        rank's block of the vocabulary: each chunk's logits are that
+        block's (``_sliced_xent_terms``)."""
+        node = self._table_node()
+        table = node["table"].float()
+        if node.sliced:
+            hidden = sharding.model_enter(hidden, node.mesh)
+            lo, n = layers.vocab_range(node)
         s = hidden.shape[1]
         chunk = min(chunk, s)
         pad = (-s) % chunk
@@ -279,8 +414,11 @@ class Model(nn.Module):
         for c0 in range(0, s + pad, chunk):
             lab = labels[:, c0:c0 + chunk].long()
             logits = hidden[:, c0:c0 + chunk].float() @ table.T
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, lab.clamp(min=0)[..., None])[..., 0]
+            if node.sliced:
+                lse, gold = _sliced_xent_terms(logits, lab - lo, n, node.mesh)
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = logits.gather(-1, lab.clamp(min=0)[..., None])[..., 0]
             valid = (lab >= 0).float()
             tot = tot + torch.sum((lse - gold) * valid)
             cnt = cnt + torch.sum(valid)
@@ -315,14 +453,21 @@ class Model(nn.Module):
         labels are the rolled tokens (``data.pipeline``), valid at every
         position, and the chunk padding is the same on every rank.  The
         mean is the caller's (``dryrun.build_train_step``); the loss here
-        is the rank's.  A mesh whose "model" axis holds several ranks
-        raises: tensor-parallel training is not ported."""
+        is the rank's, the same on every rank of its model group.
+
+        A model in its training layout runs under the mesh it was sliced
+        for; under a mesh whose "model" axis holds several ranks the model
+        must be in its training layout (a whole model's MoE would give
+        each rank the gradients of its own experts only)."""
         mesh = sharding.current_mesh()
-        if mesh is not None and sharding.extent(
-                mesh, sharding.tp_axis(mesh)) > 1:
-            raise NotImplementedError(
-                "train_loss under a mesh whose model axis holds several "
-                "ranks: tensor-parallel training is not ported")
+        lay = self.train_layout
+        if lay is not None and mesh != lay.mesh:
+            raise ValueError("a model in its training layout trains under "
+                             "the mesh it was sliced for")
+        if lay is None and mesh is not None and sharding.tp_extent(mesh) > 1:
+            raise ValueError("training under a mesh whose model axis holds "
+                             "several ranks needs the model in its training "
+                             "layout (shard_model(..., train=True))")
         with self._rows(batch["labels"].shape[0]) as own:
             batch = {k: own(v) for k, v in batch.items()}
             x = self._input_embeddings(batch)
@@ -378,11 +523,20 @@ class Model(nn.Module):
                      None if state.cross_kv is None else state.cross_kv[i])
         return x
 
+    def _serving(self, what: str) -> None:
+        if self.train_layout is not None:
+            raise ValueError(f"{what} of a model in its training layout: "
+                             "its heads are split over 'model', and a "
+                             "head-split K/V must not fill a "
+                             "context-parallel cache")
+
     @torch.no_grad()
     def prefill(self, batch: dict, max_seq: int = 0):
         """Run the prompt, fill each layer's cache; returns the
         last-position logits (b, vocab) f32 and the state.  An SSM layer
-        raises ``ValueError`` on a prompt shorter than ssm_conv - 1."""
+        raises ``ValueError`` on a prompt shorter than ssm_conv - 1, and
+        a model in its training layout raises ``ValueError``."""
+        self._serving("prefill")
         b, s = batch["tokens"].shape
         with self._rows(b) as own:
             batch = {k: own(v) for k, v in batch.items()}
@@ -396,7 +550,9 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, state: ServeState, tokens):
         """tokens (b, 1) -> next-token logits (b, vocab) f32; the caches
-        advance in place."""
+        advance in place.  A model in its training layout raises
+        ``ValueError``."""
+        self._serving("decode_step")
         with self._rows(tokens.shape[0]) as own:
             x = self._run(Block.block_decode, embed(self.embed, own(tokens)),
                           state)

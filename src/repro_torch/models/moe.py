@@ -27,13 +27,18 @@ gives each group's aux the gradient it has in the global loss.  A batch that doe
 extent is one group held by every rank; experts (or a shared hidden
 dim) that do not divide by the model extent take the grouped form, every
 rank computing all experts of ``_num_groups`` groups.
+
+The expert-sharded form is autograd-aware: the combine's sum over the
+model group passes its gradient unchanged to each rank's part, and the
+tokens and the gates enter the rank's experts with a backward sum over
+the model group (each rank's combine sees only its own experts' pairs);
+the router and aux run alike on every model rank, unsummed.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
@@ -259,6 +264,10 @@ def _moe_ffn_shard_map(p: Params, cfg: ArchConfig, x, mesh, split: bool):
     tokens = x.reshape(t, d)
     logits = tokens.float() @ p["router"].float()
     probs, gates, expert_ids = route(logits, k)
+    # the routing and aux run alike on every model rank; the tokens and
+    # the gates enter the rank's experts, whose gradients are its parts
+    mine_tokens = sharding.model_enter(tokens, mesh)
+    gates = sharding.model_enter(gates, mesh)
     aux = _aux_loss(probs, expert_ids, e)
     dp_ext = sharding.extent(mesh, sharding.dp_axes(mesh))
     if split and dp_ext > 1:
@@ -271,7 +280,8 @@ def _moe_ffn_shard_map(p: Params, cfg: ArchConfig, x, mesh, split: bool):
     mine = keep & (sorted_expert >= e_lo) & (sorted_expert < e_lo + e_loc)
     local_slot = torch.where(mine, (sorted_expert - e_lo) * cap + rank,
                              e_loc * cap)
-    buf = _gather_slots(tokens, local_slot, flat_token, order, e_loc * cap)
+    buf = _gather_slots(mine_tokens, local_slot, flat_token, order,
+                        e_loc * cap)
     local = {name: _local_experts(p[name], e, e_lo, e_loc)
              for name in ("w_gate", "w_up", "w_down")}
     out_buf = _expert_swiglu(local, buf.reshape(e_loc, cap, d))
@@ -281,12 +291,13 @@ def _moe_ffn_shard_map(p: Params, cfg: ArchConfig, x, mesh, split: bool):
         sp = p["shared"]
         fs = cfg.moe_d_ff * cfg.num_shared_experts
         f_loc = fs // tp_ext
-        whole = sp["w_gate"].shape[1] == fs
+        whole = sp.w_gate.shape[1] == fs  # the held shape: nothing gathered
         partial = partial + _shared(
-            sp, tokens, slice(j * f_loc, (j + 1) * f_loc) if whole else None)
-    if tp_ext > 1:
-        partial = sharding.all_reduce(partial, dist.ReduceOp.SUM,
-                                      sharding.model_group(mesh))
+            sp, mine_tokens,
+            slice(j * f_loc, (j + 1) * f_loc) if whole else None)
+    # every rank sums, also one that holds no routed pair; the backward
+    # passes the combined gradient to each rank's part unchanged
+    partial = sharding.model_sum(partial, mesh)
     stats = MoEStats(aux=aux, dropped=torch.sum(~keep), expert_ids=expert_ids)
     return partial.reshape(b, s, d), stats
 

@@ -25,6 +25,19 @@ A collective that a training forward pass reaches is autograd-aware
 the same group, as the JAX package's ``psum`` transposes.  The data
 parallel step averages its gradients with :func:`mean_buckets`.
 
+In the training layout (``model.shard_model(..., train=True)``) each
+rank holds its slice of every parameter (a :class:`ParamSplit` says
+which) and reads it through :func:`read_param`: the dim split over the
+data axes (FSDP) is all-gathered on use, and so is the dim split over
+"model" where the layer computes whole (the gather form).  The two
+backwards differ: the data ranks ran different rows, so the gathered
+gradient is reduce-scattered with the MEAN over the data group; the
+model ranks ran the same rows on the same input, so it is only narrowed
+to the rank's slice.  A layer that computes on its "model" slices
+(Megatron style) enters that region with :func:`model_enter` (identity
+forward, a SUM over the model group backward) and leaves it with
+:func:`model_sum` (a SUM forward, identity backward).
+
 The JAX package also has ``maybe_shard``, a layout hint to its compiler
 with no numeric effect; here each rank already holds only its slice, so
 there is nothing to hint.
@@ -34,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import math
 import time
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -48,7 +62,8 @@ LOGICAL = {
 _MESHES: list = []
 _ROWS: list = []
 # collectives of the sharded LM path: calls and their host seconds
-_STATS = {"all_reduce": 0, "all_gather": 0, "seconds": 0.0}
+_STATS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+          "seconds": 0.0}
 # the data-parallel step's gradients go over the data group in flat f32
 # buckets of at most this many bytes (a larger tensor is one bucket)
 BUCKET_BYTES = 256 * 2 ** 20
@@ -170,6 +185,10 @@ def _group(mesh, axes):
     return edge_group(mesh, axes)
 
 
+def tp_extent(mesh) -> int:
+    return extent(mesh, tp_axis(mesh))
+
+
 def data_group(mesh):
     """The ranks that differ from this one only along the data axes."""
     return _group(mesh, dp_axes(mesh))
@@ -282,14 +301,160 @@ def all_gather_flat(x: torch.Tensor, group) -> list:
 
 
 def collective_stats() -> dict:
-    """All_reduce and all_gather calls of the sharded LM path since the
-    last reset, and their host seconds (each call timed on the host
+    """All_reduce, all_gather and reduce_scatter calls of the sharded LM
+    path since the last reset, and their host seconds (each call timed on the host
     clock around the blocking collective)."""
     return dict(_STATS)
 
 
 def reset_collective_stats() -> None:
-    _STATS.update(all_reduce=0, all_gather=0, seconds=0.0)
+    _STATS.update(all_reduce=0, all_gather=0, reduce_scatter=0, seconds=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The training layout: parameter slices, gathered on use
+# ---------------------------------------------------------------------------
+
+class ParamSplit(NamedTuple):
+    """How the training layout holds one parameter: ``shape`` is the
+    whole tensor's; ``data`` its dim split over the data axes (FSDP),
+    ``model`` its dim split over "model" (None: not split); ``sliced``
+    whether its layer computes on the rank's "model" slice (else that
+    dim is gathered when the parameter is read)."""
+    shape: tuple
+    data: int | None
+    model: int | None
+    sliced: bool
+
+    @property
+    def gathers(self) -> bool:
+        """Whether a read all-gathers anything."""
+        return self.data is not None or (self.model is not None
+                                         and not self.sliced)
+
+
+def _all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``x`` joined along ``dim`` in rank order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, x.contiguous(), group=group)
+    _STATS["all_gather"] += 1
+    _STATS["seconds"] += time.perf_counter() - t0
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter_mean(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the group's mean of ``g``: one
+    reduce_scatter (SUM) of g with ``dim`` moved first, then / n."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return g
+    whole = g.movedim(dim, 0).contiguous()
+    out = whole.new_empty((whole.shape[0] // n,) + tuple(whole.shape[1:]))
+    t0 = time.perf_counter()
+    dist.reduce_scatter_tensor(out, whole, op=dist.ReduceOp.SUM, group=group)
+    _STATS["reduce_scatter"] += 1
+    _STATS["seconds"] += time.perf_counter() - t0
+    return out.div_(n).movedim(0, dim)
+
+
+class _GatherParam(torch.autograd.Function):
+    """A parameter slice gathered for its layer: the data dim over the
+    data group, then, in the gather form, the model dim over the model
+    group.  Backward: narrow the model dim to the rank's slice (every
+    model rank computed the same gradient), then reduce-scatter the data
+    dim with the mean over the data group (each rank's rows are one term
+    of the mean)."""
+
+    @staticmethod
+    def forward(ctx, t, split: ParamSplit, mesh):
+        ctx.split, ctx.mesh = split, mesh
+        if split.data is not None:
+            t = _all_gather_dim(t, split.data, data_group(mesh))
+        if split.model is not None and not split.sliced:
+            t = _all_gather_dim(t, split.model, model_group(mesh))
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        split, mesh = ctx.split, ctx.mesh
+        if split.model is not None and not split.sliced:
+            n = grad.shape[split.model] // tp_extent(mesh)
+            grad = grad.narrow(split.model, tp_index(mesh) * n, n)
+        if split.data is not None:
+            grad = _reduce_scatter_mean(grad, split.data, data_group(mesh))
+        return grad, None, None
+
+
+def read_param(t: torch.Tensor, split: ParamSplit, mesh) -> torch.Tensor:
+    """The parameter slice ``t`` as its layer computes on it (see
+    :class:`_GatherParam`); ``t`` itself where nothing is gathered."""
+    if not split.gathers:
+        return t
+    return _GatherParam.apply(t, split, mesh)
+
+
+@torch.no_grad()
+def gather_whole(t: torch.Tensor, split: ParamSplit, mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's slice (a
+    parameter's, its gradient's or a moment's of the parameter's shape):
+    the data dim gathered over the data group, then the model dim over
+    the model group.  Every rank of the mesh calls it."""
+    if split.data is not None:
+        t = _all_gather_dim(t, split.data, data_group(mesh))
+    if split.model is not None:
+        t = _all_gather_dim(t, split.model, model_group(mesh))
+    return t
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward; backward, the SUM over ``group``: the input of
+    a layer computed on "model" slices, whose gradient each model rank
+    holds one part of."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+class _Sum(torch.autograd.Function):
+    """The SUM over ``group`` forward; identity backward: the partial
+    outputs of a layer computed on "model" slices, whose sum every model
+    rank then uses alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def model_enter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` entering a layer that computes on "model" slices (Megatron's
+    f): x itself forward, its gradient summed over the model group."""
+    group = model_group(mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Enter.apply(x, group)
+
+
+def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The model group's partial ``x`` summed (Megatron's g); the
+    gradient passes unchanged to every rank's part."""
+    group = model_group(mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _Sum.apply(x, group)
 
 
 # ---------------------------------------------------------------------------

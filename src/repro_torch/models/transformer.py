@@ -18,6 +18,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Params, dense_init, init_mlp,
                                        init_rmsnorm, mlp, rmsnorm)
@@ -124,22 +125,32 @@ def init_cross_attention(gen: torch.Generator, cfg: ArchConfig) -> Params:
 
 
 def precompute_cross_kv(p: Params, cfg: ArchConfig, enc_out):
-    """The encoder output's (k, v), each (b, se, h, hd) in its dtype."""
+    """The encoder output's (k, v), each (b, se, h, hd) in its dtype, over
+    the heads the node holds (the rank's under a ``sliced`` node, which
+    the encoder output enters)."""
     dt = enc_out.dtype
     b, se, _ = enc_out.shape
-    h, hd = cfg.num_heads, cfg.head_dim
-    k = (enc_out @ p["wk"].to(dt)).reshape(b, se, h, hd)
-    v = (enc_out @ p["wv"].to(dt)).reshape(b, se, h, hd)
-    return k, v
+    hd = cfg.head_dim
+    if p.sliced:
+        enc_out = sharding.model_enter(enc_out, p.mesh)
+    k = enc_out @ p["wk"].to(dt)
+    v = enc_out @ p["wv"].to(dt)
+    h = k.shape[-1] // hd
+    return k.reshape(b, se, h, hd), v.reshape(b, se, h, hd)
 
 
 def _cross_attention_cached(p: Params, cfg: ArchConfig, x, cross_kv):
-    """Non-causal attention of x's positions over the encoder's (k, v)."""
+    """Non-causal attention of x's positions over the encoder's (k, v);
+    a ``sliced`` node's partial output summed over the model group."""
     k, v = cross_kv
     dt = x.dtype
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
-    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd)
-    out = attn._dense_attention(q, k.to(dt), v.to(dt), causal=False,
-                                q_offset=0)
-    return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
+    hd = cfg.head_dim
+    if p.sliced:
+        x = sharding.model_enter(x, p.mesh)
+    q = x @ p["wq"].to(dt)
+    h = q.shape[-1] // hd
+    out = attn._dense_attention(q.reshape(b, s, h, hd), k.to(dt), v.to(dt),
+                                causal=False, q_offset=0)
+    out = out.reshape(b, s, h * hd) @ p["wo"].to(dt)
+    return sharding.model_sum(out, p.mesh) if p.sliced else out

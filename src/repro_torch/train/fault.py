@@ -63,14 +63,21 @@ def elastic_mesh(ranks: Sequence[int] | None = None, model_axis: int = 16,
 
 
 def restore_on_mesh(ckpt_dir: str, model, opt_cfg: opt_lib.OptConfig,
-                    mesh) -> tuple[opt_lib.OptState, int]:
+                    mesh, fsdp: bool | None = None
+                    ) -> tuple[opt_lib.OptState, int]:
     """The survivors' restore after :func:`elastic_mesh`: under ``mesh``
-    (this rank must be in it), a fresh optimizer state laid out for it
-    (ZeRO-1 slices of its data extent), then the model's parameters and
-    that state filled from the newest valid checkpoint in ``ckpt_dir``,
-    whatever mesh wrote it.  Returns (state, step)."""
+    (this rank must be in it), the whole ``model`` put in the mesh's
+    training layout (``shard_model(..., train=True, fsdp=fsdp)``; None:
+    FSDP by the threshold) and a fresh optimizer state laid out for it
+    (ZeRO-1 slices of its data extent), then the model's parameter
+    slices and that state filled from the newest valid checkpoint in
+    ``ckpt_dir``, whatever mesh wrote it.  Returns (state, step)."""
+    from repro_torch.models.model import shard_model
+
     with sharding.set_mesh(mesh):
-        state = opt_lib.init(opt_cfg, dict(model.named_parameters()))
+        shard_model(model, mesh, train=True, fsdp=fsdp)
+        state = opt_lib.init(opt_cfg, dict(model.named_parameters()),
+                             model.train_layout)
         tree, _, step = ckpt.restore_with_fallback(
             ckpt_dir, convert.lm_train_like(model, state))
         state = convert.load_lm_train_tree(model, state, tree)

@@ -17,7 +17,11 @@
 Parameters, gradients and moments are dicts of tensors keyed by
 parameter name (``dict(model.named_parameters())``); under ZeRO-1 the
 moment dicts hold the rank's slices, and no entry for a layer another
-rank owns.  ``apply`` updates
+rank owns.  For a model in its training layout (``shards``, the model's
+``train_layout``) the parameters and gradients are the rank's slices
+too: the clip norm and the int8 scale of compression are then those of
+the whole tensors, reduced over the mesh, and ZeRO-1 slices each
+parameter slice further (an FSDP slice is its own moments' slice).  ``apply`` updates
 the parameters, the moments and the residuals IN PLACE, as torch.optim
 does, and returns them; the schedule, the bias corrections and the
 clipping scale are f32 tensors on the parameters' device, computed as
@@ -29,6 +33,7 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch import shardings
 from repro_torch.models import sharding
@@ -58,6 +63,9 @@ class OptState(NamedTuple):
     # the ZeRO-1 layout the moments were made for (None: whole), chosen
     # once by ``init``; not a tensor, so no checkpoint leaf
     layout: shardings.Zero1Layout | None = None
+    # the model's training layout the parameters are sliced by (None:
+    # whole); not a checkpoint leaf either
+    shards: shardings.TrainLayout | None = None
 
 
 def schedule(cfg: OptConfig, step) -> torch.Tensor:
@@ -83,15 +91,21 @@ def _parts(lay, params: dict) -> dict:
     return {k: p for k, p in parts.items() if p is not None}
 
 
-def init(cfg: OptConfig, params: dict) -> OptState:
-    """Zero moments and, with compression, whole zero residuals.  With
-    ``zero1`` under a ``DeviceMesh`` (``sharding.set_mesh``) whose data
-    axes hold several ranks, the moments are the rank's slices of
-    ``launch.shardings.zero1_layout``, which the state carries."""
+def init(cfg: OptConfig, params: dict,
+         shards: shardings.TrainLayout | None = None) -> OptState:
+    """Zero moments and, with compression, zero residuals of the
+    parameters' shapes.  With ``zero1`` under a ``DeviceMesh``
+    (``sharding.set_mesh``) whose data axes hold several ranks, the
+    moments are the rank's slices of ``launch.shardings.zero1_layout``,
+    which the state carries.  ``shards``: the training layout the
+    parameters are sliced by (the model's ``train_layout``)."""
     mdt = _moment_dtype(cfg)
     first = next(iter(params.values()))
     mesh = sharding.current_mesh()
-    lay = (shardings.zero1_layout(params, mesh)
+    if shards is not None and mesh != shards.mesh:
+        raise ValueError("the training layout's mesh is not the mesh in "
+                         "context")
+    lay = (shardings.zero1_layout(params, mesh, shards=shards)
            if cfg.zero1 and getattr(mesh, "mesh_dim_names", None) is not None
            else None)
     parts = _parts(lay, params)
@@ -103,13 +117,15 @@ def init(cfg: OptConfig, params: dict) -> OptState:
             for k, p in parts.items()},
         error=({k: torch.zeros_like(p) for k, p in params.items()}
                if cfg.compress_grads else None),
-        layout=lay)
+        layout=lay,
+        shards=shards if shards is not None and shards.holds_slices else None)
 
 
 def whole_moments(state: OptState, params: dict):
-    """(mu, nu) whole, on the parameters' device: the state's own dicts
-    where they are whole, else every rank's slices gathered over the
-    data group of the state's layout (a collective)."""
+    """(mu, nu) of the parameters' shapes (the rank's parameter slices
+    under a training layout), on their device: the state's own dicts
+    where they hold that, else every rank's ZeRO-1 slices gathered over
+    the data group of the state's layout (a collective)."""
     lay = state.layout
     if lay is None:
         return state.mu, state.nu
@@ -129,28 +145,52 @@ def whole_moments(state: OptState, params: dict):
 def load_moments(state: OptState, mu: dict, nu: dict) -> None:
     """Copy whole moments ``mu``, ``nu`` (by name) into the state's, in
     place: the rank's slices where the state holds slices."""
-    lay = state.layout
+    lay, shards = state.layout, state.shards
     with torch.no_grad():
         for local, whole in ((state.mu, mu), (state.nu, nu)):
             for k, t in local.items():
-                t.copy_(whole[k] if lay is None else lay.part(k, whole[k]))
+                w = whole[k] if shards is None else shards.local(k, whole[k])
+                t.copy_(w if lay is None else lay.part(k, w))
 
 
-def _quantize_int8(g: torch.Tensor):
-    scale = torch.max(torch.abs(g)) / 127.0 + 1e-30
+def _quantize_int8(g: torch.Tensor, amax: torch.Tensor | None = None):
+    """int8 codes of g and their scale, from ``amax`` (default: max|g|;
+    a slice's caller passes the whole tensor's)."""
+    amax = torch.max(torch.abs(g)) if amax is None else amax
+    scale = amax / 127.0 + 1e-30
     # torch.round, like jnp.round, rounds half to even
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_decompress(g: torch.Tensor, err: torch.Tensor):
+def compress_decompress(g: torch.Tensor, err: torch.Tensor,
+                        amax: torch.Tensor | None = None):
     """Error-feedback int8 round trip: (g_hat, new_err), where g_hat is
     what the compressed all-reduce would deliver and new_err carries the
-    quantization residual to the next step."""
+    quantization residual to the next step; ``amax`` as in
+    ``_quantize_int8``, of g + err."""
     target = g + err
-    q, scale = _quantize_int8(target)
+    q, scale = _quantize_int8(target, amax)
     g_hat = q.to(g.dtype) * scale
     return g_hat, target - g_hat
+
+
+def _mesh_reduce(x: torch.Tensor, op, mesh) -> torch.Tensor:
+    """``x`` reduced by ``op`` over every rank of ``mesh``: over its data
+    group, then its model group."""
+    x = sharding.all_reduce(x, op, sharding.data_group(mesh))
+    return sharding.all_reduce(x, op, sharding.model_group(mesh))
+
+
+def _whole_amax(targets: dict, mesh) -> dict:
+    """Each tensor's max|.| over the whole tensor of which the rank holds
+    a slice: one vector of the slices' maxima, reduced by MAX over the
+    mesh (a leaf's unsplit dims hold the same values on every rank)."""
+    names = list(targets)
+    amax = _mesh_reduce(torch.stack([torch.max(torch.abs(targets[k]))
+                                     for k in names]),
+                        dist.ReduceOp.MAX, mesh)
+    return dict(zip(names, amax))
 
 
 @torch.no_grad()
@@ -162,17 +202,33 @@ def apply(cfg: OptConfig, state: OptState, params: dict, grads: dict):
     group, the same on every rank), so the clip norm is global.  Under
     ZeRO-1 each rank updates its part of each parameter from its moment
     slices, and one all_gather of the data group re-assembles the
-    parameters: they stay bitwise equal on every rank."""
-    lay = state.layout
+    parameters: they stay bitwise equal on every rank.
+
+    Under a training layout (``state.shards``) ``grads`` are the rank's
+    slices, averaged: each rank sums the squares of its slices, each
+    leaf's sum divided by the ranks that hold that same slice, and the
+    sum over the mesh is the whole gradients' norm; compression scales
+    each slice by its whole leaf's max|g|.  The ZeRO-1 gather then
+    re-assembles only the parameters that FSDP does not split."""
+    lay, shards = state.layout, state.shards
     if cfg.compress_grads:
+        targets = {k: g + state.error[k] for k, g in grads.items()}
+        amax = (_whole_amax(targets, shards.mesh) if shards is not None
+                else dict.fromkeys(grads))
         hat = {}
         for k, g in grads.items():
-            hat[k], new_err = compress_decompress(g, state.error[k])
+            hat[k], new_err = compress_decompress(g, state.error[k], amax[k])
             state.error[k].copy_(new_err)
         grads = hat
 
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in grads.values()))
+    if shards is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in grads.values()))
+    else:
+        gnorm = torch.sqrt(_mesh_reduce(
+            sum(torch.sum(torch.square(g.float())) / shards.replicas(k)
+                for k, g in grads.items()), dist.ReduceOp.SUM,
+            shards.mesh))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step).to(gnorm.device)

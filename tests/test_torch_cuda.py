@@ -1332,6 +1332,66 @@ def test_data_parallel_step_on_two_ranks_matches_one_process(dev):
         assert parallel.bitwise_equal([r.value[1][k] for r in results]), k
 
 
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m"])
+def test_tensor_parallel_step_on_four_ranks_matches_one_process(dev, arch):
+    """The smoke model in f32 compute in the training layout of a (2, 2)
+    ("data", "model") mesh of 4 gloo ranks on this card (fsdp=True: heads,
+    hidden dims, experts and the vocabulary over "model", d_model over
+    "data"): 2 steps against one process on the card computing each
+    half-batch's gradient, averaging them and applying: losses within
+    1e-4, the parameters gathered whole within 1e-5 of each leaf's
+    largest magnitude and bitwise equal on the ranks.  Adam's eps is
+    1e-3: the model ranks' partial sums differ from one process's in the
+    last bits, which eps 1e-8's slope at a gradient of 0 would turn into
+    steps of up to the learning rate."""
+    import torch_dist_ranks as ranks
+    from repro_torch import convert, parallel
+    from repro_torch.models import Model, layers
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = ranks.lm_config(arch)
+    tree = convert.lm_params_to_numpy(
+        Model(cfg, device="cpu", generator=torch.Generator().manual_seed(6)))
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(2):
+        toks = rng.integers(0, cfg.vocab_size, (4, 32), dtype=np.int32)
+        batches.append({"tokens": toks, "labels": np.roll(toks, -1, axis=1)})
+    fields = dict(lr=1e-3, warmup_steps=0, total_steps=2, eps=1e-3)
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        model = convert.lm_params_from_numpy(cfg, tree, device=dev)
+        params = dict(model.named_parameters())
+        ocfg = opt_lib.OptConfig(**fields)
+        state = opt_lib.init(ocfg, params)
+        want_losses = []
+        for batch in batches:
+            halves = []
+            for h in (slice(0, 2), slice(2, 4)):
+                loss, _ = model.train_loss({k: torch.from_numpy(v[h]).to(dev)
+                                            for k, v in batch.items()})
+                loss.backward()
+                halves.append((float(loss.detach()),
+                               {k: p.grad for k, p in params.items()}))
+                model.zero_grad(set_to_none=True)
+            grads = {k: (halves[0][1][k] + halves[1][1][k]) / 2 for k in params}
+            _, state, _ = opt_lib.apply(ocfg, state, params, grads)
+            want_losses.append((halves[0][0] + halves[1][0]) / 2)
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    results = parallel.run_ranks(4, ranks.card_train_tp, arch, tree, batches,
+                                 fields, device=dev, timeout=300.0)
+    for r in results:
+        losses, got = r.value
+        assert np.abs(losses - np.array(want_losses)).max() <= 1e-4
+        for k, p in params.items():
+            w = p.detach().cpu().numpy()
+            assert np.abs(got[k] - w).max() <= 1e-5 * np.abs(w).max(), k
+    for k in params:
+        assert parallel.bitwise_equal([r.value[1][k] for r in results]), k
+
+
 def test_dryrun_sped_fused_on_two_ranks_matches_one_process(dev):
     """``launch.dryrun_sped``'s cheb64_fused step on 2 gloo ranks of this
     card (each scattering its half of the edges, one all_reduce a

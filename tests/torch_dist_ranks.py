@@ -664,6 +664,177 @@ def run_train_dp(dev, inputs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel train step (tests/test_torch_train_tp.py): (2, 2) mesh
+# ---------------------------------------------------------------------------
+
+TP_MESH = (2, 2)
+
+
+def _np_tree(tree):
+    """A tree of CPU tensors (dicts, NamedTuples, None) as numpy."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree.numpy()
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_np_tree(v) for v in tree))
+    return type(tree)(_np_tree(v) for v in tree)
+
+
+def _local_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _tp_case(mesh, case: dict) -> dict:
+    """The case's model from its numpy tree in the (2, 2) mesh's training
+    layout (``fsdp=True``): step 1's gradients gathered whole, then
+    ``case["batches"]``' steps of ``dryrun.build_train_step``; the losses
+    and grad norms, the whole (params, OptState) tree and the rank's
+    parameter and moment bytes."""
+    from repro_torch import convert
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding
+    from repro_torch.models.model import shard_model
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    model = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+    ocfg = opt_lib.OptConfig(**case["opt"])
+    mb = case.get("microbatches", 1)
+    losses, norms = [], []
+    with sharding.set_mesh(mesh):
+        shard_model(model, mesh, train=True, fsdp=True)
+        lay = model.train_layout
+        params = dict(model.named_parameters())
+        state = opt_lib.init(ocfg, params, lay)
+        if case.get("aux_weight") is not None:
+            train_loss = model.train_loss
+            model.train_loss = lambda b: train_loss(
+                b, aux_weight=case["aux_weight"])
+
+        def batch(i):
+            return {k: torch.from_numpy(v)
+                    for k, v in case["batches"][i].items()}
+
+        step = dryrun.build_train_step(cfg, ocfg, mb)
+        whole_grads = []  # each step's, gathered whole
+        for i in range(len(case["batches"])):
+            if i == 0 or case.get("keep_grads"):
+                grads, _ = dryrun.train_grads(model, batch(i), mb)
+                whole_grads.append({k: lay.whole(k, g).numpy()
+                                    for k, g in grads.items()})
+                model.zero_grad(set_to_none=True)
+            model, state, m = step(model, state, batch(i))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        tree = _np_tree(convert.lm_train_tree(model, state))
+    return {"losses": torch.stack(losses), "grad_norms": torch.stack(norms),
+            "grads": whole_grads, "params": tree[0], "state": tree[1],
+            "param_bytes": _local_bytes(params.values()),
+            "moment_bytes": _local_bytes([*state.mu.values(),
+                                          *state.nu.values()])}
+
+
+def _tp_checkpoint(mesh, case: dict, tmp: str) -> dict:
+    """The case's steps in the (2, 2) training layout, a save by the
+    world (rank 0 writes), then ranks 0 and 1 restore it on a (2, 1)
+    mesh through ``fault.restore_on_mesh``: their parameter and moment
+    slices."""
+    from repro_torch import convert
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding
+    from repro_torch.models.model import shard_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = lm_config(case["arch"])
+    ocfg = opt_lib.OptConfig(**case["opt"])
+    model = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+    rank = dist.get_rank()
+    with sharding.set_mesh(mesh):
+        shard_model(model, mesh, train=True, fsdp=True)
+        state = opt_lib.init(ocfg, dict(model.named_parameters()),
+                             model.train_layout)
+        step = dryrun.build_train_step(cfg, ocfg)
+        for b in case["batches"]:
+            model, state, _ = step(model, state, {
+                k: torch.from_numpy(v) for k, v in b.items()})
+        tree = convert.lm_train_tree(model, state)
+        if rank == 0:
+            ckpt.save(f"{tmp}/tp", len(case["batches"]), tree)
+        dist.barrier()
+    # every rank takes part in making the (2, 1) mesh of ranks 0 and 1
+    mesh21 = parallel.make_mesh((2, 1), ("data", "model"), CPU, ranks=[0, 1])
+    out = {}
+    if rank < 2:
+        fresh = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+        rstate, rstep = fault.restore_on_mesh(f"{tmp}/tp", fresh, ocfg,
+                                              mesh21, fsdp=True)
+        out = {"step": rstep, "coord": tuple(mesh21.get_coordinate()),
+               "params": {k: p.detach().clone()
+                          for k, p in fresh.named_parameters()},
+               "mu": {k: t.clone() for k, t in rstate.mu.items()}}
+    dist.barrier()
+    return out
+
+
+def run_train_tp(dev, inputs: dict) -> dict:
+    """Every tensor-parallel case on this rank of a (2, 2) ("data",
+    "model") world, f32 compute; returns {name: output}."""
+    from repro_torch.models import layers
+
+    torch.set_num_threads(1)
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = parallel.make_mesh(TP_MESH, ("data", "model"), dev)
+    out: dict = {"coord": tuple(mesh.get_coordinate())}
+    for name, case in inputs["cases"].items():
+        out[name] = _tp_case(mesh, case)
+    out["checkpoint"] = _tp_checkpoint(mesh, inputs["checkpoint"],
+                                       inputs["tmp"])
+    out.update(_tp_layout_checks(mesh))
+    return out
+
+
+def _raises(fn) -> str | None:
+    """The name of the ``ValueError`` ``fn()`` raises (None: none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return type(e).__name__
+    return None
+
+
+def _tp_layout_checks(mesh) -> dict:
+    """In the (2, 2) mesh: whether a model drawn in its training layout
+    (``Model(..., train_mesh=)``) holds bitwise the slices of the whole
+    model drawn from the same seed, and what raises: a whole model's
+    ``train_loss`` under the mesh, ``prefill`` and ``decode_step`` of a
+    model in its training layout."""
+    from repro_torch.models import sharding
+    from repro_torch.models.model import Model, shard_model
+
+    cfg = lm_config("granite-moe-1b-a400m")
+    toks = torch.zeros((4, 8), dtype=torch.int32)
+    with sharding.set_mesh(mesh):
+        drawn = Model(cfg, CPU, torch.Generator().manual_seed(5),
+                      train_mesh=mesh, fsdp=True)
+        whole = Model(cfg, CPU, torch.Generator().manual_seed(5))
+        lay = drawn.train_layout
+        bitwise = all(torch.equal(p, lay.local(k, dict(
+            whole.named_parameters())[k])) for k, p in drawn.named_parameters())
+        out = {"drawn_sliced_bitwise": bitwise,
+               "whole_under_tp": _raises(lambda: whole.train_loss(
+                   {"tokens": toks, "labels": toks}))}
+        shard_model(whole, mesh, train=True, fsdp=True)
+        out["prefill"] = _raises(lambda: whole.prefill({"tokens": toks}))
+        out["decode_step"] = _raises(lambda: whole.decode_step(None, toks[:, :1]))
+    return out
+
+
 @contextlib.contextmanager
 def one_rank_world():
     """A gloo world of this one process (file rendezvous in a temporary
@@ -775,6 +946,37 @@ def card_train_dp(dev, tree: dict, batches: list, opt_fields: dict):
             losses.append(m["loss"])
     return torch.stack(losses), {k: p.detach()
                                  for k, p in model.named_parameters()}
+
+
+def card_train_tp(dev, arch: str, tree: dict, batches: list,
+                  opt_fields: dict):
+    """``arch``'s smoke model from ``tree`` in f32 compute, in the (2, 2)
+    mesh's training layout with fsdp=True: ``dryrun.build_train_step``'s
+    steps on ``batches``; returns the losses and the parameters gathered
+    whole (by name)."""
+    from repro_torch import convert
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers, sharding
+    from repro_torch.models.model import shard_model
+    from repro_torch.train import optimizer as opt_lib
+
+    layers.COMPUTE_DTYPE = torch.float32
+    cfg = lm_config(arch)
+    mesh = parallel.make_mesh(TP_MESH, ("data", "model"), dev)
+    model = convert.lm_params_from_numpy(cfg, tree, device=dev)
+    ocfg = opt_lib.OptConfig(**opt_fields)
+    losses = []
+    with sharding.set_mesh(mesh):
+        shard_model(model, mesh, train=True, fsdp=True)
+        state = opt_lib.init(ocfg, dict(model.named_parameters()),
+                             model.train_layout)
+        step = dryrun.build_train_step(cfg, ocfg)
+        for batch in batches:
+            model, state, m = step(model, state, {
+                k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            losses.append(m["loss"])
+        whole = convert.lm_named_from_tree(convert.lm_params_to_numpy(model))
+    return torch.stack(losses), whole
 
 
 def card_dryrun_sped(dev, edges: dict, v, variant: str):
