@@ -335,7 +335,24 @@ outside a checkout.  Phases, one JSON line each:
              with fsdp=None, its requested parameter and moment bytes
              held to dryrun.reckon's.  lm_train_dp's full-depth granite
              build is sharded too (FSDP over 2 data ranks)
-41. kernels - per kernel: launches on the main path (phases 3-40 but the
+41. lm_serve_tp - tensor-parallel serving, run in lm_mesh's 4-rank world
+             once lm_mesh's runs are done: each rank draws its slices of
+             the (2, 2) serving layout (param_specs(fsdp=False)); granite
+             at full width, lm_mesh's 4 x 512 prompt and 32 steps fed its
+             f32 tokens, with f32 weights (24 and 4
+             layers) and bf16 weights (24 layers: the bytes a rank
+             requests for parameters and its GQA caches' bytes held to
+             dryrun.reckon's decode cell exactly; and 1 layer), each
+             held to one process's halves on the rows no MoE routing
+             flip reaches (f32: prefill 1e-4, steps 5e-3 of the largest
+             |logit|, aux 1e-5 and 1e-3; bf16 6e-2; 24-layer bf16
+             printed: a flip reaches every row); qwen3-4b at full width
+             cut to 2 layers with f32 and bf16 weights held to one
+             process's run; every run's routing flips and the router's
+             margins at them, ms a prefill and a decode step by CUDA
+             events and the host clock, gloo calls by kind and their
+             host share
+42. kernels - per kernel: launches on the main path (phases 3-41 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
              start; the sharded phases' from their ranks), error, times
@@ -649,6 +666,44 @@ LM_MESH_RUNS = (("f32", "float32", None, LM_MESH_RUN[2]),
                 ("bf16_depth2", "bfloat16", 2, LM_MESH_RUN[2]))
 LM_MESH_TIMEOUT_S = 600.0
 DRYRUN_ALLOC_SLACK = 512
+# lm_serve_tp: the serving layout (each rank holds its slice of every
+# weight under param_specs(fsdp=False): model.Model(train_mesh=,
+# fsdp=False, dtype=)), run in lm_mesh's 4-rank world once its runs are
+# done: granite at full width, LM_MESH_RUN fed lm_mesh's f32 tokens, at
+# the depths of LM_SERVE_TP_RUNS (name, weight dtype, depth; compute in
+# the weights' dtype), each held to one process's halves of the same
+# weights (lm_mesh's f32 model, or it cast to bf16 at rest).  The model
+# ranks' partial sums round in another order than one process's products,
+# which flips near-tied MoE routings (f32 too, unlike lm_mesh's form,
+# whose products are whole), and a flipped routing moves its token's
+# logits and, through the K/V it writes, its row's later ones.  So each
+# run is held on its CLEAN rows, the (call, row) logits that no flip can
+# reach (_tp_taint): f32 weights at LM_MESH_TOL of the largest |logit|
+# (prefill) and LM_DECODE_F32_TOL (decode steps: the bf16 cache rounds K/V
+# that differ in their last bits), their aux on the (call, layer) cells no
+# flip reaches at LM_MESH_AUX_TOL (prefill) and LM_SERVE_TP_DECODE_AUX_TOL
+# (decode: the steps' router inputs read that cache; one flip moves a
+# step's aux by about 0.2), bf16 weights at LM_BF16_TOL (rtol = atol). 
+# Every run but those of LM_SERVE_TP_PRINTED is held and must have a clean
+# prefill row and a clean decode row; the primary flips (those no earlier
+# flip reaches) are printed with the reference router's top-k margin
+# there, beside the median margin.  With bf16 weights (the JAX package's
+# serving cells) the bytes a rank requests for its parameters and its GQA
+# caches' bytes are held to dryrun.reckon's decode cell, exactly.  Then
+# LM_SERVE_TP_QWEN_ARCH at full width cut to LM_SERVE_TP_QWEN_DEPTH layers
+# (qk-norm, the vocabulary split in the embedding and the logits; no
+# routing), LM_SERVE_TP_QWEN_RUN (batch, prompt, decode steps) with f32
+# and with bf16 weights, held to one process's run at the same bars
+LM_SERVE_TP_RUNS = (("f32", "float32", None), ("f32_depth4", "float32", 4),
+                    ("bf16", "bfloat16", None), ("bf16_depth1", "bfloat16", 1))
+LM_SERVE_TP_DECODE_AUX_TOL = 1e-3
+# full-depth bf16 is printed: a flip reaches every row (PERF.md section
+# 5); its bytes and times are held and read
+LM_SERVE_TP_PRINTED = ("bf16",)
+LM_SERVE_TP_MARGINS_SHOWN = 16
+LM_SERVE_TP_QWEN_ARCH = "qwen3-4b"
+LM_SERVE_TP_QWEN_DEPTH = 2
+LM_SERVE_TP_QWEN_RUN = (4, 512, 8)
 
 # the data-parallel train step (lm_train_dp): granite at full width cut to
 # LM_TRAIN_DP_DEPTH layers (the gradients and the re-assembled parameters
@@ -3421,12 +3476,15 @@ def _timed(fn):
     return value, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
-def _lm_mesh_serve(model, tokens, fed, max_seq: int, mesh=None) -> dict:
+def _lm_mesh_serve(model, tokens, fed, max_seq: int, mesh=None,
+                   margins: bool = False) -> dict:
     """A prefill of ``tokens`` and a decode step per entry of ``fed``
     (fed[t] the tokens of step t, or None: the run's own argmax), under
     ``mesh`` where given: the logits of every call on the CPU, each
-    layer's routing and aux after every call, ms a call (CUDA events and
-    host clock), the collectives of each decode step, the caches' bytes."""
+    layer's routing and aux after every call (with ``margins``, its
+    router margins: ``_router_margins``), ms
+    a call (CUDA events and host clock), the collectives of each decode
+    step, the caches' bytes."""
     import contextlib
 
     import torch
@@ -3434,38 +3492,196 @@ def _lm_mesh_serve(model, tokens, fed, max_seq: int, mesh=None) -> dict:
     from repro_torch.models import sharding
 
     ctx = sharding.set_mesh(mesh) if mesh is not None else contextlib.nullcontext()
-    out = {"logits": [], "routing": [], "aux": [], "event_ms": [],
-           "host_ms": [], "collectives": []}
+    out = {"logits": [], "routing": [], "aux": [], "margins": [],
+           "event_ms": [], "host_ms": [], "collectives": []}
     with ctx:
         for t in range(len(fed) + 1):
             sharding.reset_collective_stats()
-            if t == 0:
-                (logits, state), ev, host = _timed(lambda: model.prefill(
-                    {"tokens": tokens}, max_seq=max_seq))
-                out["cache_bytes"] = _lm_cache_bytes(state)
-                out["allocated_after_prefill"] = torch.cuda.memory_allocated()
-            else:
-                tok = (fed[t - 1] if fed[t - 1] is not None
-                       else out["logits"][-1].argmax(-1, keepdim=True).int())
-                (logits, state), ev, host = _timed(lambda: model.decode_step(
-                    state, tok.to(tokens.device)))
+            record = []
+            with (_router_margins(record) if margins
+                  else contextlib.nullcontext()):
+                if t == 0:
+                    (logits, state), ev, host = _timed(lambda: model.prefill(
+                        {"tokens": tokens}, max_seq=max_seq))
+                    out["cache_bytes"] = _lm_cache_bytes(state)
+                    out["allocated_after_prefill"] = torch.cuda.memory_allocated()
+                else:
+                    tok = (fed[t - 1] if fed[t - 1] is not None
+                           else out["logits"][-1].argmax(-1, keepdim=True).int())
+                    (logits, state), ev, host = _timed(
+                        lambda: model.decode_step(state, tok.to(tokens.device)))
             out["collectives"].append(sharding.collective_stats())
             out["logits"].append(logits.cpu())
             out["routing"].append(_lm_routing(model))
-            out["aux"].append([float(blk.moe_stats.aux) for blk in model.layers])
+            out["aux"].append([float(blk.moe_stats.aux)
+                               for blk in model._modules.get("layers", ())
+                               if blk.moe_stats is not None])
+            out["margins"].append(record)
             out["event_ms"].append(ev)
             out["host_ms"].append(host)
     return out
 
 
-def lm_mesh_rank(dev, tokens, fed: dict, max_seq: int) -> dict:
-    """One rank of phase lm_mesh: granite drawn from LM_SEED on the card,
-    its experts sharded over "model" (model.shard_model), then lm_moe's
-    prefill and decode steps under the (2, 2) mesh in f32 and bf16
-    compute, fed ``fed[dtype]``'s tokens; its memory and times."""
+def _router_margins(record: list):
+    """A context in which each MoE call also appends to ``record`` its
+    router's top-k margin a token (the k-th largest softmax probability
+    less the (k+1)-th, f32 on the CPU; the routing a rounding can flip
+    is one with a small margin); the forward is unchanged."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import moe
+
+    ffn = moe.moe_ffn
+
+    def recorded(p, cfg, x):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                              @ p["router"].float(), dim=-1)
+        top = probs.topk(cfg.moe_top_k + 1, dim=-1).values
+        record.append((top[:, -2] - top[:, -1]).cpu())
+        return ffn(p, cfg, x)
+
+    @contextlib.contextmanager
+    def patched():
+        moe.moe_ffn = recorded
+        try:
+            yield
+        finally:
+            moe.moe_ffn = ffn
+
+    return patched()
+
+
+def _lm_serve_tp_rank(dev, mesh, toks, fed: list, max_seq: int,
+                      qwen: dict) -> dict:
+    """The lm_serve_tp runs of one rank (see LM_SERVE_TP_RUNS' comment):
+    each model drawn from LM_SEED in the serving layout of ``mesh``, the
+    runs of ``_lm_mesh_serve`` fed ``fed`` (qwen: ``qwen["fed"]``) with
+    their logits' digests (the logits kept on the (0, 0) rank, the
+    routings on the model ranks 0), the bytes the bf16 granite's
+    parameters requested, dryrun.reckon's decode cell and the kernel
+    launches of the runs."""
+    import dataclasses
+    import gc
     import hashlib
 
     import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, layers
+
+    def run(model, tokens, fed_tokens, seq):
+        r = _lm_mesh_serve(model, tokens, [torch.from_numpy(f)
+                                           for f in fed_tokens], seq, mesh)
+        if mesh.get_coordinate()[1]:
+            r.pop("routing")  # the model ranks of a data group route alike
+        logits = torch.stack(r.pop("logits"))
+        r["logits_sha256"] = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
+        if list(mesh.get_coordinate()) == [0, 0]:
+            r["logits"] = logits
+        return r
+
+    def build(cfg, dtype):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = _requested_bytes()
+        model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED),
+                      train_mesh=mesh, fsdp=False, dtype=dtype)
+        torch.cuda.synchronize()
+        return model, _requested_bytes() - base
+
+    cfg = get_arch(LM_MESH_ARCH)
+    qcfg = dataclasses.replace(get_arch(LM_SERVE_TP_QWEN_ARCH),
+                               num_layers=LM_SERVE_TP_QWEN_DEPTH)
+    qtoks = torch.from_numpy(qwen["tokens"]).to(dev)
+    out = {}
+    reset_launch_counts()
+    saved = layers.COMPUTE_DTYPE
+    try:
+        for dtype in ("float32", "bfloat16"):
+            layers.COMPUTE_DTYPE = getattr(torch, dtype)
+            model, requested = build(cfg, layers.COMPUTE_DTYPE)
+            if dtype == "bfloat16":
+                out["params_bytes_requested"] = requested
+                out["params_dtypes"] = sorted({str(p.dtype)
+                                               for p in model.parameters()})
+            for name, dt, depth in LM_SERVE_TP_RUNS:
+                if dt == dtype:
+                    out[name] = run(_lm_view(model, depth), toks, fed, max_seq)
+            del model
+            model, _ = build(qcfg, layers.COMPUTE_DTYPE)
+            out["qwen" if dtype == "float32" else "qwen_bf16"] = run(
+                model, qtoks, qwen["fed"], qwen["max_seq"])
+            del model
+    finally:
+        layers.COMPUTE_DTYPE = saved
+    out["reckoned"] = dryrun.reckon(cfg, "decode", toks.shape[0], max_seq, mesh)
+    out["launches"] = launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_serve_tp_refs(model, toks, fed: list, max_seq: int, dev):
+    """lm_serve_tp's one-process references (see LM_SERVE_TP_RUNS'
+    comment), from lm_mesh's f32 ``model`` (cast to bf16 at rest on the
+    way: the caller's model is spent): each granite run's data halves
+    fed their halves of ``fed``, then qwen's run with f32 weights fed its
+    own argmax and with the same weights in bf16 fed the same tokens.
+    Returns (references by run name, qwen's inputs for the ranks)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, layers
+
+    half = toks.shape[0] // LM_MESH_SHAPE[0]
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        layers.COMPUTE_DTYPE = getattr(torch, dtype)
+        model.to(layers.COMPUTE_DTYPE)
+        for name, dt, depth in LM_SERVE_TP_RUNS:
+            if dt == dtype:
+                refs[name] = [_lm_mesh_serve(
+                    _lm_view(model, depth), toks[i * half:(i + 1) * half],
+                    [torch.from_numpy(f[i * half:(i + 1) * half]) for f in fed],
+                    max_seq, margins=True) for i in range(LM_MESH_SHAPE[0])]
+    qb, qs, qg = LM_SERVE_TP_QWEN_RUN
+    qcfg = dataclasses.replace(get_arch(LM_SERVE_TP_QWEN_ARCH),
+                               num_layers=LM_SERVE_TP_QWEN_DEPTH)
+    qtokens = np.random.default_rng(LM_SEED).integers(
+        0, qcfg.vocab_size, (qb, qs), dtype=np.int32)
+    qtoks = torch.from_numpy(qtokens).to(dev)
+    layers.COMPUTE_DTYPE = torch.float32
+    qmodel = Model(qcfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
+    refs["qwen"] = [_lm_mesh_serve(qmodel, qtoks, [None] * qg, qs + qg)]
+    qfed = [refs["qwen"][0]["logits"][t].argmax(-1, keepdim=True).int().numpy()
+            for t in range(qg)]
+    layers.COMPUTE_DTYPE = torch.bfloat16
+    qmodel.to(torch.bfloat16)
+    refs["qwen_bf16"] = [_lm_mesh_serve(qmodel, qtoks, [torch.from_numpy(f)
+                                                        for f in qfed], qs + qg)]
+    return refs, {"tokens": qtokens, "max_seq": qs + qg, "fed": qfed}
+
+
+def lm_mesh_rank(dev, tokens, fed: dict, max_seq: int, qwen: dict) -> dict:
+    """One rank of phase lm_mesh: granite drawn from LM_SEED on the card,
+    its experts sharded over "model" (model.shard_model), then lm_moe's
+    prefill and decode steps under the (2, 2) mesh in f32 and bf16
+    compute, fed ``fed[dtype]``'s tokens; its memory and times.  Then
+    phase lm_serve_tp's runs (``_lm_serve_tp_rank``, fed ``fed`` and
+    ``qwen``'s tokens) under ``out["serve_tp"]``."""
+    import gc
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
 
     from repro_torch import parallel
     from repro_torch.configs import get_arch
@@ -3506,12 +3722,19 @@ def lm_mesh_rank(dev, tokens, fed: dict, max_seq: int) -> dict:
             out[name] = run
     finally:
         layers.COMPUTE_DTYPE = saved
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["serve_tp"] = _lm_serve_tp_rank(dev, mesh, toks, fed["f32"], max_seq,
+                                        qwen)
     return out
 
 
-def lm_mesh_phase(dev, gpu: str) -> dict:
-    """Phase lm_mesh (see the module docstring).  Returns the launch
-    counts of the port's kernels over the phase (none runs on it)."""
+def lm_mesh_phase(dev, gpu: str) -> tuple[dict, dict]:
+    """Phases lm_mesh and lm_serve_tp, in one 4-rank world (see the module
+    docstring and LM_SERVE_TP_RUNS' comment).  Returns the launch
+    counts of the port's kernels over each phase (none runs on either)."""
     import gc
 
     import numpy as np
@@ -3560,15 +3783,17 @@ def lm_mesh_phase(dev, gpu: str) -> dict:
                            allocated_caches_bytes=whole["allocated_after_prefill"]
                            - base - one["allocated_params_bytes"])
                 del whole
+        tp_refs, qwen = _lm_serve_tp_refs(model, toks, fed["f32"], max_seq,
+                                          dev)
+        del model
     finally:
         layers.COMPUTE_DTYPE = saved
-    del model
     gc.collect()
     torch.cuda.empty_cache()
 
     results, wall = host_s(lambda: parallel.run_ranks(
         LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1], lm_mesh_rank, tokens, fed,
-        max_seq, timeout=LM_MESH_TIMEOUT_S))
+        max_seq, qwen, timeout=LM_MESH_TIMEOUT_S))
     outs = [r.value for r in results]
     failed = []
     rows = {}
@@ -3657,6 +3882,277 @@ def lm_mesh_phase(dev, gpu: str) -> dict:
           "launches": counts, "failed": failed})
     if failed:
         raise AssertionError(f"lm_mesh: {failed}")
+    tp_counts = _lm_serve_tp_report(
+        [o["serve_tp"] for o in outs], [o["coord"] for o in outs], tp_refs,
+        wall, gpu)
+    return counts, tp_counts
+
+
+def _tp_ranks_row(run: dict) -> dict:
+    """One rank's times and collectives of an lm_serve_tp run: the
+    prefill's and a decode step's (the median after the first) ms on CUDA
+    events and on the host clock, the calls of each kind and the host ms
+    of gloo a step, its share of the step's host ms."""
+    coll = run["collectives"]
+    row = {"prefill_ms": run["event_ms"][0],
+           "prefill_host_ms": run["host_ms"][0],
+           "prefill_calls": {k: coll[0][k] for k in _TP_CALLS},
+           "prefill_gloo_host_ms": coll[0]["seconds"] * 1e3,
+           "decode_ms_per_step": _warm_median(run["event_ms"]),
+           "decode_host_ms_per_step": _warm_median(run["host_ms"]),
+           "calls_per_step": {k: _warm_median([c[k] for c in coll])
+                              for k in _TP_CALLS},
+           "gloo_host_ms_per_step": _warm_median(
+               [c["seconds"] * 1e3 for c in coll]),
+           "cache_bytes": run["cache_bytes"]}
+    row["gloo_share"] = (row["gloo_host_ms_per_step"]
+                         / row["decode_host_ms_per_step"])
+    return row
+
+
+_TP_CALLS = ("all_reduce", "all_gather", "all_to_all")
+
+
+def _kept(ids, cap: int):
+    """The experts that each token's pairs (``ids`` (tokens, top_k))
+    reach with ``cap`` slots an expert, -1 for a pair dropped: the pairs
+    of an expert rank in token order, as ``moe.dispatch`` ranks them."""
+    import numpy as np
+
+    flat = ids.ravel()
+    order = np.argsort(flat, kind="stable")
+    first = np.searchsorted(flat[order], flat[order], side="left")
+    keep = np.empty(len(flat), bool)
+    keep[order] = np.arange(len(flat)) - first < cap
+    return np.where(keep.reshape(ids.shape), ids, -1)
+
+
+def _tp_taint(got: dict, want: dict, rows: int, prompt: int, cfg) -> dict:
+    """Which logits of one dispatch group's run (``got``, against the
+    one-process ``want``: ``_lm_mesh_serve``'s outputs, ``rows`` rows of
+    ``prompt`` tokens, the MoE layers of ``cfg``) a routing flip can
+    reach.  A token's MoE output at a layer moves where its routing
+    flips, or where a flip moves which of its pairs the capacity drops;
+    that moves its logits, and those of its row's later positions unless
+    the layer is the last (through the K/V it writes).  A flip that
+    nothing earlier reaches (no move at a position <= its own below its
+    layer) is primary: a near tie of the router.  Returns the clean
+    (call, row) mask, the (call, layer) cells with a move, the primary
+    flips with ``want``'s router margins there and the median margin of
+    ``want``'s routings."""
+    import numpy as np
+
+    from repro_torch.models import moe
+
+    depth = cfg.num_layers
+    calls = len(want["routing"])
+    # call, layer, token, row, position and whether it flipped, a move
+    cols = [[], [], [], [], [], []]
+    for c in range(calls):
+        cap = moe.capacity(rows * prompt if c == 0 else rows, cfg)
+        for lay in range(depth):
+            ids = np.asarray(got["routing"][c][lay])
+            ref = want["routing"][c][lay].numpy()
+            t = np.nonzero((_kept(ids, cap) != _kept(ref, cap)).any(-1))[0]
+            r, q = (divmod(t, prompt) if c == 0
+                    else (t, np.full_like(t, prompt + c - 1)))
+            for col, v in zip(cols, (np.full_like(t, c), np.full_like(t, lay),
+                                     t, r, q, (ids[t] != ref[t]).any(-1))):
+                col.append(v)
+    fc, fl, ft, fr, fq, flip = (np.concatenate(col) for col in cols)
+    # reached: a move of the row at a position <= q below its layer
+    reached = np.zeros(len(fc), bool)
+    clean = np.ones((calls, rows), bool)
+    at = np.array([prompt - 1] + [prompt + c - 1 for c in range(1, calls)])
+    for r in range(rows):
+        own = np.nonzero(fr == r)[0]
+        if not len(own):
+            continue
+        order = own[np.argsort(fq[own], kind="stable")]
+        lowest = np.minimum.accumulate(fl[order])
+        k = np.searchsorted(fq[order], fq[own], side="right") - 1
+        reached[own] = lowest[k] < fl[own]
+        below = own[fl[own] < depth - 1]
+        first = fq[below].min() if len(below) else np.inf
+        clean[:, r] = ~((at >= first) | np.isin(at, fq[own]))
+    primary = flip & ~reached
+    margins = np.concatenate([m.numpy() for call in want["margins"]
+                              for m in call])
+    return {"clean": clean, "cells": set(zip(fc.tolist(), fl.tolist())),
+            "primary": [float(want["margins"][c][lay][t]) for c, lay, t
+                        in zip(fc[primary], fl[primary], ft[primary])],
+            "flips": int(flip.sum()), "drop_moves": int((~flip).sum()),
+            "margin_median": float(np.median(margins))}
+
+
+def _aux_clean(cells: set, calls: int, depth: int):
+    """The (call, layer) aux a flip at a (call, layer) of ``cells`` cannot
+    reach: none at that call at or below the layer, none at an earlier
+    call below it (through the cache)."""
+    import numpy as np
+
+    return np.array([[not any((c2 < c and l2 < lay) or (c2 == c and l2 <= lay)
+                              for c2, l2 in cells)
+                      for lay in range(depth)] for c in range(calls)],
+                    bool).reshape(calls, depth)
+
+
+def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
+                        gpu: str) -> dict:
+    """Phase lm_serve_tp's line from the ranks' runs (``outs``, in rank
+    order, at ``coords``) against the one-process references ``refs``
+    (``_lm_serve_tp_refs``); returns the kernel launches of the ranks'
+    runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_MESH_ARCH)
+    qcfg = dataclasses.replace(get_arch(LM_SERVE_TP_QWEN_ARCH),
+                               num_layers=LM_SERVE_TP_QWEN_DEPTH)
+    b, s, g = LM_MESH_RUN
+    failed = []
+    first = outs[coords.index([0, 0])]
+    runs = [(name, dt, dataclasses.replace(cfg, num_layers=depth or
+                                           cfg.num_layers), s)
+            for name, dt, depth in LM_SERVE_TP_RUNS]
+    runs += [("qwen", "float32", qcfg, LM_SERVE_TP_QWEN_RUN[1]),
+             ("qwen_bf16", "bfloat16", qcfg, LM_SERVE_TP_QWEN_RUN[1])]
+    rows, counts_by_depth = {}, {}
+    for name, dtype, c, prompt in runs:
+        want = torch.stack([torch.cat([h["logits"][t] for h in refs[name]])
+                            for t in range(len(refs[name][0]["logits"]))])
+        got = torch.from_numpy(first[name]["logits"])
+        calls, batch = want.shape[:2]
+        scale = float(want.abs().max())
+        # the dispatch groups' taints (a dense model routes nothing)
+        taints = [_tp_taint(o[name], refs[name][coord[0]],
+                            batch // LM_MESH_SHAPE[0], prompt, c)
+                  for coord, o in sorted(zip(coords, outs))
+                  if coord[1] == 0 and c.family == "moe"]
+        clean = (torch.from_numpy(np.concatenate([t["clean"] for t in taints],
+                                                 axis=1))
+                 if taints else torch.ones((calls, batch), dtype=torch.bool))
+        err = (got - want).abs().amax(-1) / scale  # (calls, rows)
+        primary = sorted(m for t in taints for m in t["primary"])
+
+        def worst(sel):
+            mask = clean[sel]
+            return float(err[sel][mask].max()) if mask.any() else None
+
+        row = {"weights": dtype, "layers": c.num_layers,
+               "max_abs_err": float((got - want).abs().max()),
+               "largest_abs_logit": scale,
+               "rel_err_prefill": float(err[0].max()),
+               "rel_err_worst_step": float(err[1:].max()),
+               "bar_use_bf16": _bar_use(got, want, LM_BF16_TOL),
+               "routing_flips": sum(t["flips"] for t in taints),
+               "primary_flips": len(primary),
+               "primary_flip_margins": primary[:LM_SERVE_TP_MARGINS_SHOWN],
+               "primary_flip_margin_max": primary[-1] if primary else None,
+               "routing_margin_median": (taints[0]["margin_median"]
+                                         if c.family == "moe" else None),
+               "capacity_drop_moves": sum(t["drop_moves"] for t in taints),
+               "clean_rows_prefill": int(clean[0].sum()),
+               "clean_rows_decode": int(clean[1:].sum()),
+               "rows_decode": int(clean[1:].numel()),
+               "rel_err_prefill_clean": worst(slice(0, 1)),
+               "rel_err_worst_step_clean": worst(slice(1, None)),
+               "bar_use_bf16_clean": (_bar_use(got[clean], want[clean],
+                                               LM_BF16_TOL)
+                                      if clean.any() else None),
+               "ranks_logits_bitwise_equal": len(
+                   {o[name]["logits_sha256"] for o in outs}) == 1,
+               "ranks": [{"coord": coord, **_tp_ranks_row(o[name])}
+                         for coord, o in zip(coords, outs)]}
+        if c.family == "moe":
+            aux_want = np.mean([np.asarray(h["aux"]) for h in refs[name]], axis=0)
+            aux_err = np.abs(np.asarray(first[name]["aux"]) - aux_want)
+            held = _aux_clean(set().union(*(t["cells"] for t in taints)),
+                              calls, c.num_layers)
+            row.update(
+                aux_max_abs_err_prefill=float(aux_err[0].max()),
+                aux_max_abs_err_decode=float(aux_err[1:].max()),
+                aux_clean_prefill=int(held[0].sum()),
+                aux_clean_decode=int(held[1:].sum()),
+                aux_max_abs_err_prefill_clean=(float(aux_err[0][held[0]].max())
+                                               if held[0].any() else None),
+                aux_max_abs_err_decode_clean=(float(aux_err[1:][held[1:]].max())
+                                              if held[1:].any() else None))
+        rows[name] = row
+        if not row["ranks_logits_bitwise_equal"]:
+            failed.append(f"{name}: the ranks' gathered logits differ")
+        if name in LM_SERVE_TP_PRINTED:
+            bars = []
+        elif dtype == "float32":
+            bars = [("rel_err_prefill_clean", LM_MESH_TOL),
+                    ("rel_err_worst_step_clean", LM_DECODE_F32_TOL),
+                    ("aux_max_abs_err_prefill_clean", LM_MESH_AUX_TOL),
+                    ("aux_max_abs_err_decode_clean",
+                     LM_SERVE_TP_DECODE_AUX_TOL)]
+        else:
+            bars = [("bar_use_bf16_clean", 1.0)]
+        if bars and not (row["clean_rows_prefill"]
+                         and row["clean_rows_decode"]):
+            failed.append(f"{name}: no clean prefill or decode row to hold")
+        for key, bar in bars:
+            if row.get(key) is not None and not row[key] <= bar:
+                failed.append(f"{name}: {key} {row[key]} > {bar}")
+        # the calls are the same a step on every rank, and fixed plus a
+        # count a layer (the CPU tests hold the count to the config)
+        steps = [cc for o in outs for cc in o[name]["collectives"][1:]]
+        if any({k: cc[k] for k in _TP_CALLS} != {k: steps[0][k]
+                                                 for k in _TP_CALLS}
+               for cc in steps):
+            failed.append(f"{name}: the calls of a decode step differ "
+                          "between steps or ranks")
+        if c.family == "moe":
+            counts_by_depth[c.num_layers] = [
+                steps[0][k] for k in _TP_CALLS] + [
+                outs[0][name]["collectives"][0]["all_to_all"]]
+    depths = sorted(counts_by_depth)
+    lo, mid = depths[0], depths[1]
+    for d in depths:
+        for x0, x1, x in zip(counts_by_depth[lo], counts_by_depth[mid],
+                             counts_by_depth[d]):
+            if (x - x0) * (mid - lo) != (x1 - x0) * (d - lo):
+                failed.append(f"granite calls at {d} layers "
+                              f"{counts_by_depth[d]} are not those at "
+                              f"{lo} layers plus a count a layer")
+                break
+    reckoned = first["reckoned"]
+    kv_want = reckoned["cache_bytes"] - 4 * cfg.num_layers  # int32 lengths
+    byte_rows = []
+    for coord, o in zip(coords, outs):
+        byte_rows.append({"coord": coord,
+                          "params_bytes_requested": o["params_bytes_requested"],
+                          "params_dtypes": o["params_dtypes"],
+                          "cache_bytes": o["bf16"]["cache_bytes"]})
+        if o["params_bytes_requested"] != reckoned["params_bytes"]:
+            failed.append(f"rank {coord}: {o['params_bytes_requested']} bytes "
+                          f"of parameters requested, reckoned "
+                          f"{reckoned['params_bytes']}")
+        if o["bf16"]["cache_bytes"] != kv_want:
+            failed.append(f"rank {coord}: {o['bf16']['cache_bytes']} cache "
+                          f"bytes, reckoned {kv_want}")
+    counts = {k: sum(o["launches"][k] for o in outs)
+              for k in first["launches"]}
+    if any(counts.values()):
+        failed.append(f"kernels launched: {counts}")
+    emit({"phase": "lm_serve_tp", "arch": LM_MESH_ARCH, "mesh": LM_MESH_SHAPE,
+          "layout": "param_specs(fsdp=False)", "backend": "gloo",
+          "exchange": "all_to_all_single", "run": LM_MESH_RUN,
+          "max_seq": s + g, "qwen_run": LM_SERVE_TP_QWEN_RUN,
+          "bars": {"prefill": LM_MESH_TOL, "decode": LM_DECODE_F32_TOL,
+                   "aux": LM_MESH_AUX_TOL,
+                   "decode_aux": LM_SERVE_TP_DECODE_AUX_TOL,
+                   "bf16": LM_BF16_TOL},
+          "printed": LM_SERVE_TP_PRINTED,
+          "world_wall_s": wall, "reckoned": reckoned, "bytes": byte_rows,
+          **rows, "gpu": gpu, "launches": counts, "failed": failed})
+    if failed:
+        raise AssertionError(f"lm_serve_tp: {failed}")
     return counts
 
 
@@ -6236,8 +6732,9 @@ def main() -> int:
     # ---- 35. LM training -----------------------------------------------------
     counts_lm_train = lm_train_phase(dev, gpu)
 
-    # ---- 36. the LM mesh path ------------------------------------------------
-    counts_lm_mesh = lm_mesh_phase(dev, gpu)
+    # ---- 36. the LM mesh path, and 41. tensor-parallel serving in its
+    # world (phase lm_serve_tp) ---------------------------------------------
+    counts_lm_mesh, counts_lm_serve_tp = lm_mesh_phase(dev, gpu)
 
     # ---- 37. the dry-run's cell report ----------------------------------------
     counts_dryrun = dryrun_report_phase(dev, gpu)
@@ -6251,7 +6748,7 @@ def main() -> int:
     # ---- 40. tensor parallelism and FSDP of the LM train step ----------
     counts_lm_train_tp = lm_train_tp_phase(dev, gpu)
 
-    # ---- 41. kernel list -------------------------------------------------
+    # ---- 42. kernel list -------------------------------------------------
     main_path = (counts_small, counts_full, counts_dense, counts_auto_small,
                  counts_auto_full, counts_mb_small, counts_mb_full,
                  counts_walks, counts_baselines, counts_stream_small,
@@ -6264,7 +6761,7 @@ def main() -> int:
                  counts_walks_paper, counts_lm_serve, counts_lm_moe,
                  counts_lm_ssm, counts_train_sped, counts_lm_train,
                  counts_lm_mesh, counts_dryrun, counts_lm_train_dp,
-                 counts_dryrun_sped, counts_lm_train_tp)
+                 counts_dryrun_sped, counts_lm_train_tp, counts_lm_serve_tp)
     for name, row in kernels.items():
         row["launches"] = sum(c[name] for c in main_path)
         if row["launches"] <= 0:

@@ -19,12 +19,18 @@ group (``_decode_attention_cp``).  A sequence that does not divide by the
 "model" extent is held whole on every rank and decodes by the plain
 path, as in the JAX package.
 
-In training under the training layout a ``sliced`` attention node holds
+In the training and serving layouts a ``sliced`` attention node holds
 the rank's heads (Megatron style): GQA's wq / wk / wv and their biases
 by columns, MLA's wq and w_kv_up by columns, wo by rows; the head count
 is read from the weights, and the partial output of wo is summed over
 the model group.  That is the form where the heads divide by the model
-extent; otherwise the node gathers its weights whole on use.
+extent; otherwise the node gathers its weights whole on use.  A GQA
+cache holds every KV head whatever the layout, so serving a ``sliced``
+node exchanges heads for positions: the prefill's K/V by one all_to_all
+over the model group into a context-parallel cache (``prefill_cache``),
+each decoded token's q, k and v by one all_gather, after which every
+rank runs the context-parallel softmax over all heads and keeps its own
+(``gqa_decode``), as the JAX package's decode takes q whole over heads.
 """
 from __future__ import annotations
 
@@ -256,6 +262,41 @@ def cache_update(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
     return cache
 
 
+def prefill_cache(p: Params, cache: KVCache, k, v) -> KVCache:
+    """Write a prompt's k/v (b, s, the KV heads node ``p`` holds, hd)
+    into ``cache`` from position 0, in place.  Under a ``sliced`` node
+    they hold the rank's KV heads at every position, and a cache holds
+    every KV head: a context-parallel cache takes its positions of every
+    rank's heads by one all_to_all over the model group (K and V in one
+    buffer, padded to the whole sequence), a whole cache every rank's
+    heads at every position by one all_gather.  An int8 cache quantises
+    after the exchange, from the values it would quantise without a
+    mesh."""
+    if not p.sliced:
+        return cache_update(cache, k, v, 0)
+    group = sharding.model_group(p.mesh)
+    kv = torch.stack([k, v])  # (2, b, s, kv_loc, hd)
+    if cache.shard is None:
+        kv = sharding.all_gather_dim(kv, 3, group)
+        return cache_update(cache, kv[0], kv[1], 0)
+    s, held, total = k.shape[1], cache.k.shape[1], cache.shard.total
+    if s > total:
+        raise ValueError(f"cache of {total} positions cannot hold "
+                         f"positions [0, {s})")
+    tp = dist.get_world_size(group)
+    kv = torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, total - s))
+    # block r: rank r's positions of this rank's heads
+    got = sharding.all_to_all(kv.unflatten(2, (tp, held)).movedim(2, 0),
+                              group)
+    # block r from rank r: its heads at this rank's positions
+    kv = got.movedim(0, 3).flatten(3, 4)  # (2, b, held, kv, hd)
+    start = cache.shard.start
+    n = max(0, min(s - start, held))
+    cache_update(cache, kv[0][:, :n], kv[1][:, :n], start)
+    cache.length = s
+    return cache
+
+
 def cache_kv(cache: KVCache, dtype):
     """The whole cache's K and V in ``dtype``."""
     if cache.k.dtype == torch.int8:
@@ -351,28 +392,74 @@ def _decode_attention_cp(q, cache: KVCache):
     return out.to(q.dtype)
 
 
+def _decode_attention(q, k, v, length: int):
+    """q (b, 1, h, hd) against a whole cache's k/v (b, s, kv, hd) in q's
+    dtype, the positions from ``length`` on masked."""
+    h, hd = q.shape[2], q.shape[3]
+    kb = _broadcast_kv(k, h)
+    vb = _broadcast_kv(v, h)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(hd),
+                          kb.float())
+    filled = torch.arange(kb.shape[1], device=q.device) < length
+    pr = torch.softmax(torch.where(filled, logits, NEG_INF), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", pr, vb.float()).to(q.dtype)
+
+
+def _gathered_heads(parts, b: int, hd: int):
+    """(tp, b, n * hd) blocks, rank r's n heads each, -> (b, 1, tp * n,
+    hd) in rank order."""
+    return parts.reshape(parts.shape[0], b, 1, -1, hd).movedim(0, 2).flatten(
+        2, 3)
+
+
+def _decode_sliced(p: Params, q, k_new, v_new, cache: KVCache):
+    """Decode attention of a ``sliced`` node: q / k_new / v_new hold the
+    new token's rank's heads; returns the rank's partial output of wo.
+    A context-parallel cache: every head's q, k and v by one all_gather
+    over the model group, the new position written where it is held, the
+    partial softmaxes combined over all heads, the rank's heads kept.  A
+    whole cache: every KV head's k and v by one all_gather, and the
+    rank's query heads attend over its KV heads."""
+    group = sharding.model_group(p.mesh)
+    b, _, h_loc, hd = q.shape
+    kv_loc = k_new.shape[2]
+    j = sharding.tp_index(p.mesh)
+    if cache.shard is not None:
+        packed = torch.cat([t.reshape(b, -1) for t in (q, k_new, v_new)], -1)
+        parts = sharding.all_gather_dim(packed[None], 0, group)
+        q_all, k_all, v_all = (_gathered_heads(t, b, hd) for t in parts.split(
+            [h_loc * hd, kv_loc * hd, kv_loc * hd], dim=-1))
+        cache_update(cache, k_all, v_all, cache.length)
+        out = _decode_attention_cp(q_all, cache)[:, :, j * h_loc:(j + 1) * h_loc]
+    else:
+        kv = sharding.all_gather_dim(torch.stack([k_new, v_new]), 3, group)
+        cache_update(cache, kv[0], kv[1], cache.length)
+        k, v = cache_kv(cache, q.dtype)
+        heads = slice(j * kv_loc, (j + 1) * kv_loc)
+        out = _decode_attention(q, k[:, :, heads], v[:, :, heads],
+                                cache.length)
+    return out.reshape(b, 1, h_loc * hd) @ p["wo"].to(q.dtype)
+
+
 def gqa_decode(p: Params, cfg: ArchConfig, x, cache: KVCache):
     """Single-step decode: x (b, 1, d) at position cache.length, against
     the whole cache with the unfilled positions masked.  A sharded cache
-    (x then holds the cache's rows) decodes context-parallel."""
+    (x then holds the cache's rows) decodes context-parallel; a
+    ``sliced`` node (the rank's heads) by ``_decode_sliced``, its
+    partial output summed over the model group."""
     b = x.shape[0]
     pos = torch.full((b, 1), cache.length, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, pos)
+    if p.sliced:
+        out = _decode_sliced(p, q, k_new, v_new, cache)
+        return sharding.model_sum(out, p.mesh), cache
     cache = cache_update(cache, k_new, v_new, cache.length)
     if cache.shard is not None:
         out = _decode_attention_cp(q, cache)
     else:
         k, v = cache_kv(cache, x.dtype)
-        kb = _broadcast_kv(k, cfg.num_heads)
-        vb = _broadcast_kv(v, cfg.num_heads)
-        sk = kb.shape[1]
-        logits = torch.einsum("bqhd,bkhd->bhqk",
-                              q.float() * _scale(cfg.head_dim), kb.float())
-        filled = torch.arange(sk, device=x.device) < cache.length
-        logits = torch.where(filled, logits, NEG_INF)
-        pr = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", pr, vb.float()).to(x.dtype)
-    out = out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
+        out = _decode_attention(q, k, v, cache.length)
+    out = out.reshape(b, 1, q.shape[2] * q.shape[3])
     return out @ p["wo"].to(x.dtype), cache
 
 
@@ -485,13 +572,17 @@ def mla_decode(p: Params, cfg: ArchConfig, x, cache: MLACache):
     """Single-step decode with weight absorption: the k half of w_kv_up
     folds into the query and the v half applies after the softmax, so
     attention runs over the (kv_lora + rope) latents and the per-step
-    transient is O(b * s * r), not O(b * s * h * (hd + vd))."""
+    transient is O(b * s * r), not O(b * s * h * (hd + vd)).  A
+    ``sliced`` node absorbs its heads' columns of w_kv_up over the whole
+    latent cache (the same on every model rank) and sums its partial
+    output of wo over the model group."""
     b = x.shape[0]
     dt = x.dtype
-    h, hd, rd, vd, r = (cfg.num_heads, cfg.head_dim, cfg.qk_rope_head_dim,
-                        cfg.v_head_dim, cfg.kv_lora_rank)
+    hd, rd, vd, r = (cfg.head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
     pos = torch.full((b, 1), cache.length, device=x.device)
     q_nope, q_rope, c_new, kr_new = _mla_qkv(p, cfg, x, pos)
+    h = q_nope.shape[2]
     cache = mla_cache_update(cache, c_new, kr_new, cache.length)
 
     w_up = p["w_kv_up"].to(dt).reshape(r, h, hd + vd)
@@ -506,5 +597,5 @@ def mla_decode(p: Params, cfg: ArchConfig, x, cache: MLACache):
     pr = torch.softmax(torch.where(filled, logits, NEG_INF), dim=-1)
     ctx = torch.einsum("bhqs,bsr->bqhr", pr, ckv)  # latent context
     out = torch.einsum("bqhr,rhv->bqhv", ctx, w_up_v.float())
-    out = out.to(dt).reshape(b, 1, h * vd)
-    return out @ p["wo"].to(dt), cache
+    out = out.to(dt).reshape(b, 1, h * vd) @ p["wo"].to(dt)
+    return (sharding.model_sum(out, p.mesh) if p.sliced else out), cache

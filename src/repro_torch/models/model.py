@@ -23,24 +23,33 @@ one shard) ``prefill`` and ``decode_step`` take the global batch, run
 this rank's rows (its block of the data axes, or every row where the
 batch does not divide) and return the global logits, gathered over the
 data group; ``train_loss`` takes the global batch and returns the loss
-of the rank's rows.  Each GQA cache holds the rank's rows and its slice of the
-sequence over "model" (context-parallel decode); MLA caches, SSM state
-and whisper's cross K/V hold the rank's rows, whole along "model"; the
-MoE runs the rank's experts (``shard_model`` drops the others' weights);
-every other projection runs whole on every rank.
+of the rank's rows.  Each GQA cache holds the rank's rows and its slice
+of the sequence over "model", every KV head (context-parallel decode);
+MLA caches and SSM state hold the rank's rows, whole along "model".  A
+whole model serves in the experts-only form (``shard_model(model,
+mesh)``: the MoE runs the rank's experts, every other projection runs
+whole on every rank, whisper's cross K/V holds every head).
 
-For training under a mesh the model takes its TRAINING LAYOUT
-(``shard_model(model, mesh, train=True)``, or ``Model(...,
-train_mesh=mesh)``, which slices each block as soon as it is drawn):
-each rank holds its slice of every parameter under the JAX package's
-``param_specs`` (``launch.shardings.train_layout``).  A layer gathers
-what it cannot compute on when it reads a parameter
+A model in a SLICED LAYOUT holds only its slice of every parameter under
+the JAX package's ``param_specs`` (``launch.shardings.train_layout``).
+It is built by ``shard_model(model, mesh, train=True, fsdp=, dtype=)``,
+or by ``Model(..., train_mesh=mesh, fsdp=, dtype=)``, which slices each
+block as soon as it is drawn, so the whole model is never held.  The
+training layout takes ``param_specs``' FSDP choice (``fsdp=None``); the
+serving layout is its ``fsdp=False`` form with ``dtype=torch.bfloat16``,
+as the JAX package's serving cells hold the weights, each slice cast
+once at rest.  A layer
+gathers what it cannot compute on when it reads a parameter
 (``sharding.read_param``: the FSDP dim over the data axes always, the
 "model" dim in the gather form) and computes on the rest Megatron style:
 attention by heads where they divide by the model extent, the MLP's
 hidden dim, the MoE's experts, the vocabulary of the tables
-(``computes_sliced``).  ``prefill`` and ``decode_step`` refuse such a
-model, whose head-split K/V must not reach a context-parallel cache.
+(``computes_sliced``).  Served, head-sliced attention exchanges its K/V
+into the context-parallel cache (``attention.prefill_cache``,
+``attention.gqa_decode``), whisper's cross K/V holds the rank's heads,
+and the vocabulary-sliced logits are gathered over the model group.
+``prefill`` and ``decode_step`` refuse a layout with FSDP slices: the
+JAX package never serves with FSDP.
 
 ``cfg.remat_policy`` sets what ``train_loss`` keeps for the backward
 pass, block by block (``torch.utils.checkpoint``): "full" (the default)
@@ -155,10 +164,12 @@ def computes_sliced(cfg: ArchConfig, name: str, tp: int) -> bool:
     return True
 
 
-def _slice_tree(module: nn.Module, prefix: str, layout) -> None:
+def _slice_tree(module: nn.Module, prefix: str, layout,
+                dtype: torch.dtype | None = None) -> None:
     """Slice the parameters of ``module`` (``prefix`` its name in the
-    model) to this rank's by ``layout`` (a ``shardings.TrainLayout``), in
-    place, and mark each ``Params`` node that holds a slice."""
+    model) to this rank's by ``layout`` (a ``shardings.TrainLayout``),
+    cast to ``dtype`` where given, in place, and mark each ``Params``
+    node that holds a slice."""
     with torch.no_grad():
         for mod_name, node in module.named_modules(prefix=prefix):
             if not isinstance(node, Params):
@@ -167,14 +178,16 @@ def _slice_tree(module: nn.Module, prefix: str, layout) -> None:
             for leaf, t in list(node._parameters.items()):
                 name = f"{mod_name}.{leaf}"
                 split = layout.splits[name]
-                if split.data is None and split.model is None:
+                if split.data is not None or split.model is not None:
+                    if tuple(t.shape) != split.shape:
+                        raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                                         f"the layout's whole {split.shape}")
+                    t = layout.local(name, t)
+                    splits[leaf] = split
+                elif dtype in (None, t.dtype):
                     continue
-                if tuple(t.shape) != split.shape:
-                    raise ValueError(f"{name}: shape {tuple(t.shape)}, the "
-                                     f"layout's whole {split.shape}")
                 node._parameters[leaf] = nn.Parameter(
-                    layout.local(name, t).clone())
-                splits[leaf] = split
+                    t.to(dtype=dtype or t.dtype, copy=True))
             if splits:
                 node.splits = splits
                 node.mesh = layout.mesh
@@ -183,28 +196,35 @@ def _slice_tree(module: nn.Module, prefix: str, layout) -> None:
 
 
 def shard_model(model: "Model", mesh, *, train: bool = False,
-                fsdp: bool | None = None) -> "Model":
+                fsdp: bool | None = None,
+                dtype: torch.dtype | None = None) -> "Model":
     """Shard a whole model for ``mesh``, in place; returns it.
 
-    Serving (``train`` False): drop the expert weights this rank does not
-    own: each MoE block keeps experts [j E/tp, (j+1) E/tp) of its stacks
-    and, with shared experts, that slice of their hidden dim, j being the
-    rank's "model" coordinate of ``mesh``.  Experts that do not divide by
-    the model extent stay whole (the grouped form runs them all).
+    Experts only (``train`` False): drop the expert weights this rank
+    does not own: each MoE block keeps experts [j E/tp, (j+1) E/tp) of
+    its stacks and, with shared experts, that slice of their hidden dim,
+    j being the rank's "model" coordinate of ``mesh``.  Experts that do
+    not divide by the model extent stay whole (the grouped form runs
+    them all).
 
-    Training (``train`` True): the training layout of ``mesh`` (a
-    ``DeviceMesh``) under ``param_specs(..., fsdp)`` (None: FSDP where
-    the JAX package's threshold puts it): every parameter becomes this
-    rank's slice, and the layout is kept as ``model.train_layout``."""
+    Sliced (``train`` True): the layout of ``mesh`` (a ``DeviceMesh``)
+    under ``param_specs(..., fsdp)`` (None: FSDP where the JAX package's
+    threshold puts it), every parameter this rank's slice, cast once to
+    ``dtype`` where given; the layout is kept as ``model.train_layout``.
+    ``fsdp=False`` with ``dtype=torch.bfloat16`` is the serving layout,
+    as the JAX package's serving cells hold the weights."""
     if model.train_layout is not None:
-        raise ValueError("the model is already in a training layout")
+        raise ValueError("the model is already in a sliced layout")
     if train:
         from repro_torch.launch import shardings
 
         layout = shardings.train_layout(model.cfg, mesh, fsdp)
-        _slice_tree(model, "", layout)
+        _slice_tree(model, "", layout, dtype)
         model.train_layout = layout
         return model
+    if dtype is not None:
+        raise ValueError("dtype is the weight dtype of a sliced layout "
+                         "(train=True)")
     cfg = model.cfg
     tp_ext = sharding.extent(mesh, sharding.tp_axis(mesh))
     if cfg.family != "moe" or tp_ext == 1 or not moe_mod.expert_sharded(
@@ -265,19 +285,24 @@ class Model(nn.Module):
     shapes only.
 
     With ``train_mesh`` (a ``DeviceMesh``) the model is built in that
-    mesh's training layout (``shard_model``'s training form, ``fsdp`` as
-    there): each block is sliced as soon as it is drawn, so the whole
-    model is never held, and the values are the slices of the whole
-    model drawn from the same generator."""
+    mesh's sliced layout (``shard_model``'s sliced form, ``fsdp`` and
+    ``dtype`` as there: ``fsdp=False, dtype=torch.bfloat16`` is the
+    serving layout): each block is sliced and cast as soon as it is
+    drawn, so the whole model is never held, and the values are the
+    slices of the whole model drawn from the same generator."""
 
-    # the training layout (``launch.shardings.TrainLayout``) the
-    # parameters are sliced by; None: whole
+    # the sliced layout (``launch.shardings.TrainLayout``) the parameters
+    # are sliced by; None: whole
     train_layout = None
 
     def __init__(self, cfg: ArchConfig, device=None,
                  generator: torch.Generator | None = None, *,
-                 train_mesh=None, fsdp: bool | None = None):
+                 train_mesh=None, fsdp: bool | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        if dtype is not None and train_mesh is None:
+            raise ValueError("dtype is the weight dtype of a sliced layout "
+                             "(train_mesh)")
         dev = resolve_device(device)
         if generator is None:
             generator = (MetaGenerator() if dev.type == "meta" else
@@ -288,19 +313,20 @@ class Model(nn.Module):
             from repro_torch.launch import shardings
 
             layout = shardings.train_layout(cfg, train_mesh, fsdp)
-        self.init(generator, layout)
+        self.init(generator, layout, dtype)
         self.to(dev)
         self.train_layout = layout
 
-    def init(self, gen: torch.Generator, layout=None) -> None:
+    def init(self, gen: torch.Generator, layout=None,
+             dtype: torch.dtype | None = None) -> None:
         """The parameter layout of the JAX package's ``model.init``; with
-        ``layout``, each top-level node and block sliced by it once
-        drawn."""
+        ``layout``, each top-level node and block sliced by it and cast
+        to ``dtype`` (where given) once drawn."""
         cfg = self.cfg
 
         def put(name, module):
             if layout is not None:
-                _slice_tree(module, name, layout)
+                _slice_tree(module, name, layout, dtype)
             return module
 
         self.embed = put("embed", init_embedding(gen, cfg.vocab_size,
@@ -335,9 +361,6 @@ class Model(nn.Module):
 
     def _table_node(self) -> Params:
         return self.embed if self.cfg.tie_embeddings else self.unembed
-
-    def _table(self) -> torch.Tensor:
-        return self._table_node()["table"]
 
     def _blocks(self) -> list:
         """The blocks in the order the residual stream runs through them,
@@ -524,18 +547,27 @@ class Model(nn.Module):
         return x
 
     def _serving(self, what: str) -> None:
-        if self.train_layout is not None:
-            raise ValueError(f"{what} of a model in its training layout: "
-                             "its heads are split over 'model', and a "
-                             "head-split K/V must not fill a "
-                             "context-parallel cache")
+        """Refuse to serve a sliced layout that the JAX package never
+        serves (FSDP slices), or outside the mesh it was sliced for."""
+        lay = self.train_layout
+        if lay is None:
+            return
+        if any(sp.data is not None for sp in lay.splits.values()):
+            raise ValueError(f"{what} of a model whose layout splits "
+                             "parameters over the data axes (FSDP): the JAX "
+                             "package serves only TP-only slices "
+                             "(param_specs(..., fsdp=False), the serving "
+                             "layout)")
+        if sharding.current_mesh() != lay.mesh:
+            raise ValueError(f"{what} of a model in a sliced layout runs "
+                             "under the mesh it was sliced for")
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_seq: int = 0):
         """Run the prompt, fill each layer's cache; returns the
         last-position logits (b, vocab) f32 and the state.  An SSM layer
         raises ``ValueError`` on a prompt shorter than ssm_conv - 1, and
-        a model in its training layout raises ``ValueError``."""
+        so does a model that ``_serving`` refuses."""
         self._serving("prefill")
         b, s = batch["tokens"].shape
         with self._rows(b) as own:
@@ -550,7 +582,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, state: ServeState, tokens):
         """tokens (b, 1) -> next-token logits (b, vocab) f32; the caches
-        advance in place.  A model in its training layout raises
+        advance in place.  A model that ``_serving`` refuses raises
         ``ValueError``."""
         self._serving("decode_step")
         with self._rows(tokens.shape[0]) as own:
@@ -576,4 +608,12 @@ class Model(nn.Module):
             yield _Rows(mesh, split)
 
     def _last_logits(self, h):
-        return h[:, -1].float() @ self._table().float().T
+        """The last position's f32 logits (rows, vocab); a ``sliced``
+        table's (rows, its block of the vocabulary) gathered over the
+        model group."""
+        node = self._table_node()
+        logits = h[:, -1].float() @ node["table"].float().T
+        if node.sliced:
+            logits = sharding.all_gather_dim(logits, -1,
+                                             sharding.model_group(node.mesh))
+        return logits

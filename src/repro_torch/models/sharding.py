@@ -25,18 +25,21 @@ A collective that a training forward pass reaches is autograd-aware
 the same group, as the JAX package's ``psum`` transposes.  The data
 parallel step averages its gradients with :func:`mean_buckets`.
 
-In the training layout (``model.shard_model(..., train=True)``) each
-rank holds its slice of every parameter (a :class:`ParamSplit` says
-which) and reads it through :func:`read_param`: the dim split over the
-data axes (FSDP) is all-gathered on use, and so is the dim split over
-"model" where the layer computes whole (the gather form).  The two
+In the training and serving layouts (``model.shard_model(...,
+train=True)``, the serving layout at ``fsdp=False``) each rank holds its
+slice of every parameter (a :class:`ParamSplit` says which) and reads it
+through :func:`read_param`: the dim split over the data axes (FSDP) is
+all-gathered on use, and so is the dim split over "model" where the
+layer computes whole (the gather form).  The two
 backwards differ: the data ranks ran different rows, so the gathered
 gradient is reduce-scattered with the MEAN over the data group; the
 model ranks ran the same rows on the same input, so it is only narrowed
 to the rank's slice.  A layer that computes on its "model" slices
 (Megatron style) enters that region with :func:`model_enter` (identity
 forward, a SUM over the model group backward) and leaves it with
-:func:`model_sum` (a SUM forward, identity backward).
+:func:`model_sum` (a SUM forward, identity backward).  Served, the
+head-sliced attention trades heads for cache positions with
+:func:`all_to_all`.
 
 The JAX package also has ``maybe_shard``, a layout hint to its compiler
 with no numeric effect; here each rank already holds only its slice, so
@@ -63,7 +66,7 @@ _MESHES: list = []
 _ROWS: list = []
 # collectives of the sharded LM path: calls and their host seconds
 _STATS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-          "seconds": 0.0}
+          "all_to_all": 0, "seconds": 0.0}
 # the data-parallel step's gradients go over the data group in flat f32
 # buckets of at most this many bytes (a larger tensor is one bucket)
 BUCKET_BYTES = 256 * 2 ** 20
@@ -300,15 +303,29 @@ def all_gather_flat(x: torch.Tensor, group) -> list:
     return parts
 
 
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block r of ``x`` (dim 0, one block a rank of ``group``) sent to
+    group rank r; returns the blocks received, block r from group rank
+    r: one ``all_to_all_single``."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, x, group=group)
+    _STATS["all_to_all"] += 1
+    _STATS["seconds"] += time.perf_counter() - t0
+    return out
+
+
 def collective_stats() -> dict:
-    """All_reduce, all_gather and reduce_scatter calls of the sharded LM
-    path since the last reset, and their host seconds (each call timed on the host
-    clock around the blocking collective)."""
+    """All_reduce, all_gather, reduce_scatter and all_to_all calls of the
+    sharded LM path since the last reset, and their host seconds (each
+    call timed on the host clock around the blocking collective)."""
     return dict(_STATS)
 
 
 def reset_collective_stats() -> None:
-    _STATS.update(all_reduce=0, all_gather=0, reduce_scatter=0, seconds=0.0)
+    _STATS.update(all_reduce=0, all_gather=0, reduce_scatter=0,
+                  all_to_all=0, seconds=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -333,14 +350,15 @@ class ParamSplit(NamedTuple):
                                          and not self.sliced)
 
 
-def _all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's blocks of ``x`` joined along ``dim`` in rank order."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
+    x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     t0 = time.perf_counter()
-    dist.all_gather(parts, x.contiguous(), group=group)
+    dist.all_gather(parts, x, group=group)
     _STATS["all_gather"] += 1
     _STATS["seconds"] += time.perf_counter() - t0
     return torch.cat(parts, dim=dim)
@@ -373,9 +391,9 @@ class _GatherParam(torch.autograd.Function):
     def forward(ctx, t, split: ParamSplit, mesh):
         ctx.split, ctx.mesh = split, mesh
         if split.data is not None:
-            t = _all_gather_dim(t, split.data, data_group(mesh))
+            t = all_gather_dim(t, split.data, data_group(mesh))
         if split.model is not None and not split.sliced:
-            t = _all_gather_dim(t, split.model, model_group(mesh))
+            t = all_gather_dim(t, split.model, model_group(mesh))
         return t
 
     @staticmethod
@@ -404,9 +422,9 @@ def gather_whole(t: torch.Tensor, split: ParamSplit, mesh) -> torch.Tensor:
     the data dim gathered over the data group, then the model dim over
     the model group.  Every rank of the mesh calls it."""
     if split.data is not None:
-        t = _all_gather_dim(t, split.data, data_group(mesh))
+        t = all_gather_dim(t, split.data, data_group(mesh))
     if split.model is not None:
-        t = _all_gather_dim(t, split.model, model_group(mesh))
+        t = all_gather_dim(t, split.model, model_group(mesh))
     return t
 
 

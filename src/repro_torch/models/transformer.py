@@ -93,8 +93,10 @@ class Block(nn.Module):
             y, _ = ssm_mod.ssm_prefill(self.ssm, cfg, h, cache)
             return x + y
         x, entries, _ = self.block_train(x, cross_kv)
-        update = attn.mla_cache_update if cfg.use_mla else attn.cache_update
-        update(cache, *entries, 0)
+        if cfg.use_mla:
+            attn.mla_cache_update(cache, *entries, 0)
+        else:
+            attn.prefill_cache(self.attn, cache, *entries)
         return x
 
     def block_decode(self, x, cache, cross_kv=None):

@@ -1272,6 +1272,31 @@ def test_context_parallel_decode_on_two_ranks_matches_one_process(dev):
         assert _rel_err(got, torch.stack(want)) <= 1e-4
 
 
+@pytest.mark.parametrize("max_seq, dtype", [(16, "float32"), (16, "bfloat16"),
+                                            (15, "float32")])
+def test_serving_heads_exchange_on_the_card_is_the_cpu_result(dev, max_seq,
+                                                              dtype):
+    """The tensor-parallel prefill's heads -> positions exchange
+    (``attention.prefill_cache``) on 2 gloo ranks of this card: CUDA
+    tensors through gloo fill each rank's cache bitwise as the same
+    exchange of CPU tensors does, by one all_to_all into a
+    context-parallel cache and one all_gather into a whole cache (a
+    sequence that does not divide)."""
+    import torch_dist_ranks as ranks
+    from repro_torch import parallel
+
+    results = parallel.run_ranks(2, ranks.card_heads_exchange, max_seq, dtype,
+                                 device=dev, timeout=300.0)
+    cp = max_seq % 2 == 0
+    for r in results:
+        card, cpu = r.value["cuda"], r.value["cpu"]
+        assert card["length"] == cpu["length"] == 13
+        assert card["calls"]["all_to_all"] == int(cp)
+        assert card["calls"]["all_gather"] == int(not cp)
+        for f in ("k", "v"):
+            assert np.array_equal(np.asarray(card[f]), np.asarray(cpu[f])), f
+
+
 def test_data_parallel_step_on_two_ranks_matches_one_process(dev):
     """granite's smoke model in f32 compute on a (2, 1) ("data", "model")
     mesh of 2 gloo ranks on this card: 2 data-parallel steps with ZeRO-1

@@ -1,0 +1,311 @@
+"""The port's tensor-parallel serving on one gloo world of 4 CPU ranks, a
+(2, 2) ("data", "model") mesh, against the JAX package without a mesh.
+
+Each model is held in the serving layout (``shard_model(..., train=True,
+fsdp=False, dtype=torch.float32)``: every rank holds exactly its slice of
+every parameter under ``param_specs(..., fsdp=False)``), and ``prefill`` and
+``decode_step`` run on it under the mesh.  The world is spawned once for
+the module (``parallel.run_ranks``); every rank runs all cases
+(``tests/torch_dist_ranks.run_serve_tp``) in f32 compute and returns
+numpy.  JAX sees one CPU device here, so each mesh output is held to
+what the JAX package's mesh path computes, which needs no mesh to
+reproduce: its dispatch groups are the data-parallel row blocks, so
+every reference runs each data half of the batch alone (the whole batch
+where it does not divide), fed the argmax of its own logits.  Bars, with
+f32 weights and compute in both packages:
+  * a prefill 1e-4 and 8 greedy decode steps 5e-3 (ROADMAP C's f32
+    decode bar: the bf16 cache rounds values that differ in their last
+    bits);
+  * the families the JAX package shards only through its compiler
+    (mamba2, zamba2, whisper, deepseek's MLA) also against the port's
+    own no-mesh run on the same halves, 1e-4 of the largest logit.
+Each fall-back takes its branch: KV heads that do not divide by the
+model extent (the gather form), a vocabulary that does not (the whole
+table), a ``max_seq`` that does not (the whole cache), an int8 cache, a
+batch that does not divide by the data extent.  The bf16 serving layout
+is built on the meta device in each rank: its parameter bytes and GQA
+cache bytes are ``dryrun.reckon``'s decode cell's.
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_ranks as ranks
+from repro import configs as jcfg
+from repro.models import layers as jlayers
+from repro.models import model as jmodel
+from repro_torch import convert, parallel
+from repro_torch.models import layers as tlayers
+from repro_torch.models.frontends import frontend_spec
+
+CPU = "cpu"
+PREFILL_TOL, DECODE_TOL = 1e-4, 5e-3
+PORT_TOL = 1e-4
+B, PROMPT, STEPS = 4, 12, 8
+QWEN = "qwen3-4b"
+MODELS = {  # (arch, overrides, batch, max_seq, steps)
+    "qwen3": (QWEN, None, B, PROMPT + STEPS, STEPS),
+    "llava": ("llava-next-mistral-7b", None, B, PROMPT + STEPS, STEPS),
+    "granite": ("granite-moe-1b-a400m", None, B, PROMPT + STEPS, STEPS),
+    "deepseek": ("deepseek-v2-236b", None, B, PROMPT + STEPS, STEPS),
+    "zamba2": ("zamba2-1.2b", None, B, PROMPT + STEPS, STEPS),
+    "mamba2": ("mamba2-2.7b", None, B, PROMPT + STEPS, STEPS),
+    "whisper": ("whisper-small", None, B, PROMPT + STEPS, STEPS),
+    # the fall-back branches
+    "kv_heads_not_dividing": (QWEN, {"num_kv_heads": 1}, B, PROMPT + 4, 4),
+    "vocab_not_dividing": (QWEN, {"vocab_size": 511}, B, PROMPT + 4, 4),
+    "seq_not_dividing": (QWEN, None, B, PROMPT + 3, 3),
+    "int8": (QWEN, {"kv_cache_dtype": "int8"}, B, PROMPT + 4, 4),
+    "batch_not_dividing": ("granite-moe-1b-a400m", None, 3, PROMPT + 4, 4),
+}
+# held also to the port's no-mesh run: the JAX package shards these only
+# through its compiler
+PORT_HELD = ("deepseek", "zamba2", "mamba2", "whisper")
+# the GQA caches follow the JAX package's cache_specs: every cache bytes
+# reckoned (the caches' int32 lengths are Python ints in the port)
+CACHE_SPECS_HELD = ("qwen3", "llava", "granite", "whisper",
+                    "seq_not_dividing", "int8", "batch_not_dividing")
+
+
+def _jcfg(arch, overrides=None):
+    return dataclasses.replace(jcfg.smoke_config(jcfg.get_arch(arch)),
+                               **(overrides or {}))
+
+
+def _numpy(tree, rng):
+    """A JAX tree as numpy f32, norm scales perturbed from ``rng``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _numpy(v, rng)
+            continue
+        v = np.asarray(v, np.float32)
+        if k == "scale":
+            v = v * (1 + 0.1 * rng.standard_normal(v.shape)).astype(np.float32)
+        out[k] = v
+    return out
+
+
+def _batch(tc, b, seed):
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, tc.vocab_size, (b, PROMPT),
+                                  dtype=np.int32)}
+    for k, (shape, _) in frontend_spec(tc, b).items():
+        out[k] = (0.02 * rng.standard_normal(shape)).astype(np.float32)
+    return out
+
+
+def _halves(batch, b):
+    """The JAX package's dispatch groups on a (2, 2) mesh: the data halves
+    where the batch divides, else the whole batch."""
+    if b % 2:
+        return [batch]
+    return [{k: v[:b // 2] for k, v in batch.items()},
+            {k: v[b // 2:] for k, v in batch.items()}]
+
+
+def _jax_serve(jc, tree, batch, max_seq, steps):
+    """The JAX package's prefill and ``steps`` greedy decode steps on each
+    dispatch group; (logits (steps + 1, b, V), tokens fed each step)."""
+    p = jax.tree.map(jnp.asarray, tree)
+    prefill = jax.jit(lambda p, bt: jmodel.prefill(p, jc, bt, max_seq=max_seq))
+    decode = jax.jit(lambda p, st, t: jmodel.decode_step(p, jc, st, t))
+    runs = []
+    for half in _halves(batch, batch["tokens"].shape[0]):
+        logits, state = prefill(p, {k: jnp.asarray(v) for k, v in half.items()})
+        seq, fed = [np.asarray(logits)], []
+        for _ in range(steps):
+            fed.append(np.argmax(seq[-1], -1)[:, None].astype(np.int32))
+            logits, state = decode(p, state, jnp.asarray(fed[-1]))
+            seq.append(np.asarray(logits))
+        runs.append((np.stack(seq), fed))
+    return (np.concatenate([r[0] for r in runs], axis=1),
+            [np.concatenate([r[1][t] for r in runs]) for t in range(steps)])
+
+
+def _port_serve(tc, tree, batch, max_seq, fed):
+    """The port without a mesh on each dispatch group, fed ``fed``."""
+    model = convert.lm_params_from_numpy(tc, tree, device=CPU)
+    b = batch["tokens"].shape[0]
+    outs = []
+    for i, half in enumerate(_halves(batch, b)):
+        rows = slice(i * (b // 2), (i + 1) * (b // 2)) if b % 2 == 0 else slice(None)
+        logits, state = model.prefill({k: torch.from_numpy(v)
+                                       for k, v in half.items()}, max_seq)
+        seq = [logits.numpy()]
+        for tok in fed:
+            logits, state = model.decode_step(state, torch.from_numpy(tok[rows]))
+            seq.append(logits.numpy())
+        outs.append(np.stack(seq))
+    return np.concatenate(outs, axis=1)
+
+
+def _case(name):
+    arch, overrides, b, max_seq, steps = MODELS[name]
+    jc = _jcfg(arch, overrides)
+    tree = _numpy(jax.jit(jmodel.init, static_argnums=1)(
+        jax.random.PRNGKey(1), jc), np.random.default_rng(len(name)))
+    tc = ranks.lm_config(arch, overrides)
+    batch = _batch(tc, b, 7)
+    want, fed = _jax_serve(jc, tree, batch, max_seq, steps)
+    port = (_port_serve(tc, tree, batch, max_seq, fed)
+            if name in PORT_HELD else None)
+    return ({"arch": arch, "overrides": overrides, "tree": tree,
+             "batch": batch, "fed": fed, "max_seq": max_seq},
+            want, port)
+
+
+@pytest.fixture(scope="module")
+def world():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jlayers, "COMPUTE_DTYPE", jnp.float32)
+        mp.setattr(jmodel, "COMPUTE_DTYPE", jnp.float32)
+        mp.setattr(tlayers, "COMPUTE_DTYPE", torch.float32)
+        cases, want, port = {}, {}, {}
+        for name in MODELS:
+            cases[name], want[name], port[name] = _case(name)
+    sizes = {name: {"arch": a, "overrides": o, "batch": b, "max_seq": s}
+             for name, (a, o, b, s, _) in MODELS.items()}
+    inputs = {"model": cases, "bytes": sizes}
+    results = parallel.run_ranks(4, ranks.run_serve_tp, inputs, device=CPU,
+                                 timeout=300.0)
+    return SimpleNamespace(outs=[r.value for r in results], want=want,
+                           port=port)
+
+
+def _maxabs(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b))))
+
+
+def test_ranks_form_the_2x2_mesh(world):
+    assert [o["coord"] for o in world.outs] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_each_rank_holds_exactly_its_slices(world, name):
+    assert all(out[f"model/{name}"]["slices_exact"] for out in world.outs)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_serving_layout_matches_reference(world, name):
+    want = world.want[name]
+    for rank, out in enumerate(world.outs):
+        got = out[f"model/{name}"]["logits"]
+        assert got.shape == want.shape
+        assert _maxabs(got[0], want[0]) <= PREFILL_TOL, rank
+        assert _maxabs(got[1:], want[1:]) <= DECODE_TOL, rank
+
+
+@pytest.mark.parametrize("name", PORT_HELD)
+def test_serving_layout_matches_port_without_mesh(world, name):
+    want = world.port[name]
+    for rank, out in enumerate(world.outs):
+        got = out[f"model/{name}"]["logits"]
+        assert _maxabs(got, want) <= PORT_TOL * max(1.0, np.abs(want).max()), rank
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_model_group_logits_bitwise_equal(world, name):
+    by_coord = {o["coord"]: o[f"model/{name}"]["logits"] for o in world.outs}
+    for i in (0, 1):
+        assert np.array_equal(by_coord[(i, 0)], by_coord[(i, 1)])
+
+
+def _step_collectives(name):
+    """(all_reduce, all_gather) of a decode step of case ``name`` on the
+    (2, 2) mesh, from its config: the embedding's model sum (a vocabulary
+    that divides), per GQA layer one gather of q, k and v, the three
+    all_reduces of the context-parallel softmax and wo's sum (the whole
+    cache: one gather of k and v and wo's sum; the gather form: its four
+    weights gathered, then the context-parallel softmax), per MLP one
+    sum, per MoE its combine and aux's mean
+    over the data rows, per MLA layer wo's sum; then the logits gathered
+    over "model" (a vocabulary that divides) and over "data" (a batch
+    that divides)."""
+    arch, overrides, b, max_seq, _ = MODELS[name]
+    cfg = ranks.lm_config(arch, overrides)
+    vocab = cfg.vocab_size % 2 == 0
+    rows = b % 2 == 0
+    cp = max_seq % 2 == 0
+    if cfg.num_kv_heads % 2 == 0 and cfg.num_heads % 2 == 0:
+        attn = (1, 3 + 1) if cp else (1, 1)
+    else:
+        attn = (4, 3 if cp else 0)
+    ffn = (0, 2 if rows else 1) if cfg.family == "moe" else (0, 1)
+    per = (attn[0] + ffn[0], attn[1] + ffn[1])
+    if cfg.use_mla:
+        per = (0, 1 + ffn[1])
+    layers = cfg.num_layers
+    return (int(vocab) + per[1] * layers,
+            per[0] * layers + int(vocab) + int(rows))
+
+
+@pytest.mark.parametrize("name", [n for n, (a, *_) in MODELS.items()
+                                  if a in (QWEN, "granite-moe-1b-a400m",
+                                           "llava-next-mistral-7b",
+                                           "deepseek-v2-236b")])
+def test_decode_step_collectives(world, name):
+    want = _step_collectives(name)
+    for out in world.outs:
+        st = out[f"model/{name}"]["step_collectives"]
+        assert (st["all_reduce"], st["all_gather"]) == want, out["coord"]
+        assert st["all_to_all"] == 0
+
+
+@pytest.mark.parametrize("name", ["qwen3", "int8", "seq_not_dividing",
+                                  "kv_heads_not_dividing"])
+def test_prefill_exchanges_heads_for_positions(world, name):
+    """One all_to_all a GQA layer into a context-parallel cache; none
+    into a whole cache (an all_gather over heads) or in the gather form
+    (the K/V already hold every head)."""
+    arch, overrides, _, max_seq, _ = MODELS[name]
+    cfg = ranks.lm_config(arch, overrides)
+    sliced = cfg.num_kv_heads % 2 == 0
+    want = cfg.num_layers if sliced and max_seq % 2 == 0 else 0
+    for out in world.outs:
+        assert out[f"model/{name}"]["prefill_collectives"]["all_to_all"] == want
+
+
+def test_whisper_cross_kv_holds_the_ranks_heads(world):
+    heads = ranks.lm_config("whisper-small").num_heads
+    for out in world.outs:
+        assert out["model/whisper"]["cross_heads"] == heads // 2
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_bf16_parameter_bytes_are_reckoned(world, name):
+    for out in world.outs:
+        got = out[f"bytes/{name}"]
+        assert got["dtypes"] == ["torch.bfloat16"]
+        assert got["param_bytes"] == got["reckon_params"]
+
+
+@pytest.mark.parametrize("name", CACHE_SPECS_HELD)
+def test_gqa_cache_bytes_are_reckoned(world, name):
+    for out in world.outs:
+        got = out[f"bytes/{name}"]
+        assert got["kv_bytes"] + 4 * got["kv_caches"] == got["reckon_cache"]
+        served = out[f"model/{name}"]
+        assert (served["kv_bytes"], served["kv_caches"]) == (
+            got["kv_bytes"], got["kv_caches"])
+
+
+def test_f32_layout_holds_twice_the_bf16_bytes(world):
+    """The f32 serving layout holds each slice in 4 bytes: twice the bf16
+    layout's bytes."""
+    for out in world.outs:
+        for name in MODELS:
+            assert (out[f"model/{name}"]["param_bytes"]
+                    == 2 * out[f"bytes/{name}"]["param_bytes"])
+
+
+@pytest.mark.parametrize("what", ["fsdp_prefill", "fsdp_decode",
+                                  "no_mesh_prefill"])
+def test_serving_refuses(world, what):
+    for out in world.outs:
+        assert out["refusals"][what] == "ValueError"

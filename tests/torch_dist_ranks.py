@@ -1,7 +1,8 @@
 """Rank bodies and shared inputs of the port's tests that spawn worlds:
 tests/test_torch_distributed.py, tests/test_torch_model_sharded.py,
-tests/test_torch_lm_mesh.py, tests/test_torch_dryrun_sped.py and
-tests/test_torch_train_dp.py.
+tests/test_torch_lm_mesh.py, tests/test_torch_dryrun_sped.py,
+tests/test_torch_train_dp.py, tests/test_torch_train_tp.py and
+tests/test_torch_serve_tp.py.
 
 The test spawns one world per shard count (``parallel.run_ranks``); each
 rank imports this module by name (the spawned interpreter gets the
@@ -835,6 +836,119 @@ def _tp_layout_checks(mesh) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (tests/test_torch_serve_tp.py): (2, 2) mesh
+# ---------------------------------------------------------------------------
+
+def _kv_bytes(state) -> tuple[int, int]:
+    """(bytes, count) of the GQA caches of a ``ServeState`` (K, V and
+    their int8 scales)."""
+    from repro_torch.models import attention as attn
+
+    caches = [c for c in [*state.caches, *(state.attn_caches or [])]
+              if isinstance(c, attn.KVCache)]
+    return _local_bytes([t for c in caches for t in (c.k, c.v, c.k_scale,
+                                                     c.v_scale)
+                         if t is not None]), len(caches)
+
+
+def _serve_case(mesh, case: dict) -> dict:
+    """The case's model from its numpy tree in the mesh's serving layout
+    (f32 at rest): whether each rank holds exactly its slice of every
+    parameter, a prefill and ``fed``'s decode steps; the logits of each
+    call, the collectives of the prefill and of the last step, the
+    rank's parameter and GQA cache bytes, the cross K/V's heads."""
+    from repro_torch import convert
+    from repro_torch.models import sharding
+    from repro_torch.models.model import shard_model
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    whole = convert.lm_named_from_tree(case["tree"])
+    model = convert.lm_params_from_numpy(cfg, case["tree"], device=CPU)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    with sharding.set_mesh(mesh):
+        shard_model(model, mesh, train=True, fsdp=False,
+                    dtype=torch.float32)
+        lay = model.train_layout
+        exact = all(torch.equal(p, lay.local(k, torch.from_numpy(
+            np.array(whole[k], np.float32)))) for k, p in model.named_parameters())
+        sharding.reset_collective_stats()
+        logits, state = model.prefill(batch, max_seq=case["max_seq"])
+        prefill_coll = sharding.collective_stats()
+        seq = [logits]
+        for tok in case["fed"]:
+            sharding.reset_collective_stats()
+            logits, state = model.decode_step(state, torch.from_numpy(tok))
+            seq.append(logits)
+        kv_bytes, kv_caches = _kv_bytes(state)
+    return {"logits": torch.stack(seq), "slices_exact": exact,
+            "prefill_collectives": prefill_coll,
+            "step_collectives": sharding.collective_stats(),
+            "param_bytes": _local_bytes(model.parameters()),
+            "kv_bytes": kv_bytes, "kv_caches": kv_caches,
+            "cross_heads": (None if state.cross_kv is None
+                            else state.cross_kv[0][0].shape[2])}
+
+
+def _serve_bytes(mesh, case: dict) -> dict:
+    """The bf16 serving layout of the case's arch built on the meta device
+    (``Model(..., train_mesh=, fsdp=False, dtype=torch.bfloat16)``): the
+    rank's parameter bytes and GQA cache bytes beside ``dryrun.reckon``'s
+    decode cell of the same batch and context."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding
+    from repro_torch.models.model import Model
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    b, max_seq = case["batch"], case["max_seq"]
+    with sharding.set_mesh(mesh):
+        model = Model(cfg, "meta", train_mesh=mesh, fsdp=False,
+                      dtype=torch.bfloat16)
+        kv_bytes, kv_caches = _kv_bytes(model.init_caches(b, max_seq))
+        reck = dryrun.reckon(cfg, "decode", b, max_seq, mesh)
+    return {"param_bytes": _local_bytes(model.parameters()),
+            "dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+            "kv_bytes": kv_bytes, "kv_caches": kv_caches,
+            "reckon_params": reck["params_bytes"],
+            "reckon_cache": reck["cache_bytes"]}
+
+
+def _serve_refusals(mesh) -> dict:
+    """What raises: serving a model in the FSDP training layout, and a
+    model in the serving layout outside its mesh."""
+    from repro_torch.models import sharding
+    from repro_torch.models.model import Model
+
+    cfg = lm_config("qwen3-4b")
+    toks = torch.zeros((4, 8), dtype=torch.int32)
+    with sharding.set_mesh(mesh):
+        fsdp = Model(cfg, CPU, train_mesh=mesh, fsdp=True)
+        served = Model(cfg, CPU, train_mesh=mesh, fsdp=False,
+                       dtype=torch.float32)
+        out = {"fsdp_prefill": _raises(lambda: fsdp.prefill({"tokens": toks})),
+               "fsdp_decode": _raises(lambda: fsdp.decode_step(
+                   None, toks[:, :1]))}
+    out["no_mesh_prefill"] = _raises(lambda: served.prefill({"tokens": toks}))
+    return out
+
+
+def run_serve_tp(dev, inputs: dict) -> dict:
+    """Every tensor-parallel serving case on this rank of a (2, 2)
+    ("data", "model") world, f32 compute; returns {name: output}."""
+    from repro_torch.models import layers
+
+    torch.set_num_threads(1)
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = parallel.make_mesh(TP_MESH, ("data", "model"), dev)
+    out: dict = {"coord": tuple(mesh.get_coordinate())}
+    for name, case in inputs["model"].items():
+        out[f"model/{name}"] = _serve_case(mesh, case)
+    for name, case in inputs["bytes"].items():
+        out[f"bytes/{name}"] = _serve_bytes(mesh, case)
+    out["refusals"] = _serve_refusals(mesh)
+    return out
+
+
 @contextlib.contextmanager
 def one_rank_world():
     """A gloo world of this one process (file rendezvous in a temporary
@@ -977,6 +1091,45 @@ def card_train_tp(dev, arch: str, tree: dict, batches: list,
             losses.append(m["loss"])
         whole = convert.lm_named_from_tree(convert.lm_params_to_numpy(model))
     return torch.stack(losses), whole
+
+
+def card_heads_exchange(dev, max_seq: int, dtype: str):
+    """The serving prefill's heads -> positions exchange
+    (``attention.prefill_cache``) of a head-sliced node on the (1, world)
+    ("data", "model") mesh of this world, from the same K/V in ``dtype``
+    (the rank's KV heads of a seeded whole K/V) on the card and on the
+    CPU: one all_to_all into a context-parallel cache, one all_gather
+    into a whole one (``max_seq`` that does not divide); returns each
+    bf16 cache's K and V as f32."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import sharding
+    from repro_torch.models.layers import Params
+
+    cfg = lm_config("qwen3-4b")
+    mesh = parallel.make_mesh((1, dist.get_world_size()), ("data", "model"),
+                              dev)
+    node = Params()
+    node.sliced, node.mesh = True, mesh
+    b, s = 2, 13
+    whole = torch.randn((2, b, s, cfg.num_kv_heads, cfg.head_dim),
+                        generator=torch.Generator().manual_seed(11)
+                        ).to(getattr(torch, dtype))
+    n = cfg.num_kv_heads // sharding.tp_extent(mesh)
+    j = sharding.tp_index(mesh)
+    k, v = whole[:, :, :, j * n:(j + 1) * n]
+    out = {}
+    with sharding.set_mesh(mesh):
+        for where in (dev, torch.device(CPU)):
+            sharding.reset_collective_stats()
+            rows, seq, shard = attn.kv_layout(b, max_seq)
+            cache = attn.init_kv_cache(cfg, rows, seq, cfg.num_kv_heads,
+                                       cfg.head_dim, where, shard)
+            attn.prefill_cache(node, cache, k.to(where), v.to(where))
+            out[where.type] = {"k": cache.k.float().cpu(),
+                               "v": cache.v.float().cpu(),
+                               "length": cache.length,
+                               "calls": sharding.collective_stats()}
+    return out
 
 
 def card_dryrun_sped(dev, edges: dict, v, variant: str):
