@@ -348,10 +348,18 @@ outside a checkout.  Phases, one JSON line each:
              |logit|, aux 1e-5 and 1e-3; bf16 6e-2; 24-layer bf16
              printed: a flip reaches every row); qwen3-4b at full width
              cut to 2 layers with f32 and bf16 weights held to one
-             process's run; every run's routing flips and the router's
+             process's run; mamba2-2.7b at full width (d_model 2560, 80
+             heads of 64, state 128) cut to 2 layers, its Mamba2 mixers
+             on the rank's 40 heads ([z | x] exchanged into
+             head-aligned blocks, the norm's statistic summed over
+             "model"), 4 x 512 then 8 steps with f32 and bf16 weights
+             held to one process's run (f32: prefill 1e-4, steps 5e-3;
+             bf16 6e-2), the bytes a rank requests for its parameters
+             and its SSM caches held to dryrun.reckon's decode cell
+             exactly; every run's routing flips and the router's
              margins at them, ms a prefill and a decode step by CUDA
-             events and the host clock, gloo calls by kind and their
-             host share
+             events and the host clock, gloo calls by kind with their
+             host ms, and their host share
 42. kernels - per kernel: launches on the main path (phases 3-41 but the
              checks, counts reset just before and read just after each;
              serve_http's from the child's /metrics, counted from its
@@ -704,6 +712,21 @@ LM_SERVE_TP_MARGINS_SHOWN = 16
 LM_SERVE_TP_QWEN_ARCH = "qwen3-4b"
 LM_SERVE_TP_QWEN_DEPTH = 2
 LM_SERVE_TP_QWEN_RUN = (4, 512, 8)
+# then LM_SERVE_TP_SSM_ARCH at full width cut to LM_SERVE_TP_SSM_DEPTH
+# layers, its Mamba2 mixers on the rank's heads, LM_SERVE_TP_SSM_RUN with
+# f32 and bf16 weights, held to one process's run at the same bars (no
+# routing: every row held); with bf16 weights the bytes a rank requests
+# for its parameters and for its SSM caches are held to dryrun.reckon's
+# decode cell, exactly
+LM_SERVE_TP_SSM_ARCH = "mamba2-2.7b"
+LM_SERVE_TP_SSM_DEPTH = 2
+LM_SERVE_TP_SSM_RUN = (4, 512, 8)
+# the one-process-held runs after granite's: (key, arch, depth, run)
+LM_SERVE_TP_ONE = (
+    ("qwen", LM_SERVE_TP_QWEN_ARCH, LM_SERVE_TP_QWEN_DEPTH,
+     LM_SERVE_TP_QWEN_RUN),
+    ("mamba2", LM_SERVE_TP_SSM_ARCH, LM_SERVE_TP_SSM_DEPTH,
+     LM_SERVE_TP_SSM_RUN))
 
 # the data-parallel train step (lm_train_dp): granite at full width cut to
 # LM_TRAIN_DP_DEPTH layers (the gradients and the re-assembled parameters
@@ -738,6 +761,8 @@ LM_TRAIN_DP_TIMEOUT_S = 600.0
 # LM_TRAIN_TP_TOL, parameters at REL_TOL of each leaf's largest
 # magnitude); then LM_TRAIN_TP_FULL_ARCH at full depth built only, its
 # requested bytes held to dryrun.reckon at LM_TRAIN_TP_FULL_SHAPE
+# (mamba2-2.7b is left out for the script's time, PERF.md section 4: its
+# head-sliced training is held on the CPU, tests/test_torch_train_tp.py)
 LM_TRAIN_TP_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m")
 LM_TRAIN_TP_DEPTH = 2
 LM_TRAIN_TP_MESH = (2, 2)
@@ -3554,14 +3579,15 @@ def _router_margins(record: list):
 
 
 def _lm_serve_tp_rank(dev, mesh, toks, fed: list, max_seq: int,
-                      qwen: dict) -> dict:
+                      ones: dict) -> dict:
     """The lm_serve_tp runs of one rank (see LM_SERVE_TP_RUNS' comment):
     each model drawn from LM_SEED in the serving layout of ``mesh``, the
-    runs of ``_lm_mesh_serve`` fed ``fed`` (qwen: ``qwen["fed"]``) with
-    their logits' digests (the logits kept on the (0, 0) rank, the
-    routings on the model ranks 0), the bytes the bf16 granite's
-    parameters requested, dryrun.reckon's decode cell and the kernel
-    launches of the runs."""
+    runs of ``_lm_mesh_serve`` fed ``fed`` (those of LM_SERVE_TP_ONE:
+    ``ones[key]``'s tokens) with their logits' digests (the logits kept
+    on the (0, 0) rank, the routings on the model ranks 0), the bytes
+    the bf16 granite's parameters requested, those the bf16 mamba2's
+    parameters and SSM caches requested, dryrun.reckon's decode cells
+    and the kernel launches of the runs."""
     import dataclasses
     import gc
     import hashlib
@@ -3571,7 +3597,7 @@ def _lm_serve_tp_rank(dev, mesh, toks, fed: list, max_seq: int,
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import dryrun
-    from repro_torch.models import Model, layers
+    from repro_torch.models import Model, layers, sharding
 
     def run(model, tokens, fed_tokens, seq):
         r = _lm_mesh_serve(model, tokens, [torch.from_numpy(f)
@@ -3594,10 +3620,18 @@ def _lm_serve_tp_rank(dev, mesh, toks, fed: list, max_seq: int,
         torch.cuda.synchronize()
         return model, _requested_bytes() - base
 
+    def cache_bytes(model, one):
+        """The bytes an empty serving state of ``one``'s run requests."""
+        with sharding.set_mesh(mesh):
+            torch.cuda.synchronize()
+            base = _requested_bytes()
+            state = model.init_caches(one["tokens"].shape[0], one["max_seq"])
+            torch.cuda.synchronize()
+            got = _requested_bytes() - base
+        del state
+        return got
+
     cfg = get_arch(LM_MESH_ARCH)
-    qcfg = dataclasses.replace(get_arch(LM_SERVE_TP_QWEN_ARCH),
-                               num_layers=LM_SERVE_TP_QWEN_DEPTH)
-    qtoks = torch.from_numpy(qwen["tokens"]).to(dev)
     out = {}
     reset_launch_counts()
     saved = layers.COMPUTE_DTYPE
@@ -3613,10 +3647,21 @@ def _lm_serve_tp_rank(dev, mesh, toks, fed: list, max_seq: int,
                 if dt == dtype:
                     out[name] = run(_lm_view(model, depth), toks, fed, max_seq)
             del model
-            model, _ = build(qcfg, layers.COMPUTE_DTYPE)
-            out["qwen" if dtype == "float32" else "qwen_bf16"] = run(
-                model, qtoks, qwen["fed"], qwen["max_seq"])
-            del model
+            for key, arch, depth, _ in LM_SERVE_TP_ONE:
+                one = ones[key]
+                ocfg = dataclasses.replace(get_arch(arch), num_layers=depth)
+                model, requested = build(ocfg, layers.COMPUTE_DTYPE)
+                if key == "mamba2" and dtype == "bfloat16":
+                    out["ssm_bytes"] = {
+                        "params_bytes_requested": requested,
+                        "cache_bytes_requested": cache_bytes(model, one),
+                        "reckoned": dryrun.reckon(
+                            ocfg, "decode", one["tokens"].shape[0],
+                            one["max_seq"], mesh)}
+                out[key if dtype == "float32" else f"{key}_bf16"] = run(
+                    model, torch.from_numpy(one["tokens"]).to(dev),
+                    one["fed"], one["max_seq"])
+                del model
     finally:
         layers.COMPUTE_DTYPE = saved
     out["reckoned"] = dryrun.reckon(cfg, "decode", toks.shape[0], max_seq, mesh)
@@ -3630,9 +3675,10 @@ def _lm_serve_tp_refs(model, toks, fed: list, max_seq: int, dev):
     """lm_serve_tp's one-process references (see LM_SERVE_TP_RUNS'
     comment), from lm_mesh's f32 ``model`` (cast to bf16 at rest on the
     way: the caller's model is spent): each granite run's data halves
-    fed their halves of ``fed``, then qwen's run with f32 weights fed its
-    own argmax and with the same weights in bf16 fed the same tokens.
-    Returns (references by run name, qwen's inputs for the ranks)."""
+    fed their halves of ``fed``, then each LM_SERVE_TP_ONE run with f32
+    weights fed its own argmax and with the same weights in bf16 fed the
+    same tokens.  Returns (references by run name, the LM_SERVE_TP_ONE
+    runs' inputs for the ranks by key)."""
     import dataclasses
 
     import numpy as np
@@ -3652,31 +3698,34 @@ def _lm_serve_tp_refs(model, toks, fed: list, max_seq: int, dev):
                     _lm_view(model, depth), toks[i * half:(i + 1) * half],
                     [torch.from_numpy(f[i * half:(i + 1) * half]) for f in fed],
                     max_seq, margins=True) for i in range(LM_MESH_SHAPE[0])]
-    qb, qs, qg = LM_SERVE_TP_QWEN_RUN
-    qcfg = dataclasses.replace(get_arch(LM_SERVE_TP_QWEN_ARCH),
-                               num_layers=LM_SERVE_TP_QWEN_DEPTH)
-    qtokens = np.random.default_rng(LM_SEED).integers(
-        0, qcfg.vocab_size, (qb, qs), dtype=np.int32)
-    qtoks = torch.from_numpy(qtokens).to(dev)
-    layers.COMPUTE_DTYPE = torch.float32
-    qmodel = Model(qcfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED))
-    refs["qwen"] = [_lm_mesh_serve(qmodel, qtoks, [None] * qg, qs + qg)]
-    qfed = [refs["qwen"][0]["logits"][t].argmax(-1, keepdim=True).int().numpy()
-            for t in range(qg)]
-    layers.COMPUTE_DTYPE = torch.bfloat16
-    qmodel.to(torch.bfloat16)
-    refs["qwen_bf16"] = [_lm_mesh_serve(qmodel, qtoks, [torch.from_numpy(f)
-                                                        for f in qfed], qs + qg)]
-    return refs, {"tokens": qtokens, "max_seq": qs + qg, "fed": qfed}
+    ones = {}
+    for key, arch, depth, (ob, os_, og) in LM_SERVE_TP_ONE:
+        ocfg = dataclasses.replace(get_arch(arch), num_layers=depth)
+        otokens = np.random.default_rng(LM_SEED).integers(
+            0, ocfg.vocab_size, (ob, os_), dtype=np.int32)
+        otoks = torch.from_numpy(otokens).to(dev)
+        layers.COMPUTE_DTYPE = torch.float32
+        omodel = Model(ocfg, dev,
+                       torch.Generator(device=dev).manual_seed(LM_SEED))
+        refs[key] = [_lm_mesh_serve(omodel, otoks, [None] * og, os_ + og)]
+        ofed = [refs[key][0]["logits"][t].argmax(-1, keepdim=True).int()
+                .numpy() for t in range(og)]
+        layers.COMPUTE_DTYPE = torch.bfloat16
+        omodel.to(torch.bfloat16)
+        refs[f"{key}_bf16"] = [_lm_mesh_serve(
+            omodel, otoks, [torch.from_numpy(f) for f in ofed], os_ + og)]
+        del omodel
+        ones[key] = {"tokens": otokens, "max_seq": os_ + og, "fed": ofed}
+    return refs, ones
 
 
-def lm_mesh_rank(dev, tokens, fed: dict, max_seq: int, qwen: dict) -> dict:
+def lm_mesh_rank(dev, tokens, fed: dict, max_seq: int, ones: dict) -> dict:
     """One rank of phase lm_mesh: granite drawn from LM_SEED on the card,
     its experts sharded over "model" (model.shard_model), then lm_moe's
     prefill and decode steps under the (2, 2) mesh in f32 and bf16
     compute, fed ``fed[dtype]``'s tokens; its memory and times.  Then
     phase lm_serve_tp's runs (``_lm_serve_tp_rank``, fed ``fed`` and
-    ``qwen``'s tokens) under ``out["serve_tp"]``."""
+    ``ones``' tokens) under ``out["serve_tp"]``."""
     import gc
     import hashlib
 
@@ -3727,7 +3776,7 @@ def lm_mesh_rank(dev, tokens, fed: dict, max_seq: int, qwen: dict) -> dict:
     torch.cuda.empty_cache()
     dist.barrier()
     out["serve_tp"] = _lm_serve_tp_rank(dev, mesh, toks, fed["f32"], max_seq,
-                                        qwen)
+                                        ones)
     return out
 
 
@@ -3783,7 +3832,7 @@ def lm_mesh_phase(dev, gpu: str) -> tuple[dict, dict]:
                            allocated_caches_bytes=whole["allocated_after_prefill"]
                            - base - one["allocated_params_bytes"])
                 del whole
-        tp_refs, qwen = _lm_serve_tp_refs(model, toks, fed["f32"], max_seq,
+        tp_refs, ones = _lm_serve_tp_refs(model, toks, fed["f32"], max_seq,
                                           dev)
         del model
     finally:
@@ -3793,7 +3842,7 @@ def lm_mesh_phase(dev, gpu: str) -> tuple[dict, dict]:
 
     results, wall = host_s(lambda: parallel.run_ranks(
         LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1], lm_mesh_rank, tokens, fed,
-        max_seq, qwen, timeout=LM_MESH_TIMEOUT_S))
+        max_seq, ones, timeout=LM_MESH_TIMEOUT_S))
     outs = [r.value for r in results]
     failed = []
     rows = {}
@@ -3902,6 +3951,9 @@ def _tp_ranks_row(run: dict) -> dict:
            "decode_host_ms_per_step": _warm_median(run["host_ms"]),
            "calls_per_step": {k: _warm_median([c[k] for c in coll])
                               for k in _TP_CALLS},
+           "gloo_host_ms_per_step_by_kind": {
+               k: _warm_median([c[f"{k}_seconds"] * 1e3 for c in coll])
+               for k in _TP_CALLS},
            "gloo_host_ms_per_step": _warm_median(
                [c["seconds"] * 1e3 for c in coll]),
            "cache_bytes": run["cache_bytes"]}
@@ -4009,16 +4061,16 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
     from repro_torch.configs import get_arch
 
     cfg = get_arch(LM_MESH_ARCH)
-    qcfg = dataclasses.replace(get_arch(LM_SERVE_TP_QWEN_ARCH),
-                               num_layers=LM_SERVE_TP_QWEN_DEPTH)
     b, s, g = LM_MESH_RUN
     failed = []
     first = outs[coords.index([0, 0])]
     runs = [(name, dt, dataclasses.replace(cfg, num_layers=depth or
                                            cfg.num_layers), s)
             for name, dt, depth in LM_SERVE_TP_RUNS]
-    runs += [("qwen", "float32", qcfg, LM_SERVE_TP_QWEN_RUN[1]),
-             ("qwen_bf16", "bfloat16", qcfg, LM_SERVE_TP_QWEN_RUN[1])]
+    for key, arch, depth, run in LM_SERVE_TP_ONE:
+        ocfg = dataclasses.replace(get_arch(arch), num_layers=depth)
+        runs += [(key, "float32", ocfg, run[1]),
+                 (f"{key}_bf16", "bfloat16", ocfg, run[1])]
     rows, counts_by_depth = {}, {}
     for name, dtype, c, prompt in runs:
         want = torch.stack([torch.cat([h["logits"][t] for h in refs[name]])
@@ -4111,6 +4163,9 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
             counts_by_depth[c.num_layers] = [
                 steps[0][k] for k in _TP_CALLS] + [
                 outs[0][name]["collectives"][0]["all_to_all"]]
+        if c.family == "ssm" and not steps[0]["all_to_all"]:
+            # the mixer computes on its heads: a [z | x] exchange a step
+            failed.append(f"{name}: a decode step made no all_to_all")
     depths = sorted(counts_by_depth)
     lo, mid = depths[0], depths[1]
     for d in depths:
@@ -4136,6 +4191,27 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
         if o["bf16"]["cache_bytes"] != kv_want:
             failed.append(f"rank {coord}: {o['bf16']['cache_bytes']} cache "
                           f"bytes, reckoned {kv_want}")
+    # mamba2's bf16 serving layout: the bytes each rank requests for its
+    # parameters and its SSM caches (the rank's rows and heads), as reckoned
+    ssm_bytes = []
+    for coord, o in zip(coords, outs):
+        sb = o["ssm_bytes"]
+        reck = sb["reckoned"]
+        cache_want = reck["cache_bytes"] - 4 * LM_SERVE_TP_SSM_DEPTH
+        ssm_bytes.append({"coord": coord, **{k: v for k, v in sb.items()
+                                             if k != "reckoned"},
+                          "state_bytes": o["mamba2_bf16"]["cache_bytes"],
+                          "reckoned_params_bytes": reck["params_bytes"],
+                          "reckoned_cache_bytes": cache_want})
+        if sb["params_bytes_requested"] != reck["params_bytes"]:
+            failed.append(f"mamba2 rank {coord}: "
+                          f"{sb['params_bytes_requested']} bytes of "
+                          f"parameters requested, reckoned "
+                          f"{reck['params_bytes']}")
+        for key in ("cache_bytes_requested", "state_bytes"):
+            if ssm_bytes[-1][key] != cache_want:
+                failed.append(f"mamba2 rank {coord}: {key} "
+                              f"{ssm_bytes[-1][key]}, reckoned {cache_want}")
     counts = {k: sum(o["launches"][k] for o in outs)
               for k in first["launches"]}
     if any(counts.values()):
@@ -4144,6 +4220,7 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
           "layout": "param_specs(fsdp=False)", "backend": "gloo",
           "exchange": "all_to_all_single", "run": LM_MESH_RUN,
           "max_seq": s + g, "qwen_run": LM_SERVE_TP_QWEN_RUN,
+          "mamba2_run": LM_SERVE_TP_SSM_RUN, "mamba2_bytes": ssm_bytes,
           "bars": {"prefill": LM_MESH_TOL, "decode": LM_DECODE_F32_TOL,
                    "aux": LM_MESH_AUX_TOL,
                    "decode_aux": LM_SERVE_TP_DECODE_AUX_TOL,

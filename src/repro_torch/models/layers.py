@@ -88,10 +88,15 @@ def init_rmsnorm(d: int, device) -> Params:
     return Params(scale=torch.ones(d, device=device))
 
 
-def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """f32 statistics and scale, cast back to x's dtype after the scale."""
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5,
+            mean=None) -> torch.Tensor:
+    """f32 statistics and scale, cast back to x's dtype after the scale.
+    ``mean`` maps the f32 squares to their mean over the normalised
+    channels (keepdim); by default those of the last dim."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    sq = xf * xf
+    var = (torch.mean(sq, dim=-1, keepdim=True) if mean is None
+           else mean(sq))
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 

@@ -25,10 +25,11 @@ batch does not divide) and return the global logits, gathered over the
 data group; ``train_loss`` takes the global batch and returns the loss
 of the rank's rows.  Each GQA cache holds the rank's rows and its slice
 of the sequence over "model", every KV head (context-parallel decode);
-MLA caches and SSM state hold the rank's rows, whole along "model".  A
-whole model serves in the experts-only form (``shard_model(model,
-mesh)``: the MoE runs the rank's experts, every other projection runs
-whole on every rank, whisper's cross K/V holds every head).
+MLA caches hold the rank's rows, whole along "model", and so do the SSM
+caches of a whole mixer.  A whole model serves in the experts-only form
+(``shard_model(model, mesh)``: the MoE runs the rank's experts, every
+other projection, the Mamba2 mixer included, runs whole on every rank,
+whisper's cross K/V holds every head).
 
 A model in a SLICED LAYOUT holds only its slice of every parameter under
 the JAX package's ``param_specs`` (``launch.shardings.train_layout``).
@@ -43,11 +44,15 @@ gathers what it cannot compute on when it reads a parameter
 (``sharding.read_param``: the FSDP dim over the data axes always, the
 "model" dim in the gather form) and computes on the rest Megatron style:
 attention by heads where they divide by the model extent, the MLP's
-hidden dim, the MoE's experts, the vocabulary of the tables
-(``computes_sliced``).  Served, head-sliced attention exchanges its K/V
-into the context-parallel cache (``attention.prefill_cache``,
-``attention.gqa_decode``), whisper's cross K/V holds the rank's heads,
-and the vocabulary-sliced logits are gathered over the model group.
+hidden dim, the MoE's experts, the vocabulary of the tables, the Mamba2
+mixer by heads where they divide (``computes_sliced``; ``models.ssm``
+exchanges its [z | x] column blocks into head-aligned blocks).  Served,
+head-sliced attention exchanges its K/V into the context-parallel cache
+(``attention.prefill_cache``, ``attention.gqa_decode``), whisper's cross
+K/V holds the rank's heads, a head-sliced Mamba2 layer's cache holds
+the state of the rank's heads and the x window of their channels (the
+B/C window whole), as ``cache_specs`` splits them, and the
+vocabulary-sliced logits are gathered over the model group.
 ``prefill`` and ``decode_step`` refuse a layout with FSDP slices: the
 JAX package never serves with FSDP.
 
@@ -144,16 +149,17 @@ class _Rows(NamedTuple):
 def computes_sliced(cfg: ArchConfig, name: str, tp: int) -> bool:
     """Whether the layer of parameter ``name`` (the port's name) computes
     on its "model" slice at a model extent ``tp`` (else a "model" split
-    of the parameter is gathered on use: the gather form).  Gathered: the
-    Mamba2 mixer, whose [z | x] projection splits between z and x, not
-    between heads, and whose gated norm runs over all of d_inner; and
-    attention whose heads (GQA: query and KV heads) do not divide by
-    ``tp``.  The MoE computes on its slices where the experts and the
-    shared hidden dim divide; the MLP's hidden dim and the tables'
-    vocabulary always do."""
+    of the parameter is gathered on use: the gather form).  The Mamba2
+    mixer computes on the rank's heads where its heads divide by ``tp``
+    (its [z | x] column blocks exchanged into head-aligned blocks, its
+    gated norm's statistic summed over the model group: ``models.ssm``);
+    attention where its heads (GQA: query and KV heads) divide; the MoE
+    where the experts and the shared hidden dim divide; the MLP's hidden
+    dim and the tables' vocabulary always.  Else gathered: the config
+    alone decides."""
     path = name.split(".")
     if "ssm" in path:
-        return False
+        return ssm_mod._dims(cfg)[1] % tp == 0
     if "moe" in path:
         return moe_mod.expert_sharded(cfg, tp)
     heads = cfg.num_heads % tp == 0
@@ -512,7 +518,8 @@ class Model(nn.Module):
     def init_caches(self, batch: int, max_seq: int) -> ServeState:
         """Empty caches for ``batch`` requests of context ``max_seq`` (an
         SSM cache holds the same bytes at any context).  Under a mesh,
-        this rank's shards of them."""
+        this rank's shards of them (a head-sliced Mamba2 layer's: its
+        heads)."""
         cfg, dev = self.cfg, self.device
         # every cache holds the rank's rows; a KV cache its positions too
         batch, seq, shard = attn.kv_layout(batch, max_seq)
@@ -522,16 +529,17 @@ class Model(nn.Module):
                                        cfg.head_dim, dev, shard)
                     for _ in range(n)]
 
-        def ssm_caches(n):
-            return [ssm_mod.init_ssm_cache(cfg, batch, dev) for _ in range(n)]
+        def ssm_caches(blocks):
+            # each of the heads its mixer computes on
+            return [ssm_mod.init_ssm_cache(cfg, batch, dev, blk.ssm)
+                    for blk in blocks]
 
         if cfg.family == "hybrid":
-            n_groups, per_group, trailing = _hybrid_layout(cfg)
-            return ServeState(caches=ssm_caches(n_groups * per_group
-                                                + trailing),
+            n_groups, _, _ = _hybrid_layout(cfg)
+            return ServeState(caches=ssm_caches(self.ssm_layers),
                               attn_caches=kv_caches(n_groups))
         if cfg.family == "ssm":
-            return ServeState(caches=ssm_caches(cfg.num_layers))
+            return ServeState(caches=ssm_caches(self.layers))
         if cfg.use_mla:
             return ServeState(caches=[
                 attn.init_mla_cache(cfg, batch, max_seq, dev)

@@ -37,9 +37,13 @@ model ranks ran the same rows on the same input, so it is only narrowed
 to the rank's slice.  A layer that computes on its "model" slices
 (Megatron style) enters that region with :func:`model_enter` (identity
 forward, a SUM over the model group backward) and leaves it with
-:func:`model_sum` (a SUM forward, identity backward).  Served, the
-head-sliced attention trades heads for cache positions with
-:func:`all_to_all`.
+:func:`model_sum` (a SUM forward, identity backward).  A statistic that
+every model rank needs whole inside the region (the Mamba2 mixer's norm
+over all of d_inner) is :func:`model_psum` (a SUM both ways).  Served,
+the head-sliced attention trades heads for cache positions with
+:func:`all_to_all`; the Mamba2 mixer trades its [z | x] column blocks
+for head-aligned blocks with :func:`exchange` (the inverse exchange
+backward).
 
 The JAX package also has ``maybe_shard``, a layout hint to its compiler
 with no numeric effect; here each rank already holds only its slice, so
@@ -64,9 +68,10 @@ LOGICAL = {
 
 _MESHES: list = []
 _ROWS: list = []
-# collectives of the sharded LM path: calls and their host seconds
-_STATS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-          "all_to_all": 0, "seconds": 0.0}
+# collectives of the sharded LM path: calls and their host seconds, in all
+# and by kind
+_KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+_STATS: dict = {}
 # the data-parallel step's gradients go over the data group in flat f32
 # buckets of at most this many bytes (a larger tensor is one bucket)
 BUCKET_BYTES = 256 * 2 ** 20
@@ -217,8 +222,7 @@ def gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(n)]
     t0 = time.perf_counter()
     dist.all_gather(parts, x.contiguous(), group=data_group(mesh))
-    _STATS["all_gather"] += 1
-    _STATS["seconds"] += time.perf_counter() - t0
+    _count("all_gather", t0)
     return torch.cat(parts, dim=0)
 
 
@@ -230,8 +234,7 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     x = x.contiguous()
     t0 = time.perf_counter()
     dist.all_reduce(x, op=op, group=group)
-    _STATS["all_reduce"] += 1
-    _STATS["seconds"] += time.perf_counter() - t0
+    _count("all_reduce", t0)
     return x
 
 
@@ -298,34 +301,70 @@ def all_gather_flat(x: torch.Tensor, group) -> list:
     parts = [torch.empty_like(x) for _ in range(n)]
     t0 = time.perf_counter()
     dist.all_gather(parts, x.contiguous(), group=group)
-    _STATS["all_gather"] += 1
-    _STATS["seconds"] += time.perf_counter() - t0
+    _count("all_gather", t0)
     return parts
 
 
-def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Block r of ``x`` (dim 0, one block a rank of ``group``) sent to
-    group rank r; returns the blocks received, block r from group rank
-    r: one ``all_to_all_single``."""
+def all_to_all(x: torch.Tensor, group, send: list | None = None,
+               recv: list | None = None) -> torch.Tensor:
+    """Block r of ``x`` (dim 0, one block a rank of ``group`` in rank
+    order) sent to group rank r; returns the blocks received, block r
+    from group rank r: one ``all_to_all_single``.  The blocks are equal
+    by default; ``send[r]`` / ``recv[r]`` give the rows of dim 0 sent
+    to / received from group rank r (0 for none)."""
     x = x.contiguous()
-    out = torch.empty_like(x)
+    rows = x.shape[0] if recv is None else sum(recv)
+    out = x.new_empty((rows,) + tuple(x.shape[1:]))
     t0 = time.perf_counter()
-    dist.all_to_all_single(out, x, group=group)
-    _STATS["all_to_all"] += 1
-    _STATS["seconds"] += time.perf_counter() - t0
+    dist.all_to_all_single(out, x, output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    _count("all_to_all", t0)
     return out
+
+
+class _Exchange(torch.autograd.Function):
+    """``all_to_all`` with ``send`` / ``recv`` rows; backward, the
+    inverse exchange of the gradients (``recv`` rows sent back to each
+    rank, ``send`` rows received)."""
+
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        return all_to_all(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad, ctx.group, ctx.recv, ctx.send), None, None, None
+
+
+def exchange(x: torch.Tensor, send: list, recv: list, group) -> torch.Tensor:
+    """``all_to_all(x, group, send, recv)``, autograd-aware: each row's
+    gradient goes back to the rank that sent it."""
+    return _Exchange.apply(x, list(send), list(recv), group)
+
+
+def _count(kind: str, t0: float) -> None:
+    """One collective of ``kind`` that started at ``t0`` (host clock)."""
+    sec = time.perf_counter() - t0
+    _STATS[kind] += 1
+    _STATS["seconds"] += sec
+    _STATS[f"{kind}_seconds"] += sec
 
 
 def collective_stats() -> dict:
     """All_reduce, all_gather, reduce_scatter and all_to_all calls of the
     sharded LM path since the last reset, and their host seconds (each
-    call timed on the host clock around the blocking collective)."""
+    call timed on the host clock around the blocking collective): in all
+    (``seconds``) and by kind (``<kind>_seconds``)."""
     return dict(_STATS)
 
 
 def reset_collective_stats() -> None:
-    _STATS.update(all_reduce=0, all_gather=0, reduce_scatter=0,
-                  all_to_all=0, seconds=0.0)
+    _STATS.update({k: 0 for k in _KINDS}, seconds=0.0,
+                  **{f"{k}_seconds": 0.0 for k in _KINDS})
+
+
+reset_collective_stats()
 
 
 # ---------------------------------------------------------------------------
@@ -359,8 +398,7 @@ def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(n)]
     t0 = time.perf_counter()
     dist.all_gather(parts, x, group=group)
-    _STATS["all_gather"] += 1
-    _STATS["seconds"] += time.perf_counter() - t0
+    _count("all_gather", t0)
     return torch.cat(parts, dim=dim)
 
 
@@ -374,8 +412,7 @@ def _reduce_scatter_mean(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = whole.new_empty((whole.shape[0] // n,) + tuple(whole.shape[1:]))
     t0 = time.perf_counter()
     dist.reduce_scatter_tensor(out, whole, op=dist.ReduceOp.SUM, group=group)
-    _STATS["reduce_scatter"] += 1
-    _STATS["seconds"] += time.perf_counter() - t0
+    _count("reduce_scatter", t0)
     return out.div_(n).movedim(0, dim)
 
 
@@ -464,6 +501,18 @@ def model_enter(x: torch.Tensor, mesh) -> torch.Tensor:
     if dist.get_world_size(group) == 1:
         return x
     return _Enter.apply(x, group)
+
+
+def model_psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The model group's partial ``x`` summed, where each model rank then
+    uses the sum for its own slice of a layer (the Mamba2 mixer's norm
+    statistic over its heads): the SUM forward and, since each rank's
+    upstream gradient is then one part of the whole, the SUM backward
+    too."""
+    group = model_group(mesh)
+    if dist.get_world_size(group) == 1:
+        return x
+    return _SumOverGroup.apply(x, group)
 
 
 def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -1297,6 +1297,30 @@ def test_serving_heads_exchange_on_the_card_is_the_cpu_result(dev, max_seq,
             assert np.array_equal(np.asarray(card[f]), np.asarray(cpu[f])), f
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_heads_exchange_on_the_card_is_the_cpu_result(dev, dtype):
+    """The head-sliced Mamba2 mixer's collectives on 2 gloo ranks of this
+    card: the [z | x] exchange of each rank's column block into its heads
+    of z and x, its inverse exchange backward, and the norm's statistic
+    summed over "model" with its SUM backward give on CUDA tensors
+    exactly the bits the same collectives give on CPU tensors."""
+    import torch_dist_ranks as ranks
+    from repro_torch import parallel
+
+    results = parallel.run_ranks(2, ranks.card_ssm_exchange, dtype,
+                                 device=dev, timeout=300.0)
+    for j, r in enumerate(results):
+        card, cpu = r.value["cuda"], r.value["cpu"]
+        for got in (card, cpu):
+            assert got["calls"]["all_to_all"] == 2
+            assert got["calls"]["all_reduce"] == 2
+        for f in ("z", "x", "dzx", "total", "dss"):
+            assert np.array_equal(np.asarray(card[f]), np.asarray(cpu[f])), (j, f)
+    # rank 1's exchange gave it x's second block, from rank 1's columns
+    assert not np.array_equal(np.asarray(results[0].value["cpu"]["x"]),
+                              np.asarray(results[1].value["cpu"]["x"]))
+
+
 def test_data_parallel_step_on_two_ranks_matches_one_process(dev):
     """granite's smoke model in f32 compute on a (2, 1) ("data", "model")
     mesh of 2 gloo ranks on this card: 2 data-parallel steps with ZeRO-1

@@ -18,13 +18,18 @@ f32 weights and compute in both packages:
     bits);
   * the families the JAX package shards only through its compiler
     (mamba2, zamba2, whisper, deepseek's MLA) also against the port's
-    own no-mesh run on the same halves, 1e-4 of the largest logit.
-Each fall-back takes its branch: KV heads that do not divide by the
-model extent (the gather form), a vocabulary that does not (the whole
-table), a ``max_seq`` that does not (the whole cache), an int8 cache, a
-batch that does not divide by the data extent.  The bf16 serving layout
-is built on the meta device in each rank: its parameter bytes and GQA
-cache bytes are ``dryrun.reckon``'s decode cell's.
+    own no-mesh run on the same halves, 1e-4 of the largest logit (the
+    head-sliced mixers' free-running steps 1e-3; every step also 1e-4
+    when decoded from the no-mesh run's own caches).
+mamba2 and zamba2 compute their Mamba2 mixers on the rank's heads (the
+[z | x] blocks exchanged into head-aligned blocks, the norm's statistic
+summed over "model").  Each fall-back takes its branch: KV heads that do
+not divide by the model extent (the gather form), SSM heads that do not
+(the mixer's gather form), a vocabulary that does not (the whole table),
+a ``max_seq`` that does not (the whole cache), an int8 cache, a batch
+that does not divide by the data extent.  The bf16 serving layout is
+built on the meta device in each rank: its parameter bytes, GQA cache
+bytes and SSM cache bytes are ``dryrun.reckon``'s decode cell's.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -42,12 +47,18 @@ from repro.models import model as jmodel
 from repro_torch import convert, parallel
 from repro_torch.models import layers as tlayers
 from repro_torch.models.frontends import frontend_spec
+from repro_torch.models.model import _hybrid_layout
 
 CPU = "cpu"
 PREFILL_TOL, DECODE_TOL = 1e-4, 5e-3
 PORT_TOL = 1e-4
+# the head-sliced mixers' free-running decode against the port without a
+# mesh: about twice the worst of three prompt draws (4.9e-4 of the
+# largest logit; the steps from the same caches read <= 2.8e-5)
+SLICED_SSM_FREE_TOL = 1e-3
 B, PROMPT, STEPS = 4, 12, 8
 QWEN = "qwen3-4b"
+SSM_3_HEADS = {"ssm_expand": 3, "ssm_headdim": 128}
 MODELS = {  # (arch, overrides, batch, max_seq, steps)
     "qwen3": (QWEN, None, B, PROMPT + STEPS, STEPS),
     "llava": ("llava-next-mistral-7b", None, B, PROMPT + STEPS, STEPS),
@@ -58,6 +69,8 @@ MODELS = {  # (arch, overrides, batch, max_seq, steps)
     "whisper": ("whisper-small", None, B, PROMPT + STEPS, STEPS),
     # the fall-back branches
     "kv_heads_not_dividing": (QWEN, {"num_kv_heads": 1}, B, PROMPT + 4, 4),
+    # 3 SSM heads of 128 channels: the mixer gathers its four split weights
+    "ssm_heads_not_dividing": ("mamba2-2.7b", SSM_3_HEADS, B, PROMPT + 4, 4),
     "vocab_not_dividing": (QWEN, {"vocab_size": 511}, B, PROMPT + 4, 4),
     "seq_not_dividing": (QWEN, None, B, PROMPT + 3, 3),
     "int8": (QWEN, {"kv_cache_dtype": "int8"}, B, PROMPT + 4, 4),
@@ -65,11 +78,14 @@ MODELS = {  # (arch, overrides, batch, max_seq, steps)
 }
 # held also to the port's no-mesh run: the JAX package shards these only
 # through its compiler
-PORT_HELD = ("deepseek", "zamba2", "mamba2", "whisper")
+PORT_HELD = ("deepseek", "zamba2", "mamba2", "whisper",
+             "ssm_heads_not_dividing")
 # the GQA caches follow the JAX package's cache_specs: every cache bytes
 # reckoned (the caches' int32 lengths are Python ints in the port)
 CACHE_SPECS_HELD = ("qwen3", "llava", "granite", "whisper",
                     "seq_not_dividing", "int8", "batch_not_dividing")
+# and the head-sliced SSM caches (zamba2: with its GQA caches)
+SSM_CACHE_HELD = ("mamba2", "zamba2")
 
 
 def _jcfg(arch, overrides=None):
@@ -129,20 +145,37 @@ def _jax_serve(jc, tree, batch, max_seq, steps):
 
 
 def _port_serve(tc, tree, batch, max_seq, fed):
-    """The port without a mesh on each dispatch group, fed ``fed``."""
+    """The port without a mesh on each dispatch group, fed ``fed``: the
+    logits of each call, and the caches each decode step starts from
+    (per step, per group: ``ranks.serve_cache_tensors``).  On one
+    thread, as each rank runs: a product's rounding can change with the
+    thread count, and the bf16 conv windows carry such a last bit into
+    the following steps (the 3-head mixer's 4th step moves by 4.7e-4 of
+    the largest logit between 1 and 8 threads)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _port_serve_groups(tc, tree, batch, max_seq, fed)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _port_serve_groups(tc, tree, batch, max_seq, fed):
     model = convert.lm_params_from_numpy(tc, tree, device=CPU)
     b = batch["tokens"].shape[0]
-    outs = []
+    outs, caches = [], [[] for _ in fed]
     for i, half in enumerate(_halves(batch, b)):
         rows = slice(i * (b // 2), (i + 1) * (b // 2)) if b % 2 == 0 else slice(None)
         logits, state = model.prefill({k: torch.from_numpy(v)
                                        for k, v in half.items()}, max_seq)
         seq = [logits.numpy()]
-        for tok in fed:
+        for t, tok in enumerate(fed):
+            caches[t].append([{k: v.clone() for k, v in c.items()}
+                              for c in ranks.serve_cache_tensors(state)])
             logits, state = model.decode_step(state, torch.from_numpy(tok[rows]))
             seq.append(logits.numpy())
         outs.append(np.stack(seq))
-    return np.concatenate(outs, axis=1)
+    return np.concatenate(outs, axis=1), caches
 
 
 def _case(name):
@@ -153,10 +186,11 @@ def _case(name):
     tc = ranks.lm_config(arch, overrides)
     batch = _batch(tc, b, 7)
     want, fed = _jax_serve(jc, tree, batch, max_seq, steps)
-    port = (_port_serve(tc, tree, batch, max_seq, fed)
-            if name in PORT_HELD else None)
+    port, forced = (_port_serve(tc, tree, batch, max_seq, fed)
+                    if name in PORT_HELD else (None, None))
     return ({"arch": arch, "overrides": overrides, "tree": tree,
-             "batch": batch, "fed": fed, "max_seq": max_seq},
+             "batch": batch, "fed": fed, "max_seq": max_seq,
+             "forced": forced},
             want, port)
 
 
@@ -203,10 +237,25 @@ def test_serving_layout_matches_reference(world, name):
 
 @pytest.mark.parametrize("name", PORT_HELD)
 def test_serving_layout_matches_port_without_mesh(world, name):
+    """The prefill and the free-running decode at 1e-4 of the largest
+    logit, and each decode step also decoded from the caches the port's
+    run without a mesh decodes it from (each rank loads its shard of
+    them) at 1e-4.  The head-sliced SSM cases hold their free-running
+    steps at ``SLICED_SSM_FREE_TOL``: the model ranks' partial sums
+    (w_out's, the norm's) round in another order than one process's
+    whole products, and the bf16 conv windows, as the JAX package keeps
+    them, turn such a last-bit difference into a whole bf16 step now and
+    then, which the following steps carry; the steps from the same
+    caches hold at 1e-4."""
     want = world.port[name]
+    scale = max(1.0, np.abs(want).max())
+    free = SLICED_SSM_FREE_TOL if name in SSM_CACHE_HELD else PORT_TOL
     for rank, out in enumerate(world.outs):
-        got = out[f"model/{name}"]["logits"]
-        assert _maxabs(got, want) <= PORT_TOL * max(1.0, np.abs(want).max()), rank
+        got = out[f"model/{name}"]
+        assert _maxabs(got["logits"][0], want[0]) <= PORT_TOL * scale, rank
+        assert _maxabs(got["logits"][1:], want[1:]) <= free * scale, rank
+        assert got["forced_logits"].shape == want[1:].shape
+        assert _maxabs(got["forced_logits"], want[1:]) <= PORT_TOL * scale, rank
 
 
 @pytest.mark.parametrize("name", list(MODELS))
@@ -216,17 +265,30 @@ def test_model_group_logits_bitwise_equal(world, name):
         assert np.array_equal(by_coord[(i, 0)], by_coord[(i, 1)])
 
 
+def _layer_counts(cfg) -> tuple[int, int]:
+    """(attention blocks, SSM layers) a token runs through: the hybrid's
+    shared block once a group."""
+    if cfg.family == "hybrid":
+        n_groups, per_group, trailing = _hybrid_layout(cfg)
+        return n_groups, n_groups * per_group + trailing
+    if cfg.family == "ssm":
+        return 0, cfg.num_layers
+    return cfg.num_layers, 0
+
+
 def _step_collectives(name):
-    """(all_reduce, all_gather) of a decode step of case ``name`` on the
-    (2, 2) mesh, from its config: the embedding's model sum (a vocabulary
-    that divides), per GQA layer one gather of q, k and v, the three
-    all_reduces of the context-parallel softmax and wo's sum (the whole
-    cache: one gather of k and v and wo's sum; the gather form: its four
-    weights gathered, then the context-parallel softmax), per MLP one
-    sum, per MoE its combine and aux's mean
-    over the data rows, per MLA layer wo's sum; then the logits gathered
-    over "model" (a vocabulary that divides) and over "data" (a batch
-    that divides)."""
+    """(all_reduce, all_gather, all_to_all) of a decode step of case
+    ``name`` on the (2, 2) mesh, from its config: the embedding's model
+    sum (a vocabulary that divides), per GQA layer one gather of q, k and
+    v, the three all_reduces of the context-parallel softmax and wo's sum
+    (the whole cache: one gather of k and v and wo's sum; the gather
+    form: its four weights gathered, then the context-parallel softmax),
+    per MLP one sum, per MoE its combine and aux's mean over the data
+    rows, per MLA layer wo's sum; per SSM layer the [z | x] exchange, the
+    norm's sum and w_out's sum (the gather form: its four split weights
+    gathered, and no mixer weight gathered otherwise); then the logits
+    gathered over "model" (a vocabulary that divides) and over "data" (a
+    batch that divides)."""
     arch, overrides, b, max_seq, _ = MODELS[name]
     cfg = ranks.lm_config(arch, overrides)
     vocab = cfg.vocab_size % 2 == 0
@@ -240,33 +302,42 @@ def _step_collectives(name):
     per = (attn[0] + ffn[0], attn[1] + ffn[1])
     if cfg.use_mla:
         per = (0, 1 + ffn[1])
-    layers = cfg.num_layers
-    return (int(vocab) + per[1] * layers,
-            per[0] * layers + int(vocab) + int(rows))
+    ssm_heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    ssm = (0, 2, 1) if ssm_heads % 2 == 0 else (4, 0, 0)  # (ag, ar, a2a)
+    n_attn, n_ssm = _layer_counts(cfg)
+    return (int(vocab) + per[1] * n_attn + ssm[1] * n_ssm,
+            per[0] * n_attn + ssm[0] * n_ssm + int(vocab) + int(rows),
+            ssm[2] * n_ssm)
 
 
 @pytest.mark.parametrize("name", [n for n, (a, *_) in MODELS.items()
                                   if a in (QWEN, "granite-moe-1b-a400m",
                                            "llava-next-mistral-7b",
-                                           "deepseek-v2-236b")])
+                                           "deepseek-v2-236b", "mamba2-2.7b",
+                                           "zamba2-1.2b")])
 def test_decode_step_collectives(world, name):
     want = _step_collectives(name)
     for out in world.outs:
         st = out[f"model/{name}"]["step_collectives"]
-        assert (st["all_reduce"], st["all_gather"]) == want, out["coord"]
-        assert st["all_to_all"] == 0
+        assert (st["all_reduce"], st["all_gather"], st["all_to_all"]) == \
+            want, out["coord"]
 
 
 @pytest.mark.parametrize("name", ["qwen3", "int8", "seq_not_dividing",
-                                  "kv_heads_not_dividing"])
+                                  "kv_heads_not_dividing", "mamba2", "zamba2",
+                                  "ssm_heads_not_dividing"])
 def test_prefill_exchanges_heads_for_positions(world, name):
     """One all_to_all a GQA layer into a context-parallel cache; none
     into a whole cache (an all_gather over heads) or in the gather form
-    (the K/V already hold every head)."""
+    (the K/V already hold every head).  One a head-sliced SSM layer (its
+    [z | x] exchange), none in the mixer's gather form."""
     arch, overrides, _, max_seq, _ = MODELS[name]
     cfg = ranks.lm_config(arch, overrides)
+    n_attn, n_ssm = _layer_counts(cfg)
     sliced = cfg.num_kv_heads % 2 == 0
-    want = cfg.num_layers if sliced and max_seq % 2 == 0 else 0
+    want = n_attn if sliced and max_seq % 2 == 0 else 0
+    if (cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim) % 2 == 0:
+        want += n_ssm
     for out in world.outs:
         assert out[f"model/{name}"]["prefill_collectives"]["all_to_all"] == want
 
@@ -293,6 +364,24 @@ def test_gqa_cache_bytes_are_reckoned(world, name):
         served = out[f"model/{name}"]
         assert (served["kv_bytes"], served["kv_caches"]) == (
             got["kv_bytes"], got["kv_caches"])
+
+
+@pytest.mark.parametrize("name", SSM_CACHE_HELD)
+def test_ssm_cache_bytes_are_reckoned(world, name):
+    """Each rank's SSM caches hold the state of its rows and heads, the x
+    window of their channels and the whole B/C window, as ``cache_specs``
+    splits them: with the GQA caches (zamba2), the bytes of
+    ``dryrun.reckon``'s decode cell, the stacked tree's int32 lengths
+    (one a layer) aside.  The model served holds the same bytes."""
+    for out in world.outs:
+        got = out[f"bytes/{name}"]
+        assert got["ssm_caches"] > 0
+        assert (got["ssm_bytes"] + got["kv_bytes"]
+                + 4 * (got["ssm_caches"] + got["kv_caches"])
+                == got["reckon_cache"])
+        served = out[f"model/{name}"]
+        assert (served["ssm_bytes"], served["ssm_caches"]) == (
+            got["ssm_bytes"], got["ssm_caches"])
 
 
 def test_f32_layout_holds_twice_the_bf16_bytes(world):

@@ -7,13 +7,14 @@ those rules: their shapes to ``shardings.local_shape`` of
 ``param_specs``, their bytes to ``dryrun.reckon``'s ``params_bytes``,
 and the coordinates' slices tile each tensor ``replicas`` times over.
 """
+import dataclasses
 import math
 
 import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.configs import ARCHS, get_arch
+from repro_torch.configs import ARCHS, get_arch, smoke_config
 from repro_torch.launch import dryrun, shardings
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import moe
@@ -85,7 +86,7 @@ def test_sliced_compute_where_the_heads_divide(arch):
     """On (16, 16): attention computes on its heads only where they
     divide by 16 (deepseek-v2's MLA: 128 heads; not qwen3-4b's 8 KV heads
     nor whisper's 12), the MLP and the vocabulary always, the Mamba2
-    mixer never."""
+    mixer on its heads (mamba2-2.7b's 80)."""
     cfg = get_arch(arch)
     lay = shardings.train_layout(cfg, _mesh("16x16"), index=(0, 0))
     for name, sp in lay.splits.items():
@@ -93,11 +94,38 @@ def test_sliced_compute_where_the_heads_divide(arch):
             continue
         assert sp.sliced == computes_sliced(cfg, name, 16), name
         if ".ssm." in name:
-            assert not sp.sliced, name
+            assert sp.sliced, name
         if name.endswith("table") or ".mlp." in name:
             assert sp.sliced, name
         if ".attn." in name or ".cross." in name:
             assert sp.sliced == (arch == "deepseek-v2-236b"), name
+
+
+@pytest.mark.parametrize("arch, overrides, tp, sliced", [
+    ("mamba2-2.7b", None, 2, True),  # 16 smoke heads
+    ("zamba2-1.2b", None, 2, True),
+    ("mamba2-2.7b", {"ssm_expand": 3, "ssm_headdim": 128}, 2, False),  # 3
+    ("mamba2-2.7b", None, 3, False),
+])
+def test_ssm_computes_sliced_where_its_heads_divide(arch, overrides, tp,
+                                                    sliced):
+    """The Mamba2 mixer's four split leaves compute on the rank's heads
+    where the heads divide by the model extent, else in the gather form;
+    its replicated leaves are never split, whatever ``computes_sliced``
+    says of them."""
+    cfg = dataclasses.replace(smoke_config(get_arch(arch)),
+                              **(overrides or {}))
+    prefix = "ssm_layers.0.ssm" if cfg.family == "hybrid" else "layers.0.ssm"
+    for leaf in ("w_zx", "conv_w_x", "conv_b_x", "w_out"):
+        assert computes_sliced(cfg, f"{prefix}.{leaf}", tp) is sliced, leaf
+    if tp == 2:
+        lay = shardings.train_layout(cfg, _mesh("2x2"), fsdp=False,
+                                     index=(0, 1))
+        split = {k.rsplit(".", 1)[1] for k, sp in lay.splits.items()
+                 if ".ssm." in k and sp.model is not None}
+        assert split == {"w_zx", "conv_w_x", "conv_b_x", "w_out"}
+        assert all(sp.sliced is sliced for k, sp in lay.splits.items()
+                   if ".ssm." in k and sp.model is not None)
 
 
 def test_moe_slices_where_experts_divide():

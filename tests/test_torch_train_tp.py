@@ -29,7 +29,11 @@ slice quantised with its whole leaf's max|g|, the global clip norm,
 ZeRO-1 on the slices) holds the one-process one at the bars.  Each rank's parameter and moment
 bytes are ``shardings.tree_bytes`` under the specs; the world's
 checkpoint is byte for byte a one-process save of the same tree and
-restores on a (2, 1) mesh through ``fault.restore_on_mesh``.
+restores on a (2, 1) mesh through ``fault.restore_on_mesh``.  In the
+same world, a (1, 4) mesh puts all four ranks on "model": one head-sliced
+Mamba2 mixer there (an uneven [z | x] exchange: rank 0 sends both its
+column blocks to ranks 0 and 1) is held, forward and backward, to the
+whole mixer at 1e-5.
 """
 import concurrent.futures
 import dataclasses
@@ -72,12 +76,22 @@ CASES = {  # (arch, config overrides, extra OptConfig fields, aux weight,
     "granite_vocab_511": (GRANITE, {"vocab_size": 511}, {}, None, 1),
     "deepseek_v2": ("deepseek-v2-236b", None, {}, None, 1),  # MLA, shared
     "whisper": ("whisper-small", None, {}, None, 1),  # cross attn, encoder
-    "mamba2": ("mamba2-2.7b", None, {}, None, 1),  # the gather form
+    # the Mamba2 mixer on the rank's heads: [z | x] exchanged into
+    # head-aligned blocks, the gated norm's statistic summed over "model"
+    "mamba2": ("mamba2-2.7b", None, {}, None, 1),
+    # the hybrid: sliced mixers and the shared attention block, each group
+    # under full remat
+    "zamba2": ("zamba2-1.2b", None, {}, None, 1),
+    # 3 SSM heads of 128 channels: the mixer's gather form
+    "ssm_heads_not_dividing": ("mamba2-2.7b",
+                               {"ssm_expand": 3, "ssm_headdim": 128}, {},
+                               None, 1),
     "qwen3_microbatches": (QWEN, None, {}, None, 2),
     "granite_compress": (GRANITE, None, {"compress_grads": True}, None, 1),
 }
 COMPRESSED = ("granite_compress",)
 CKPT_STEPS = 2
+MIXER_TOL = 1e-5
 
 
 def _jc(arch, overrides=None):
@@ -163,11 +177,13 @@ def world(tmp_path_factory):
     jc = _jc(GRANITE)
     ck = {"arch": GRANITE, "tree": _tree(jc, 7), "opt": OPT,
           "batches": [_batch(jc, 70 + s) for s in range(CKPT_STEPS)]}
+    mixer = _mixer_case()
     # the world runs while the JAX package computes its references
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         results = pool.submit(parallel.run_ranks, 4, ranks.run_train_tp,
                               {"cases": cases, "checkpoint": ck,
-                               "tmp": str(tmp)}, device=CPU, timeout=300.0)
+                               "tmp": str(tmp), "ssm_tp4": mixer},
+                              device=CPU, timeout=300.0)
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jlayers, "COMPUTE_DTYPE", jnp.float32)
             mp.setattr(jmodel, "COMPUTE_DTYPE", jnp.float32)
@@ -180,7 +196,25 @@ def world(tmp_path_factory):
                  for n in COMPRESSED}
     return {"ranks": outs, "cases": cases, "want": want,
             "port_want": port_want, "ckpt": ck, "ckpt_ref": ck_ref,
-            "tmp": tmp}
+            "tmp": tmp, "mixer": mixer}
+
+
+def _mixer_case() -> dict:
+    """One Mamba2 mixer of mamba2's smoke config (16 heads of 16) from a
+    JAX draw, its norm scale perturbed, an input of two ragged chunks and
+    an upstream gradient, numpy."""
+    jc = _jc("mamba2-2.7b")
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(5), jc))
+    mixer = {k: np.asarray(v[0], np.float32)
+             for k, v in tree["layers"]["ssm"].items() if k != "norm"}
+    rng = np.random.default_rng(5)
+    scale = np.asarray(tree["layers"]["ssm"]["norm"]["scale"][0], np.float32)
+    mixer["norm"] = {"scale": scale * (1 + 0.1 * rng.standard_normal(
+        scale.shape)).astype(np.float32)}
+    shape = (2, 2 * jc.ssm_chunk - 5, jc.d_model)
+    return {"arch": "mamba2-2.7b", "tree": mixer,
+            "x": rng.standard_normal(shape).astype(np.float32),
+            "gy": rng.standard_normal(shape).astype(np.float32)}
 
 
 def _close(got, want, tol, what):
@@ -264,6 +298,36 @@ def test_bytes_are_the_specs(world, name):
         assert r[name]["param_bytes"] == want_p
         assert r[name]["moment_bytes"] == want_m
     assert want_p < whole and want_m < 2 * want_p
+
+
+def test_uneven_exchange_at_tp4_matches_the_whole_mixer(world):
+    """On the (1, 4) mesh each rank's head-sliced mixer gives the whole
+    mixer's output and input gradient, and its leaves' gradients (its
+    blocks of the split ones, the whole replicated ones) within 1e-5 of
+    each's largest magnitude; one exchange and the norm's and w_out's
+    sums forward, the inverse exchange backward."""
+    from repro_torch.models import ssm as tssm
+
+    case = world["mixer"]
+    cfg = ranks.lm_config(case["arch"])
+    node = ranks.lm_params(case["tree"])
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    out = tssm.ssm_train(node, cfg, x)
+    (out * torch.from_numpy(case["gy"])).sum().backward()
+    grads = {k: p.grad.numpy() for k, p in node.named_parameters()}
+    for j, r in enumerate(world["ranks"]):
+        got = r["ssm_tp4"]
+        assert got["calls"]["all_to_all"] == 2
+        assert got["calls"]["all_gather"] == 0
+        _close({"out": got["out"], "dx": got["dx"]},
+               {"out": out.detach().numpy(), "dx": x.grad.numpy()},
+               MIXER_TOL, ("mixer", j))
+        want = ranks.ssm_mixer_slice(grads, 4, j)
+        assert set(got["grads"]) == set(want)
+        for k, g in got["grads"].items():
+            scale = float(np.abs(grads[k]).max())
+            err = float(np.abs(g - want[k]).max())
+            assert err <= MIXER_TOL * scale, (j, k, err / scale)
 
 
 def test_model_drawn_in_its_layout_is_the_whole_models_slices(world):

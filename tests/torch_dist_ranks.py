@@ -16,6 +16,7 @@ This module imports torch, numpy and the port only.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import tempfile
 from pathlib import Path
 
@@ -797,7 +798,51 @@ def run_train_tp(dev, inputs: dict) -> dict:
     out["checkpoint"] = _tp_checkpoint(mesh, inputs["checkpoint"],
                                        inputs["tmp"])
     out.update(_tp_layout_checks(mesh))
+    # the uneven [z | x] exchange: every rank of the world on "model"
+    mesh14 = parallel.make_mesh((1, dist.get_world_size()), ("data", "model"),
+                                dev)
+    out["ssm_tp4"] = ssm_mixer_sliced(mesh14, inputs["ssm_tp4"])
     return out
+
+
+# the leaves of a Mamba2 mixer split over "model" under param_specs, and
+# the dim each splits on
+SSM_SLICED = {"w_zx": 1, "conv_w_x": 1, "conv_b_x": 0, "w_out": 0}
+
+
+def ssm_mixer_slice(tree: dict, tp: int, j: int) -> dict:
+    """A Mamba2 mixer's numpy tree as model rank ``j`` of ``tp`` holds it:
+    the leaves of ``SSM_SLICED`` in their j-th block (``w_zx``'s columns
+    are [z | x], so the block is not a block of heads), the rest whole."""
+    out = {}
+    for k, v in tree.items():
+        dim = SSM_SLICED.get(k)
+        if dim is not None:
+            n = v.shape[dim] // tp
+            v = np.take(v, range(j * n, (j + 1) * n), axis=dim)
+        out[k] = v
+    return out
+
+
+def ssm_mixer_sliced(mesh, case: dict) -> dict:
+    """One head-sliced Mamba2 mixer (``ssm.ssm_train`` on a ``sliced``
+    node holding this rank's blocks of ``case["tree"]``) on the model
+    group of ``mesh``, forward and backward from ``case["x"]`` with the
+    upstream gradient ``case["gy"]``: the output, its input's gradient,
+    the node's gradients (of its blocks) and the collectives."""
+    from repro_torch.models import sharding, ssm
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    node = lm_params(ssm_mixer_slice(case["tree"], sharding.tp_extent(mesh),
+                                     sharding.tp_index(mesh)))
+    node.sliced, node.mesh = True, mesh
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    sharding.reset_collective_stats()
+    out = ssm.ssm_train(node, cfg, x)
+    (out * torch.from_numpy(case["gy"])).sum().backward()
+    return {"out": out.detach().numpy(), "dx": x.grad.numpy(),
+            "grads": {k: p.grad.numpy() for k, p in node.named_parameters()},
+            "calls": sharding.collective_stats()}
 
 
 def _raises(fn) -> str | None:
@@ -852,12 +897,52 @@ def _kv_bytes(state) -> tuple[int, int]:
                          if t is not None]), len(caches)
 
 
+def _ssm_bytes(state) -> tuple[int, int]:
+    """(bytes, count) of the SSM caches of a ``ServeState`` (the state
+    and both conv windows)."""
+    from repro_torch.models import ssm
+
+    caches = [c for c in state.caches if isinstance(c, ssm.SSMCache)]
+    return _local_bytes([t for c in caches
+                         for t in (c.state, c.conv_x, c.conv_bc)]), len(caches)
+
+
+def serve_cache_tensors(state) -> list[dict]:
+    """Each cache of a ``ServeState`` (its layers', then the hybrid's
+    shared block's) as {field: tensor}: every tensor it holds."""
+    return [{f.name: getattr(c, f.name) for f in dataclasses.fields(c)
+             if isinstance(getattr(c, f.name), torch.Tensor)}
+            for c in [*state.caches, *(state.attn_caches or [])]]
+
+
+def _load_cache_shards(state, whole: list[dict], mesh) -> None:
+    """Overwrite the rank's caches in ``state`` with its shards of the
+    caches ``whole`` (``serve_cache_tensors`` of a run without a mesh on
+    the rank's rows): each dim the rank holds a part of is a "model"
+    split (KV positions, SSM heads and x channels), its block at the
+    rank's "model" index."""
+    from repro_torch.models import sharding
+
+    j = sharding.tp_index(mesh)
+    for cache, src in zip(serve_cache_tensors(state), whole):
+        for name, t in cache.items():
+            w = src[name]
+            for d in range(t.dim()):
+                if t.shape[d] != w.shape[d]:
+                    w = w.narrow(d, j * t.shape[d], t.shape[d])
+            t.copy_(w)
+
+
 def _serve_case(mesh, case: dict) -> dict:
     """The case's model from its numpy tree in the mesh's serving layout
     (f32 at rest): whether each rank holds exactly its slice of every
     parameter, a prefill and ``fed``'s decode steps; the logits of each
     call, the collectives of the prefill and of the last step, the
-    rank's parameter and GQA cache bytes, the cross K/V's heads."""
+    rank's parameter, GQA cache and SSM cache bytes, the cross K/V's
+    heads.  With ``case["forced"]`` (per step, per dispatch group, the
+    caches a run without a mesh decodes that step from), a second
+    prefill and each step decoded from the rank's shards of those
+    caches: ``forced_logits``."""
     from repro_torch import convert
     from repro_torch.models import sharding
     from repro_torch.models.model import shard_model
@@ -881,11 +966,24 @@ def _serve_case(mesh, case: dict) -> dict:
             logits, state = model.decode_step(state, torch.from_numpy(tok))
             seq.append(logits)
         kv_bytes, kv_caches = _kv_bytes(state)
+        ssm_bytes, ssm_caches = _ssm_bytes(state)
+        step_coll = sharding.collective_stats()
+        forced = []
+        if case.get("forced"):
+            group = (sharding.dp_index(mesh) if sharding.batch_split(
+                mesh, batch["tokens"].shape[0]) else 0)
+            _, state = model.prefill(batch, max_seq=case["max_seq"])
+            for tok, whole in zip(case["fed"], case["forced"]):
+                _load_cache_shards(state, whole[group], mesh)
+                logits, state = model.decode_step(state, torch.from_numpy(tok))
+                forced.append(logits)
     return {"logits": torch.stack(seq), "slices_exact": exact,
+            "forced_logits": torch.stack(forced) if forced else None,
             "prefill_collectives": prefill_coll,
-            "step_collectives": sharding.collective_stats(),
+            "step_collectives": step_coll,
             "param_bytes": _local_bytes(model.parameters()),
             "kv_bytes": kv_bytes, "kv_caches": kv_caches,
+            "ssm_bytes": ssm_bytes, "ssm_caches": ssm_caches,
             "cross_heads": (None if state.cross_kv is None
                             else state.cross_kv[0][0].shape[2])}
 
@@ -893,8 +991,8 @@ def _serve_case(mesh, case: dict) -> dict:
 def _serve_bytes(mesh, case: dict) -> dict:
     """The bf16 serving layout of the case's arch built on the meta device
     (``Model(..., train_mesh=, fsdp=False, dtype=torch.bfloat16)``): the
-    rank's parameter bytes and GQA cache bytes beside ``dryrun.reckon``'s
-    decode cell of the same batch and context."""
+    rank's parameter bytes, GQA and SSM cache bytes beside
+    ``dryrun.reckon``'s decode cell of the same batch and context."""
     from repro_torch.launch import dryrun
     from repro_torch.models import sharding
     from repro_torch.models.model import Model
@@ -904,11 +1002,14 @@ def _serve_bytes(mesh, case: dict) -> dict:
     with sharding.set_mesh(mesh):
         model = Model(cfg, "meta", train_mesh=mesh, fsdp=False,
                       dtype=torch.bfloat16)
-        kv_bytes, kv_caches = _kv_bytes(model.init_caches(b, max_seq))
+        state = model.init_caches(b, max_seq)
+        kv_bytes, kv_caches = _kv_bytes(state)
+        ssm_bytes, ssm_caches = _ssm_bytes(state)
         reck = dryrun.reckon(cfg, "decode", b, max_seq, mesh)
     return {"param_bytes": _local_bytes(model.parameters()),
             "dtypes": sorted({str(p.dtype) for p in model.parameters()}),
             "kv_bytes": kv_bytes, "kv_caches": kv_caches,
+            "ssm_bytes": ssm_bytes, "ssm_caches": ssm_caches,
             "reckon_params": reck["params_bytes"],
             "reckon_cache": reck["cache_bytes"]}
 
@@ -1129,6 +1230,48 @@ def card_heads_exchange(dev, max_seq: int, dtype: str):
                                "v": cache.v.float().cpu(),
                                "length": cache.length,
                                "calls": sharding.collective_stats()}
+    return out
+
+
+def card_ssm_exchange(dev, dtype: str):
+    """The head-sliced Mamba2 mixer's collectives on the (1, world)
+    ("data", "model") mesh of this world, from the same inputs in
+    ``dtype`` on the card and on the CPU: the [z | x] exchange of the
+    rank's column block of a seeded whole projection (``ssm._zx_heads``)
+    with its backward (the inverse exchange of a seeded upstream
+    gradient), and the norm's statistic summed over "model"
+    (``sharding.model_psum``) with its backward.  Returns each result as
+    f32 on the CPU, and the calls."""
+    from repro_torch.models import sharding, ssm
+    from repro_torch.models.layers import Params
+
+    mesh = parallel.make_mesh((1, dist.get_world_size()), ("data", "model"),
+                              dev)
+    node = Params()
+    node.sliced, node.mesh = True, mesh
+    tp, j = sharding.tp_extent(mesh), sharding.tp_index(mesh)
+    gen = torch.Generator().manual_seed(13)
+    dt = getattr(torch, dtype)
+    b, s, d_in = 2, 5, 96
+    whole = torch.randn((b, s, 2 * d_in), generator=gen).to(dt)
+    up = torch.randn((2, b, s, d_in // tp), generator=gen).to(dt)
+    stat = torch.randn((tp, b, s, 1), generator=gen).to(dt)
+    w = 2 * d_in // tp
+    out = {}
+    for where in (dev, torch.device(CPU)):
+        sharding.reset_collective_stats()
+        zx = whole[..., j * w:(j + 1) * w].to(where).requires_grad_()
+        z, x = ssm._zx_heads(node, zx)
+        (z * up[0].to(where) + x * up[1].to(where)).sum().backward()
+        ss = stat[j].to(where).requires_grad_()
+        total = sharding.model_psum(ss, mesh)
+        (total * (j + 1)).sum().backward()
+        out[where.type] = {"z": z.detach().float().cpu(),
+                           "x": x.detach().float().cpu(),
+                           "dzx": zx.grad.float().cpu(),
+                           "total": total.detach().float().cpu(),
+                           "dss": ss.grad.float().cpu(),
+                           "calls": sharding.collective_stats()}
     return out
 
 
