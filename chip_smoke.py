@@ -340,13 +340,12 @@ outside a checkout.  Phases, one JSON line each:
              the (2, 2) serving layout (param_specs(fsdp=False)); granite
              at full width, lm_mesh's 4 x 512 prompt and 32 steps fed its
              f32 tokens, with f32 weights (24 and 4
-             layers) and bf16 weights (24 layers: the bytes a rank
-             requests for parameters and its GQA caches' bytes held to
-             dryrun.reckon's decode cell exactly; and 1 layer), each
+             layers) and bf16 weights (1 layer; the 24-layer bf16 build's
+             requested parameter and GQA cache bytes held to
+             dryrun.reckon's decode cell exactly), each
              held to one process's halves on the rows no MoE routing
              flip reaches (f32: prefill 1e-4, steps 5e-3 of the largest
-             |logit|, aux 1e-5 and 1e-3; bf16 6e-2; 24-layer bf16
-             printed: a flip reaches every row); qwen3-4b at full width
+             |logit|, aux 1e-5 and 1e-3; bf16 6e-2); qwen3-4b at full width
              cut to 2 layers with f32 and bf16 weights held to one
              process's run; mamba2-2.7b at full width (d_model 2560, 80
              heads of 64, state 128) cut to 2 layers, its Mamba2 mixers
@@ -356,7 +355,14 @@ outside a checkout.  Phases, one JSON line each:
              held to one process's run (f32: prefill 1e-4, steps 5e-3;
              bf16 6e-2), the bytes a rank requests for its parameters
              and its SSM caches held to dryrun.reckon's decode cell
-             exactly; every run's routing flips and the router's
+             exactly; deepseek-v2-236b at full width cut to 1 of 60
+             layers, built by one rank at a time, its MLA latent caches
+             split over the sequence (260 of 520 positions a rank), the
+             absorbed decode's softmax combined over "model", 4 x 512
+             then 8 steps with f32 and bf16 weights held to one
+             process's halves on the clean rows, its bf16 parameter and
+             MLA cache bytes held to dryrun.reckon's exactly, the ranks'
+             memory after each build; every run's routing flips and the router's
              margins at them, ms a prefill and a decode step by CUDA
              events and the host clock, gloo calls by kind with their
              host ms, and their host share
@@ -691,23 +697,21 @@ DRYRUN_ALLOC_SLACK = 512
 # that differ in their last bits), their aux on the (call, layer) cells no
 # flip reaches at LM_MESH_AUX_TOL (prefill) and LM_SERVE_TP_DECODE_AUX_TOL
 # (decode: the steps' router inputs read that cache; one flip moves a
-# step's aux by about 0.2), bf16 weights at LM_BF16_TOL (rtol = atol). 
-# Every run but those of LM_SERVE_TP_PRINTED is held and must have a clean
-# prefill row and a clean decode row; the primary flips (those no earlier
-# flip reaches) are printed with the reference router's top-k margin
-# there, beside the median margin.  With bf16 weights (the JAX package's
-# serving cells) the bytes a rank requests for its parameters and its GQA
-# caches' bytes are held to dryrun.reckon's decode cell, exactly.  Then
+# step's aux by about 0.2), bf16 weights at LM_BF16_TOL (rtol = atol).
+# Every run is held and must have a clean prefill row and a clean decode
+# row; the primary flips (those no earlier flip reaches) are printed with
+# the reference router's top-k margin there, beside the median margin.
+# granite's full-depth bf16 run is not made (a flip reached every row
+# there: PERF.md section 5); its full-depth bf16 build is, and the bytes
+# a rank requests for its parameters and for its GQA caches are held to
+# dryrun.reckon's decode cell, exactly.  Then
 # LM_SERVE_TP_QWEN_ARCH at full width cut to LM_SERVE_TP_QWEN_DEPTH layers
 # (qk-norm, the vocabulary split in the embedding and the logits; no
 # routing), LM_SERVE_TP_QWEN_RUN (batch, prompt, decode steps) with f32
 # and with bf16 weights, held to one process's run at the same bars
 LM_SERVE_TP_RUNS = (("f32", "float32", None), ("f32_depth4", "float32", 4),
-                    ("bf16", "bfloat16", None), ("bf16_depth1", "bfloat16", 1))
+                    ("bf16_depth1", "bfloat16", 1))
 LM_SERVE_TP_DECODE_AUX_TOL = 1e-3
-# full-depth bf16 is printed: a flip reaches every row (PERF.md section
-# 5); its bytes and times are held and read
-LM_SERVE_TP_PRINTED = ("bf16",)
 LM_SERVE_TP_MARGINS_SHOWN = 16
 LM_SERVE_TP_QWEN_ARCH = "qwen3-4b"
 LM_SERVE_TP_QWEN_DEPTH = 2
@@ -721,12 +725,33 @@ LM_SERVE_TP_QWEN_RUN = (4, 512, 8)
 LM_SERVE_TP_SSM_ARCH = "mamba2-2.7b"
 LM_SERVE_TP_SSM_DEPTH = 2
 LM_SERVE_TP_SSM_RUN = (4, 512, 8)
-# the one-process-held runs after granite's: (key, arch, depth, run)
+# then LM_SERVE_TP_MLA_ARCH (the registry's MLA arch) at full width cut to
+# LM_SERVE_TP_MLA_DEPTH of its 60 layers, its MLA latent caches split over
+# the sequence (max_seq / 2 positions a rank) and the absorbed decode's
+# softmax combined over "model", LM_SERVE_TP_MLA_RUN with f32 and bf16
+# weights, held to one process's data halves (its dispatch groups) on the
+# clean rows as granite's runs are (at 1 layer a flip reaches only its
+# own token's logits: the layer's latents are written before its MoE);
+# with bf16 weights the bytes a rank requests for its parameters and for
+# its MLA caches are held to dryrun.reckon's decode cell, exactly.  A
+# rank draws each whole block in f32 (16.2 GB at full width) before it
+# slices it, so the ranks build this arch one at a time
+# (LM_SERVE_TP_SERIAL_BUILD)
+LM_SERVE_TP_MLA_ARCH = "deepseek-v2-236b"
+LM_SERVE_TP_MLA_DEPTH = 1
+LM_SERVE_TP_MLA_RUN = (4, 512, 8)
+# the one-process-held runs after granite's: (key, arch, depth, run); a
+# routed arch's reference runs each data half alone
 LM_SERVE_TP_ONE = (
     ("qwen", LM_SERVE_TP_QWEN_ARCH, LM_SERVE_TP_QWEN_DEPTH,
      LM_SERVE_TP_QWEN_RUN),
     ("mamba2", LM_SERVE_TP_SSM_ARCH, LM_SERVE_TP_SSM_DEPTH,
-     LM_SERVE_TP_SSM_RUN))
+     LM_SERVE_TP_SSM_RUN),
+    ("deepseek", LM_SERVE_TP_MLA_ARCH, LM_SERVE_TP_MLA_DEPTH,
+     LM_SERVE_TP_MLA_RUN))
+# the runs whose bf16 parameter and cache bytes are held to reckon's
+LM_SERVE_TP_BYTES_HELD = ("mamba2", "deepseek")
+LM_SERVE_TP_SERIAL_BUILD = ("deepseek",)
 
 # the data-parallel train step (lm_train_dp): granite at full width cut to
 # LM_TRAIN_DP_DEPTH layers (the gradients and the re-assembled parameters
@@ -3585,14 +3610,17 @@ def _lm_serve_tp_rank(dev, mesh, toks, fed: list, max_seq: int,
     runs of ``_lm_mesh_serve`` fed ``fed`` (those of LM_SERVE_TP_ONE:
     ``ones[key]``'s tokens) with their logits' digests (the logits kept
     on the (0, 0) rank, the routings on the model ranks 0), the bytes
-    the bf16 granite's parameters requested, those the bf16 mamba2's
-    parameters and SSM caches requested, dryrun.reckon's decode cells
-    and the kernel launches of the runs."""
+    the full-depth bf16 granite's parameters and GQA caches requested,
+    those each LM_SERVE_TP_BYTES_HELD run's bf16 parameters and caches
+    requested beside dryrun.reckon's decode cells, the memory of the
+    serially built runs, the host seconds of each build and run, and the
+    kernel launches of the runs."""
     import dataclasses
     import gc
     import hashlib
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -3610,61 +3638,98 @@ def _lm_serve_tp_rank(dev, mesh, toks, fed: list, max_seq: int,
             r["logits"] = logits
         return r
 
-    def build(cfg, dtype):
+    def free():
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
+
+    def draw(cfg, dtype):
+        free()
         base = _requested_bytes()
         model = Model(cfg, dev, torch.Generator(device=dev).manual_seed(LM_SEED),
                       train_mesh=mesh, fsdp=False, dtype=dtype)
         torch.cuda.synchronize()
-        return model, _requested_bytes() - base
+        requested = _requested_bytes() - base
+        torch.cuda.empty_cache()  # the whole blocks drawn before slicing
+        return model, requested
 
-    def cache_bytes(model, one):
-        """The bytes an empty serving state of ``one``'s run requests."""
+    def build(cfg, dtype, serial=False):
+        """The model and the bytes its parameters requested; ``serial``:
+        the ranks draw one at a time, each its memory read after."""
+        if not serial:
+            return draw(cfg, dtype)
+        free()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(dist.get_world_size()):
+            if r == dist.get_rank():
+                model, requested = draw(cfg, dtype)
+                free_b, total_b = torch.cuda.mem_get_info()
+                memory.append({"weights": str(dtype), "rank_turn": r,
+                               "card_used_bytes_after": total_b - free_b,
+                               "peak_allocated_bytes":
+                                   torch.cuda.max_memory_allocated(),
+                               "peak_reserved_bytes":
+                                   torch.cuda.max_memory_reserved()})
+            dist.barrier()
+        return model, requested
+
+    def cache_bytes(model, batch, seq):
+        """The bytes an empty serving state of ``batch`` x ``seq``
+        requests."""
         with sharding.set_mesh(mesh):
             torch.cuda.synchronize()
             base = _requested_bytes()
-            state = model.init_caches(one["tokens"].shape[0], one["max_seq"])
+            state = model.init_caches(batch, seq)
             torch.cuda.synchronize()
             got = _requested_bytes() - base
         del state
         return got
 
     cfg = get_arch(LM_MESH_ARCH)
-    out = {}
+    out = {"one_bytes": {}, "seconds": {}}
+    memory = []
     reset_launch_counts()
     saved = layers.COMPUTE_DTYPE
     try:
         for dtype in ("float32", "bfloat16"):
             layers.COMPUTE_DTYPE = getattr(torch, dtype)
-            model, requested = build(cfg, layers.COMPUTE_DTYPE)
+            (model, requested), out["seconds"][f"build_{dtype}"] = host_s(
+                lambda: build(cfg, layers.COMPUTE_DTYPE))
             if dtype == "bfloat16":
                 out["params_bytes_requested"] = requested
                 out["params_dtypes"] = sorted({str(p.dtype)
                                                for p in model.parameters()})
+                out["cache_bytes_requested"] = cache_bytes(
+                    model, toks.shape[0], max_seq)
             for name, dt, depth in LM_SERVE_TP_RUNS:
                 if dt == dtype:
-                    out[name] = run(_lm_view(model, depth), toks, fed, max_seq)
+                    out[name], out["seconds"][name] = host_s(lambda: run(
+                        _lm_view(model, depth), toks, fed, max_seq))
             del model
             for key, arch, depth, _ in LM_SERVE_TP_ONE:
                 one = ones[key]
                 ocfg = dataclasses.replace(get_arch(arch), num_layers=depth)
-                model, requested = build(ocfg, layers.COMPUTE_DTYPE)
-                if key == "mamba2" and dtype == "bfloat16":
-                    out["ssm_bytes"] = {
+                name = key if dtype == "float32" else f"{key}_bf16"
+                (model, requested), out["seconds"][f"build_{name}"] = host_s(
+                    lambda: build(ocfg, layers.COMPUTE_DTYPE,
+                                  serial=key in LM_SERVE_TP_SERIAL_BUILD))
+                rows = one["tokens"].shape[0]
+                if key in LM_SERVE_TP_BYTES_HELD and dtype == "bfloat16":
+                    out["one_bytes"][key] = {
                         "params_bytes_requested": requested,
-                        "cache_bytes_requested": cache_bytes(model, one),
-                        "reckoned": dryrun.reckon(
-                            ocfg, "decode", one["tokens"].shape[0],
-                            one["max_seq"], mesh)}
-                out[key if dtype == "float32" else f"{key}_bf16"] = run(
+                        "cache_bytes_requested": cache_bytes(
+                            model, rows, one["max_seq"]),
+                        "reckoned": dryrun.reckon(ocfg, "decode", rows,
+                                                  one["max_seq"], mesh)}
+                out[name], out["seconds"][name] = host_s(lambda: run(
                     model, torch.from_numpy(one["tokens"]).to(dev),
-                    one["fed"], one["max_seq"])
+                    one["fed"], one["max_seq"]))
                 del model
     finally:
         layers.COMPUTE_DTYPE = saved
     out["reckoned"] = dryrun.reckon(cfg, "decode", toks.shape[0], max_seq, mesh)
+    out["serial_build_memory"] = memory
     out["launches"] = launch_counts()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3677,9 +3742,11 @@ def _lm_serve_tp_refs(model, toks, fed: list, max_seq: int, dev):
     way: the caller's model is spent): each granite run's data halves
     fed their halves of ``fed``, then each LM_SERVE_TP_ONE run with f32
     weights fed its own argmax and with the same weights in bf16 fed the
-    same tokens.  Returns (references by run name, the LM_SERVE_TP_ONE
+    same tokens (a routed arch: each data half alone, with its router
+    margins).  Returns (references by run name, the LM_SERVE_TP_ONE
     runs' inputs for the ranks by key)."""
     import dataclasses
+    import gc
 
     import numpy as np
     import torch
@@ -3704,16 +3771,29 @@ def _lm_serve_tp_refs(model, toks, fed: list, max_seq: int, dev):
         otokens = np.random.default_rng(LM_SEED).integers(
             0, ocfg.vocab_size, (ob, os_), dtype=np.int32)
         otoks = torch.from_numpy(otokens).to(dev)
+        routed = ocfg.family == "moe"
+        groups = LM_MESH_SHAPE[0] if routed else 1
+        rows = ob // groups
+
+        def serve(m, tokens_fed):
+            return [_lm_mesh_serve(
+                m, otoks[i * rows:(i + 1) * rows],
+                [None if f is None else torch.from_numpy(
+                    f[i * rows:(i + 1) * rows]) for f in tokens_fed],
+                os_ + og, margins=routed) for i in range(groups)]
+
+        gc.collect()
+        torch.cuda.empty_cache()
         layers.COMPUTE_DTYPE = torch.float32
         omodel = Model(ocfg, dev,
                        torch.Generator(device=dev).manual_seed(LM_SEED))
-        refs[key] = [_lm_mesh_serve(omodel, otoks, [None] * og, os_ + og)]
-        ofed = [refs[key][0]["logits"][t].argmax(-1, keepdim=True).int()
-                .numpy() for t in range(og)]
+        refs[key] = serve(omodel, [None] * og)
+        ofed = [np.concatenate([r["logits"][t].argmax(-1, keepdim=True).int()
+                                .numpy() for r in refs[key]])
+                for t in range(og)]
         layers.COMPUTE_DTYPE = torch.bfloat16
         omodel.to(torch.bfloat16)
-        refs[f"{key}_bf16"] = [_lm_mesh_serve(
-            omodel, otoks, [torch.from_numpy(f) for f in ofed], os_ + og)]
+        refs[f"{key}_bf16"] = serve(omodel, ofed)
         del omodel
         ones[key] = {"tokens": otokens, "max_seq": os_ + og, "fed": ofed}
     return refs, ones
@@ -3832,14 +3912,19 @@ def lm_mesh_phase(dev, gpu: str) -> tuple[dict, dict]:
                            allocated_caches_bytes=whole["allocated_after_prefill"]
                            - base - one["allocated_params_bytes"])
                 del whole
-        tp_refs, ones = _lm_serve_tp_refs(model, toks, fed["f32"], max_seq,
-                                          dev)
+        (tp_refs, ones), refs_s = host_s(lambda: _lm_serve_tp_refs(
+            model, toks, fed["f32"], max_seq, dev))
         del model
     finally:
         layers.COMPUTE_DTYPE = saved
     gc.collect()
     torch.cuda.empty_cache()
 
+    mla = dataclasses.replace(get_arch(LM_SERVE_TP_MLA_ARCH),
+                              num_layers=LM_SERVE_TP_MLA_DEPTH)
+    print(f"lm_serve_tp: {LM_SERVE_TP_MLA_ARCH} at {LM_SERVE_TP_MLA_DEPTH} "
+          f"layer(s), reckoned card peak {_mla_build_peak(mla)} bytes while "
+          "the ranks build it", file=sys.stderr, flush=True)
     results, wall = host_s(lambda: parallel.run_ranks(
         LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1], lm_mesh_rank, tokens, fed,
         max_seq, ones, timeout=LM_MESH_TIMEOUT_S))
@@ -3933,7 +4018,7 @@ def lm_mesh_phase(dev, gpu: str) -> tuple[dict, dict]:
         raise AssertionError(f"lm_mesh: {failed}")
     tp_counts = _lm_serve_tp_report(
         [o["serve_tp"] for o in outs], [o["coord"] for o in outs], tp_refs,
-        wall, gpu)
+        wall, refs_s, gpu)
     return counts, tp_counts
 
 
@@ -4050,11 +4135,11 @@ def _aux_clean(cells: set, calls: int, depth: int):
 
 
 def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
-                        gpu: str) -> dict:
+                        refs_s: float, gpu: str) -> dict:
     """Phase lm_serve_tp's line from the ranks' runs (``outs``, in rank
     order, at ``coords``) against the one-process references ``refs``
-    (``_lm_serve_tp_refs``); returns the kernel launches of the ranks'
-    runs."""
+    (``_lm_serve_tp_refs``, which took ``refs_s`` host seconds); returns
+    the kernel launches of the ranks' runs."""
     import numpy as np
     import torch
 
@@ -4135,9 +4220,7 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
         rows[name] = row
         if not row["ranks_logits_bitwise_equal"]:
             failed.append(f"{name}: the ranks' gathered logits differ")
-        if name in LM_SERVE_TP_PRINTED:
-            bars = []
-        elif dtype == "float32":
+        if dtype == "float32":
             bars = [("rel_err_prefill_clean", LM_MESH_TOL),
                     ("rel_err_worst_step_clean", LM_DECODE_F32_TOL),
                     ("aux_max_abs_err_prefill_clean", LM_MESH_AUX_TOL),
@@ -4145,8 +4228,7 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
                      LM_SERVE_TP_DECODE_AUX_TOL)]
         else:
             bars = [("bar_use_bf16_clean", 1.0)]
-        if bars and not (row["clean_rows_prefill"]
-                         and row["clean_rows_decode"]):
+        if not (row["clean_rows_prefill"] and row["clean_rows_decode"]):
             failed.append(f"{name}: no clean prefill or decode row to hold")
         for key, bar in bars:
             if row.get(key) is not None and not row[key] <= bar:
@@ -4159,13 +4241,23 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
                for cc in steps):
             failed.append(f"{name}: the calls of a decode step differ "
                           "between steps or ranks")
-        if c.family == "moe":
+        if c.name == LM_MESH_ARCH:
             counts_by_depth[c.num_layers] = [
                 steps[0][k] for k in _TP_CALLS] + [
                 outs[0][name]["collectives"][0]["all_to_all"]]
         if c.family == "ssm" and not steps[0]["all_to_all"]:
             # the mixer computes on its heads: a [z | x] exchange a step
             failed.append(f"{name}: a decode step made no all_to_all")
+        if c.use_mla:
+            # the embedding's sum; per layer the absorbed queries' gather,
+            # the softmax's three all_reduces, wo's sum, the MoE's combine
+            # and aux mean; the logits gathered over "model" and "data"
+            want_calls = {"all_reduce": 1 + 6 * c.num_layers,
+                          "all_gather": c.num_layers + 2, "all_to_all": 0}
+            if {k: steps[0][k] for k in _TP_CALLS} != want_calls:
+                failed.append(f"{name}: a decode step made "
+                              f"{[steps[0][k] for k in _TP_CALLS]} calls, "
+                              f"not {want_calls}")
     depths = sorted(counts_by_depth)
     lo, mid = depths[0], depths[1]
     for d in depths:
@@ -4183,35 +4275,47 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
         byte_rows.append({"coord": coord,
                           "params_bytes_requested": o["params_bytes_requested"],
                           "params_dtypes": o["params_dtypes"],
-                          "cache_bytes": o["bf16"]["cache_bytes"]})
+                          "cache_bytes_requested": o["cache_bytes_requested"]})
         if o["params_bytes_requested"] != reckoned["params_bytes"]:
             failed.append(f"rank {coord}: {o['params_bytes_requested']} bytes "
                           f"of parameters requested, reckoned "
                           f"{reckoned['params_bytes']}")
-        if o["bf16"]["cache_bytes"] != kv_want:
-            failed.append(f"rank {coord}: {o['bf16']['cache_bytes']} cache "
-                          f"bytes, reckoned {kv_want}")
-    # mamba2's bf16 serving layout: the bytes each rank requests for its
-    # parameters and its SSM caches (the rank's rows and heads), as reckoned
-    ssm_bytes = []
-    for coord, o in zip(coords, outs):
-        sb = o["ssm_bytes"]
-        reck = sb["reckoned"]
-        cache_want = reck["cache_bytes"] - 4 * LM_SERVE_TP_SSM_DEPTH
-        ssm_bytes.append({"coord": coord, **{k: v for k, v in sb.items()
-                                             if k != "reckoned"},
-                          "state_bytes": o["mamba2_bf16"]["cache_bytes"],
-                          "reckoned_params_bytes": reck["params_bytes"],
-                          "reckoned_cache_bytes": cache_want})
-        if sb["params_bytes_requested"] != reck["params_bytes"]:
-            failed.append(f"mamba2 rank {coord}: "
-                          f"{sb['params_bytes_requested']} bytes of "
-                          f"parameters requested, reckoned "
-                          f"{reck['params_bytes']}")
-        for key in ("cache_bytes_requested", "state_bytes"):
-            if ssm_bytes[-1][key] != cache_want:
-                failed.append(f"mamba2 rank {coord}: {key} "
-                              f"{ssm_bytes[-1][key]}, reckoned {cache_want}")
+        if o["cache_bytes_requested"] != kv_want:
+            failed.append(f"rank {coord}: {o['cache_bytes_requested']} cache "
+                          f"bytes requested, reckoned {kv_want}")
+    # the bf16 serving layouts of LM_SERVE_TP_BYTES_HELD: the bytes each
+    # rank requests for its parameters and its caches (mamba2: the rank's
+    # rows and heads; deepseek: its rows and slice of the sequence) and
+    # the bytes its run's caches hold, as reckoned
+    one_bytes = {key: [] for key in LM_SERVE_TP_BYTES_HELD}
+    one_depth = {key: depth for key, _, depth, _ in LM_SERVE_TP_ONE}
+    for key, held in one_bytes.items():
+        for coord, o in zip(coords, outs):
+            sb = o["one_bytes"][key]
+            reck = sb["reckoned"]
+            cache_want = reck["cache_bytes"] - 4 * one_depth[key]
+            held.append({"coord": coord, **{k: v for k, v in sb.items()
+                                            if k != "reckoned"},
+                         "state_bytes": o[f"{key}_bf16"]["cache_bytes"],
+                         "reckoned_params_bytes": reck["params_bytes"],
+                         "reckoned_cache_bytes": cache_want})
+            if sb["params_bytes_requested"] != reck["params_bytes"]:
+                failed.append(f"{key} rank {coord}: "
+                              f"{sb['params_bytes_requested']} bytes of "
+                              f"parameters requested, reckoned "
+                              f"{reck['params_bytes']}")
+            for what in ("cache_bytes_requested", "state_bytes"):
+                if held[-1][what] != cache_want:
+                    failed.append(f"{key} rank {coord}: {what} "
+                                  f"{held[-1][what]}, reckoned {cache_want}")
+    mla = dataclasses.replace(get_arch(LM_SERVE_TP_MLA_ARCH),
+                              num_layers=LM_SERVE_TP_MLA_DEPTH)
+    mb, mp, mg = LM_SERVE_TP_MLA_RUN
+    # a rank's latent caches if they were whole along "model"
+    mla_whole = (LM_SERVE_TP_MLA_DEPTH * (mb // LM_MESH_SHAPE[0]) * (mp + mg)
+                 * (mla.kv_lora_rank + mla.qk_rope_head_dim) * 2)
+    serial = [{"coord": coord, "builds": o["serial_build_memory"]}
+              for coord, o in zip(coords, outs)]
     counts = {k: sum(o["launches"][k] for o in outs)
               for k in first["launches"]}
     if any(counts.values()):
@@ -4220,17 +4324,45 @@ def _lm_serve_tp_report(outs: list, coords: list, refs: dict, wall: float,
           "layout": "param_specs(fsdp=False)", "backend": "gloo",
           "exchange": "all_to_all_single", "run": LM_MESH_RUN,
           "max_seq": s + g, "qwen_run": LM_SERVE_TP_QWEN_RUN,
-          "mamba2_run": LM_SERVE_TP_SSM_RUN, "mamba2_bytes": ssm_bytes,
+          "mamba2_run": LM_SERVE_TP_SSM_RUN,
+          "mamba2_bytes": one_bytes["mamba2"],
+          "deepseek_run": LM_SERVE_TP_MLA_RUN,
+          "deepseek_depth": LM_SERVE_TP_MLA_DEPTH,
+          "deepseek_bytes": one_bytes["deepseek"],
+          "deepseek_cache_bytes_whole_along_model": mla_whole,
+          "deepseek_serial_build": serial,
+          "deepseek_reckoned_card_peak_bytes": _mla_build_peak(mla),
           "bars": {"prefill": LM_MESH_TOL, "decode": LM_DECODE_F32_TOL,
                    "aux": LM_MESH_AUX_TOL,
                    "decode_aux": LM_SERVE_TP_DECODE_AUX_TOL,
                    "bf16": LM_BF16_TOL},
-          "printed": LM_SERVE_TP_PRINTED,
-          "world_wall_s": wall, "reckoned": reckoned, "bytes": byte_rows,
+          "world_wall_s": wall, "refs_s": refs_s,
+          "rank_seconds": first["seconds"],
+          "reckoned": reckoned, "bytes": byte_rows,
           **rows, "gpu": gpu, "launches": counts, "failed": failed})
     if failed:
         raise AssertionError(f"lm_serve_tp: {failed}")
     return counts
+
+
+def _mla_build_peak(cfg) -> int:
+    """The card's reckoned peak bytes while lm_serve_tp's ranks build
+    ``cfg`` one at a time with f32 weights: every rank's f32 slices (twice
+    dryrun.reckon's bf16 parameter bytes a rank of the serving layout)
+    and the last rank's whole block, drawn in f32 before it is sliced."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import Model
+
+    b, p, g = LM_SERVE_TP_MLA_RUN
+    mesh = AbstractMesh(LM_MESH_SHAPE, ("data", "model"))
+    slices = 2 * dryrun.reckon(cfg, "decode", b, p + g, mesh)["params_bytes"]
+    block = Model(cfg, "meta").layers[0]
+    return (math.prod(LM_MESH_SHAPE) * slices
+            + sum(t.numel() for t in block.parameters())
+            * torch.finfo(torch.float32).bits // 8)
 
 
 def _requested_bytes() -> int:

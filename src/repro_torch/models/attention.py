@@ -11,13 +11,14 @@ weight absorption: attention runs in the latent space and per-head K/V
 is never expanded.  A cache is written in place (index assignment) and
 its ``length`` is one Python int shared by the batch.
 
-Under a mesh a GQA cache is context parallel: each rank holds its batch
-rows and one slice of the sequence (``KVCache.shard``, a ``SeqShard``),
-positions are written only where they are held, and the decode combines
-the ranks' partial softmaxes with three all_reduces over the "model"
-group (``_decode_attention_cp``).  A sequence that does not divide by the
-"model" extent is held whole on every rank and decodes by the plain
-path, as in the JAX package.
+Under a mesh a GQA cache and an MLA latent cache are context parallel:
+each rank holds its batch rows and one slice of the sequence
+(``KVCache.shard`` / ``MLACache.shard``, a ``SeqShard``), positions are
+written only where they are held, and the decode combines the ranks'
+partial softmaxes with three all_reduces over the "model" group
+(``_cp_softmax``).  A sequence that does not divide by the "model"
+extent is held whole on every rank and decodes by the plain path, as in
+the JAX package.
 
 In the training and serving layouts a ``sliced`` attention node holds
 the rank's heads (Megatron style): GQA's wq / wk / wv and their biases
@@ -31,6 +32,11 @@ over the model group into a context-parallel cache (``prefill_cache``),
 each decoded token's q, k and v by one all_gather, after which every
 rank runs the context-parallel softmax over all heads and keeps its own
 (``gqa_decode``), as the JAX package's decode takes q whole over heads.
+An MLA latent cache is shared by the heads and its latents come from
+weights replicated over "model", so every rank fills its slice from the
+prompt it computes whole; a ``sliced`` node gathers each decoded token's
+absorbed queries (q_eff, q_rope) of every head by one all_gather and
+keeps its heads' share of the combined softmax (``mla_decode``).
 """
 from __future__ import annotations
 
@@ -182,8 +188,8 @@ class KVCache:
 
 
 def kv_layout(batch: int, max_seq: int):
-    """(rows, positions, SeqShard or None) a rank holds of a KV cache of
-    ``batch`` x ``max_seq`` under the mesh in context: its block of rows
+    """(rows, positions, SeqShard or None) a rank holds of a KV or MLA
+    cache of ``batch`` x ``max_seq`` under the mesh in context: its block of rows
     where the batch divides by the data extent (else every row), and its
     slice of the sequence over "model" where ``max_seq`` divides by the
     model extent (else the whole sequence, decoded by the plain path).
@@ -234,20 +240,30 @@ def _dequantize(q, scale, dtype):
     return (q.float() * scale).to(dtype)
 
 
+def _held_window(shard: SeqShard | None, held: int, pos: int, end: int):
+    """(cache slice, new values' slice) of the positions [pos, end) that a
+    cache of ``held`` positions holds (from ``shard.start``, or the whole
+    sequence without a shard), None where it holds none of them; raises
+    ``ValueError`` past the sequence's end."""
+    start = shard.start if shard is not None else 0
+    total = shard.total if shard is not None else held
+    if end > total:
+        raise ValueError(f"cache of {total} positions cannot "
+                         f"hold positions [{pos}, {end})")
+    lo, hi = max(pos, start), min(end, start + held)
+    if lo >= hi:
+        return None
+    return slice(lo - start, hi - start), slice(lo - pos, hi - pos)
+
+
 def cache_update(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
     """Write k/v at [pos : pos + s_new) in place; the cache's length
     becomes pos + s_new.  A sharded cache writes only the positions it
     holds; every rank advances its length."""
     end = pos + k_new.shape[1]
-    start = cache.shard.start if cache.shard is not None else 0
-    total = cache.shard.total if cache.shard is not None else cache.k.shape[1]
-    if end > total:
-        raise ValueError(f"cache of {total} positions cannot "
-                         f"hold positions [{pos}, {end})")
-    lo, hi = max(pos, start), min(end, start + cache.k.shape[1])
-    if lo < hi:
-        dst = slice(lo - start, hi - start)
-        src = slice(lo - pos, hi - pos)
+    window = _held_window(cache.shard, cache.k.shape[1], pos, end)
+    if window is not None:
+        dst, src = window
         if cache.k.dtype == torch.int8:
             kq, ks = _quantize(k_new[:, src])
             vq, vs = _quantize(v_new[:, src])
@@ -363,16 +379,32 @@ def gqa_train(p: Params, cfg: ArchConfig, x, *, causal: bool = True,
     return (sharding.model_sum(out, p.mesh) if p.sliced else out), (k, v)
 
 
+def _cp_softmax(logits, weigh, cache):
+    """One softmax over a sequence held context parallel: ``logits`` (b,
+    h, q, k) f32 the rank's over the k positions its ``cache`` holds,
+    ``weigh(p)`` the values of those positions weighted by p (b, h, q, k),
+    as (b, q, h, e).  The ranks' parts are combined over the "model"
+    group by an all_reduce of the maxima (MAX), then of the exp-sums and
+    of the weighted values (SUM), and normalised with a 1e-30 floor; the
+    values are never gathered.  The positions from ``cache.length`` on
+    are masked, so a slice with no filled position adds
+    exp(NEG_INF - max) = 0.  Returns (b, q, h, e) f32."""
+    shard = cache.shard
+    pos = shard.start + torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(pos < cache.length, logits, NEG_INF)
+    m = sharding.all_reduce(logits.amax(dim=-1), dist.ReduceOp.MAX,
+                            shard.group)  # (b, h, q)
+    p_ = torch.exp(logits - m[..., None])
+    s = sharding.all_reduce(p_.sum(dim=-1), dist.ReduceOp.SUM, shard.group)
+    acc = sharding.all_reduce(weigh(p_), dist.ReduceOp.SUM, shard.group)
+    return acc / torch.clamp(s, min=1e-30).transpose(1, 2)[..., None]
+
+
 def _decode_attention_cp(q, cache: KVCache):
     """Context-parallel decode attention: the rank's partial softmax over
     its slice of the cache, in f32 (an int8 slice dequantised with its
-    scales), combined over the "model" group by an all_reduce of the
-    maxima (MAX), then of the exp-sums and of the weighted V (SUM); the
-    whole K/V is never gathered.  A slice with no filled position adds
-    exp(-inf) = 0."""
+    scales), combined over the "model" group (``_cp_softmax``)."""
     h, hd = q.shape[2], q.shape[3]
-    shard = cache.shard
-    pos = shard.start + torch.arange(cache.k.shape[1], device=q.device)
     if cache.k_scale is not None:
         k_f = cache.k.float() * cache.k_scale
         v_f = cache.v.float() * cache.v_scale
@@ -381,14 +413,8 @@ def _decode_attention_cp(q, cache: KVCache):
     kb = _broadcast_kv(k_f, h)
     vb = _broadcast_kv(v_f, h)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(hd), kb)
-    logits = torch.where(pos < cache.length, logits, NEG_INF)
-    m = sharding.all_reduce(logits.amax(dim=-1), dist.ReduceOp.MAX,
-                            shard.group)  # (b, h, 1)
-    p_ = torch.exp(logits - m[..., None])
-    s = sharding.all_reduce(p_.sum(dim=-1), dist.ReduceOp.SUM, shard.group)
-    acc = sharding.all_reduce(torch.einsum("bhqk,bkhd->bqhd", p_, vb),
-                              dist.ReduceOp.SUM, shard.group)
-    out = acc / torch.clamp(s, min=1e-30).transpose(1, 2)[..., None]
+    out = _cp_softmax(logits, lambda p_: torch.einsum("bhqk,bkhd->bqhd", p_,
+                                                      vb), cache)
     return out.to(q.dtype)
 
 
@@ -472,29 +498,32 @@ class MLACache:
     c_kv: torch.Tensor  # (b, max_s, r) compressed latents, bf16
     k_rope: torch.Tensor  # (b, max_s, rd) bf16
     length: int  # filled positions, shared by the batch
+    shard: SeqShard | None = None  # the rank's sequence slice under a mesh
 
 
-def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int,
-                   device) -> MLACache:
+def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
+                   shard: SeqShard | None = None) -> MLACache:
     """An empty latent cache: bf16 whatever ``cfg.kv_cache_dtype`` says,
-    as in the JAX package."""
+    as in the JAX package.  With ``shard`` it holds ``max_seq`` positions
+    from ``shard.start``."""
     def zeros(width):
         return torch.zeros((batch, max_seq, width), dtype=torch.bfloat16,
                            device=device)
 
     return MLACache(c_kv=zeros(cfg.kv_lora_rank),
-                    k_rope=zeros(cfg.qk_rope_head_dim), length=0)
+                    k_rope=zeros(cfg.qk_rope_head_dim), length=0, shard=shard)
 
 
 def mla_cache_update(cache: MLACache, c_kv, k_rope, pos: int) -> MLACache:
     """Write latents at [pos : pos + s_new) in place; the cache's length
-    becomes pos + s_new."""
+    becomes pos + s_new.  A sharded cache writes only the positions it
+    holds; every rank advances its length."""
     end = pos + c_kv.shape[1]
-    if end > cache.c_kv.shape[1]:
-        raise ValueError(f"cache of {cache.c_kv.shape[1]} positions cannot "
-                         f"hold positions [{pos}, {end})")
-    cache.c_kv[:, pos:end] = c_kv.to(cache.c_kv.dtype)
-    cache.k_rope[:, pos:end] = k_rope.to(cache.k_rope.dtype)
+    window = _held_window(cache.shard, cache.c_kv.shape[1], pos, end)
+    if window is not None:
+        dst, src = window
+        cache.c_kv[:, dst] = c_kv[:, src].to(cache.c_kv.dtype)
+        cache.k_rope[:, dst] = k_rope[:, src].to(cache.k_rope.dtype)
     cache.length = end
     return cache
 
@@ -572,10 +601,19 @@ def mla_decode(p: Params, cfg: ArchConfig, x, cache: MLACache):
     """Single-step decode with weight absorption: the k half of w_kv_up
     folds into the query and the v half applies after the softmax, so
     attention runs over the (kv_lora + rope) latents and the per-step
-    transient is O(b * s * r), not O(b * s * h * (hd + vd)).  A
-    ``sliced`` node absorbs its heads' columns of w_kv_up over the whole
-    latent cache (the same on every model rank) and sums its partial
-    output of wo over the model group."""
+    transient is O(b * s * r), not O(b * s * h * (hd + vd)).
+
+    The new position's latents are the same on every model rank (their
+    weights are replicated over "model") and are written where they are
+    held.  A context-parallel cache runs one softmax over the whole
+    sequence from the ranks' slices (``_cp_softmax``: three all_reduces
+    over the model group).  A ``sliced`` node holds its heads' columns of
+    w_kv_up: against a context-parallel cache it gathers every head's
+    absorbed query (q_eff and q_rope in one all_gather over the model
+    group), combines the softmax over all heads and keeps its own; against
+    a whole cache its heads attend alone.  Either way it applies its
+    heads' v half and its rows of wo and sums the partial output over the
+    model group."""
     b = x.shape[0]
     dt = x.dtype
     hd, rd, vd, r = (cfg.head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim,
@@ -588,14 +626,36 @@ def mla_decode(p: Params, cfg: ArchConfig, x, cache: MLACache):
     w_up = p["w_kv_up"].to(dt).reshape(r, h, hd + vd)
     w_up_k, w_up_v = w_up[..., :hd], w_up[..., hd:]
     q_eff = torch.einsum("bqhd,rhd->bqhr", q_nope, w_up_k)  # (b, 1, h, r)
+    if cache.shard is not None and p.sliced:
+        packed = torch.cat([q_eff.reshape(b, -1), q_rope.reshape(b, -1)], -1)
+        parts = sharding.all_gather_dim(packed[None], 0,
+                                        sharding.model_group(p.mesh))
+        qe_part, qr_part = parts.split([h * r, h * rd], dim=-1)
+        j = sharding.tp_index(p.mesh)
+        ctx = _mla_latent_context(cfg, _gathered_heads(qe_part, b, r),
+                                  _gathered_heads(qr_part, b, rd), cache, dt)
+        ctx = ctx[:, :, j * h:(j + 1) * h]
+    else:
+        ctx = _mla_latent_context(cfg, q_eff, q_rope, cache, dt)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_up_v.float())
+    out = out.to(dt).reshape(b, 1, h * vd) @ p["wo"].to(dt)
+    return (sharding.model_sum(out, p.mesh) if p.sliced else out), cache
+
+
+def _mla_latent_context(cfg: ArchConfig, q_eff, q_rope, cache: MLACache, dt):
+    """The softmax-weighted latents (b, 1, h, r) f32 of the absorbed
+    queries q_eff (b, 1, h, r) and q_rope (b, 1, h, rd) over the cache,
+    its latents read in ``dt``: over the whole sequence from the rank's
+    slice of a context-parallel cache (``_cp_softmax``), else over the
+    cache with the positions from its length on masked."""
     ckv = cache.c_kv.to(dt).float()
     krope = cache.k_rope.to(dt).float()
     logits = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(), ckv)
               + torch.einsum("bqhd,bsd->bhqs", q_rope.float(), krope)
-              ) * _scale(hd + rd)
-    filled = torch.arange(ckv.shape[1], device=x.device) < cache.length
+              ) * _scale(cfg.head_dim + cfg.qk_rope_head_dim)
+    if cache.shard is not None:
+        return _cp_softmax(logits, lambda p_: torch.einsum(
+            "bhqs,bsr->bqhr", p_, ckv), cache)
+    filled = torch.arange(ckv.shape[1], device=ckv.device) < cache.length
     pr = torch.softmax(torch.where(filled, logits, NEG_INF), dim=-1)
-    ctx = torch.einsum("bhqs,bsr->bqhr", pr, ckv)  # latent context
-    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_up_v.float())
-    out = out.to(dt).reshape(b, 1, h * vd) @ p["wo"].to(dt)
-    return (sharding.model_sum(out, p.mesh) if p.sliced else out), cache
+    return torch.einsum("bhqs,bsr->bqhr", pr, ckv)

@@ -24,9 +24,11 @@ this rank's rows (its block of the data axes, or every row where the
 batch does not divide) and return the global logits, gathered over the
 data group; ``train_loss`` takes the global batch and returns the loss
 of the rank's rows.  Each GQA cache holds the rank's rows and its slice
-of the sequence over "model", every KV head (context-parallel decode);
-MLA caches hold the rank's rows, whole along "model", and so do the SSM
-caches of a whole mixer.  A whole model serves in the experts-only form
+of the sequence over "model", every KV head, and each MLA latent cache
+its rows and its slice of the sequence (context-parallel decode, as
+``cache_specs`` splits them; the whole sequence where it does not divide
+by the model extent); the SSM caches of a whole mixer hold the rank's
+rows.  A whole model serves in the experts-only form
 (``shard_model(model, mesh)``: the MoE runs the rank's experts, every
 other projection, the Mamba2 mixer included, runs whole on every rank,
 whisper's cross K/V holds every head).
@@ -48,7 +50,8 @@ hidden dim, the MoE's experts, the vocabulary of the tables, the Mamba2
 mixer by heads where they divide (``computes_sliced``; ``models.ssm``
 exchanges its [z | x] column blocks into head-aligned blocks).  Served,
 head-sliced attention exchanges its K/V into the context-parallel cache
-(``attention.prefill_cache``, ``attention.gqa_decode``), whisper's cross
+(``attention.prefill_cache``, ``attention.gqa_decode``; MLA gathers each
+decoded token's absorbed queries, ``attention.mla_decode``), whisper's cross
 K/V holds the rank's heads, a head-sliced Mamba2 layer's cache holds
 the state of the rank's heads and the x window of their channels (the
 B/C window whole), as ``cache_specs`` splits them, and the
@@ -521,7 +524,8 @@ class Model(nn.Module):
         this rank's shards of them (a head-sliced Mamba2 layer's: its
         heads)."""
         cfg, dev = self.cfg, self.device
-        # every cache holds the rank's rows; a KV cache its positions too
+        # every cache holds the rank's rows; a KV or MLA cache its
+        # positions too
         batch, seq, shard = attn.kv_layout(batch, max_seq)
 
         def kv_caches(n):
@@ -542,7 +546,7 @@ class Model(nn.Module):
             return ServeState(caches=ssm_caches(self.layers))
         if cfg.use_mla:
             return ServeState(caches=[
-                attn.init_mla_cache(cfg, batch, max_seq, dev)
+                attn.init_mla_cache(cfg, batch, seq, dev, shard)
                 for _ in range(cfg.num_layers)])
         return ServeState(caches=kv_caches(cfg.num_layers))
 

@@ -1297,6 +1297,44 @@ def test_serving_heads_exchange_on_the_card_is_the_cpu_result(dev, max_seq,
             assert np.array_equal(np.asarray(card[f]), np.asarray(cpu[f])), f
 
 
+def test_split_mla_cache_decode_on_the_card_is_the_cpu_result(dev):
+    """deepseek's smoke model in f32 compute, in the serving layout of a
+    (1, 2) ("data", "model") mesh of 2 gloo ranks on this card: each
+    rank holds half of every MLA latent cache's positions, gathers each
+    token's absorbed queries and combines the softmax over "model" (one
+    all_gather and four all_reduces a layer).  The prefill and 4 decode
+    steps equal the same ranks' CPU run within 1e-5, and each rank's
+    cache holds the same bytes on the card as on the CPU."""
+    import torch_dist_ranks as ranks
+    from repro_torch import convert, parallel
+    from repro_torch.models import Model
+
+    cfg = ranks.lm_config("deepseek-v2-236b")
+    tree = convert.lm_params_to_numpy(
+        Model(cfg, device="cpu", generator=torch.Generator().manual_seed(5)))
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 12), dtype=np.int32)
+    fed = [rng.integers(0, cfg.vocab_size, (2, 1), dtype=np.int32)
+           for _ in range(4)]
+    max_seq = 16
+    results = parallel.run_ranks(2, ranks.card_mla_decode, tree, tokens, fed,
+                                 max_seq, device=dev, timeout=300.0)
+    for r in results:
+        card, cpu = r.value["cuda"], r.value["cpu"]
+        assert card["split"] and cpu["split"]
+        assert card["positions"] == cpu["positions"] == max_seq // 2
+        assert card["cache_bytes"] == cpu["cache_bytes"] == (
+            cfg.num_layers * 2 * (max_seq // 2) * 2
+            * (cfg.kv_lora_rank + cfg.qk_rope_head_dim))
+        # a step: the embedding's sum; per layer the queries' gather, the
+        # softmax's three all_reduces, wo's sum and the MoE's combine (one
+        # data rank: no aux mean, no rows gathered); the logits' gather
+        assert card["calls"]["all_gather"] == cfg.num_layers + 1
+        assert card["calls"]["all_reduce"] == 1 + 5 * cfg.num_layers
+        assert _rel_err(torch.from_numpy(card["logits"]).to(dev),
+                        torch.from_numpy(cpu["logits"]).to(dev)) <= REL
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssm_heads_exchange_on_the_card_is_the_cpu_result(dev, dtype):
     """The head-sliced Mamba2 mixer's collectives on 2 gloo ranks of this

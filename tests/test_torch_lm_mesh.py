@@ -9,7 +9,8 @@ no mesh to reproduce: its dispatch groups are the data-parallel row
 blocks, so its MoE on a (2, 2) mesh is its no-mesh MoE on each half of
 the batch; its context-parallel decode is its plain decode.  Bars, with
 f32 compute in both packages:
-  * context-parallel ``gqa_decode`` (bf16 and int8 caches) 1e-5;
+  * context-parallel ``gqa_decode`` (bf16 and int8 caches) 1e-5, and
+    ``mla_decode`` on a latent cache split over the sequence 1e-5;
   * the sharded ``moe_ffn`` 1e-5 of the output's largest magnitude, aux
     1e-6;
   * a whole prefill 1e-4 and 8 decode steps 5e-3 (ROADMAP C's f32 decode
@@ -103,6 +104,10 @@ ATTN_CASES = {  # (overrides, batch, filled positions, max_seq)
     "seq_not_dividing": (None, B, 11, 15),
     "batch_not_dividing": (None, 3, 11, 16),
 }
+MLA_CASES = {  # (batch, filled positions, max_seq) of deepseek's MLA
+    "mla_slice_unfilled": (B, 5, 16),
+    "mla_both_slices": (B, 11, 16),
+}
 MOE_CASES = {  # (arch, overrides, batch)
     "granite": (GRANITE, None, B),
     "deepseek_shared": (DEEPSEEK, None, B),
@@ -140,6 +145,32 @@ def _attn_case(name):
         jnp.asarray(case["v"]), 0)
     cache = cache._replace(length=jnp.asarray(filled, jnp.int32))
     want, _ = jax.jit(lambda p, x, c: jattn.gqa_decode(p, jc, x, c))(
+        jax.tree.map(jnp.asarray, case["params"]), jnp.asarray(case["x"]),
+        cache)
+    return case, np.asarray(want)
+
+
+def _mla_case(name):
+    """A latent cache of ``filled`` positions and one token's x; the JAX
+    package's ``mla_decode`` on the whole cache."""
+    b, filled, max_seq = MLA_CASES[name]
+    jc = _jcfg(DEEPSEEK)
+    rng = np.random.default_rng(len(name))
+    case = {"arch": DEEPSEEK, "max_seq": max_seq,
+            "params": _numpy(jattn.init_attention(jax.random.PRNGKey(3), jc),
+                             rng),
+            "c_kv": rng.standard_normal((b, filled, jc.kv_lora_rank)
+                                        ).astype(np.float32),
+            "k_rope": rng.standard_normal((b, filled, jc.qk_rope_head_dim)
+                                          ).astype(np.float32),
+            "x": _x((b, 1, jc.d_model), 5)}
+    cache = jattn.init_mla_cache(jc, b, max_seq)
+    cache = jattn.MLACache(
+        c_kv=cache.c_kv.at[:, :filled].set(jnp.asarray(case["c_kv"], jnp.bfloat16)),
+        k_rope=cache.k_rope.at[:, :filled].set(
+            jnp.asarray(case["k_rope"], jnp.bfloat16)),
+        length=jnp.asarray(filled, jnp.int32))
+    want, _ = jax.jit(lambda p, x, c: jattn.mla_decode(p, jc, x, c))(
         jax.tree.map(jnp.asarray, case["params"]), jnp.asarray(case["x"]),
         cache)
     return case, np.asarray(want)
@@ -218,6 +249,9 @@ def world():
         attn_in, attn_want = {}, {}
         for name in ATTN_CASES:
             attn_in[name], attn_want[name] = _attn_case(name)
+        mla_in, mla_want = {}, {}
+        for name in MLA_CASES:
+            mla_in[name], mla_want[name] = _mla_case(name)
         moe_in, moe_want = {}, {}
         for name in MOE_CASES:
             moe_in[name], moe_want[name] = _moe_case(name)
@@ -226,11 +260,13 @@ def world():
             model_in[name], model_want[name] = _jax_model_case(name)
         for name in PORT_MODELS:
             model_in[name], model_want[name] = _port_model_case(name)
-    inputs = {"attn": attn_in, "moe": moe_in, "model": model_in}
+    inputs = {"attn": attn_in, "mla": mla_in, "moe": moe_in,
+              "model": model_in}
     results = parallel.run_ranks(4, ranks.run_lm_mesh, inputs, device=CPU,
                                  timeout=300.0)
     return SimpleNamespace(outs=[r.value for r in results], inputs=inputs,
-                           attn=attn_want, moe=moe_want, model=model_want)
+                           attn=attn_want, mla=mla_want, moe=moe_want,
+                           model=model_want)
 
 
 def _maxabs(a, b) -> float:
@@ -267,6 +303,38 @@ def test_a_slice_with_no_filled_position_adds_nothing(world):
     assert held == {(0, 0): 5, (0, 1): 0, (1, 0): 5, (1, 1): 0}
 
 
+@pytest.mark.parametrize("name", list(MLA_CASES))
+def test_split_mla_cache_decode_matches_reference(world, name):
+    """``mla_decode`` with every head on the rank and the latent cache
+    split over "model" (three all_reduces combine the softmax) against
+    the JAX package's decode on the whole cache."""
+    _, filled, max_seq = MLA_CASES[name]
+    for rank, out in enumerate(world.outs):
+        got = out[f"mla/{name}"]
+        assert _maxabs(got["out"], world.mla[name]) <= ATTN_TOL, rank
+        assert got["length"] == filled + 1
+        assert got["sharded"] and got["positions"] == max_seq // 2
+
+
+def test_a_split_mla_slice_with_no_filled_position_adds_nothing(world):
+    """Five filled positions of 16: model rank 1 holds [8, 16) of the
+    latent cache, none filled before the step nor by it (position 5)."""
+    held = {out["coord"]: out["mla/mla_slice_unfilled"]["held_before"]
+            for out in world.outs}
+    assert held == {(0, 0): 5, (0, 1): 0, (1, 0): 5, (1, 1): 0}
+    held = {out["coord"]: out["mla/mla_both_slices"]["held_before"]
+            for out in world.outs}
+    assert held == {(0, 0): 8, (0, 1): 3, (1, 0): 8, (1, 1): 3}
+
+
+@pytest.mark.parametrize("name", list(MLA_CASES))
+def test_a_write_past_the_split_mla_cache_raises(world, name):
+    """Positions [14, 17) of a sequence of 16: every rank raises, the one
+    whose slice holds none of them too."""
+    for out in world.outs:
+        assert out[f"mla/{name}"]["write_past_end"] == "ValueError"
+
+
 @pytest.mark.parametrize("name", list(MOE_CASES))
 def test_sharded_moe_matches_reference_groups(world, name):
     want, aux = world.moe[name]
@@ -296,15 +364,18 @@ def test_model_under_mesh_matches_port_without_mesh(world, name):
 
 
 def test_decode_step_collectives(world):
-    """A decode step's collectives: per GQA layer three all_reduces of
-    the context-parallel softmax, per MoE layer one of the combine and
-    one of aux's mean, and one all_gather of the logits; a batch that does
-    not divide by "data" gathers nothing and averages no aux; a sequence
-    that does not divide by "model" reduces nothing in attention."""
+    """A decode step's collectives: per GQA or MLA layer three
+    all_reduces of the context-parallel softmax, per MoE layer one of the
+    combine and one of aux's mean, and one all_gather of the logits; a
+    batch that does not divide by "data" gathers nothing and averages no
+    aux; a sequence that does not divide by "model" reduces nothing in
+    attention."""
     layers = ranks.lm_config(QWEN).num_layers
+    mla_layers = ranks.lm_config(DEEPSEEK).num_layers
     expect = {"qwen3": (3 * layers, 1), "granite": (5 * layers, 1),
               "granite_batch_not_dividing": (4 * layers, 0),
-              "qwen3_seq_not_dividing": (0, 1)}
+              "qwen3_seq_not_dividing": (0, 1),
+              "deepseek": ((3 + 2) * mla_layers, 1)}
     for out in world.outs:
         for name, (reduces, gathers) in expect.items():
             st = out[f"model/{name}"]["step_collectives"]

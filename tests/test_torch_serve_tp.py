@@ -23,13 +23,15 @@ f32 weights and compute in both packages:
     when decoded from the no-mesh run's own caches).
 mamba2 and zamba2 compute their Mamba2 mixers on the rank's heads (the
 [z | x] blocks exchanged into head-aligned blocks, the norm's statistic
-summed over "model").  Each fall-back takes its branch: KV heads that do
-not divide by the model extent (the gather form), SSM heads that do not
-(the mixer's gather form), a vocabulary that does not (the whole table),
-a ``max_seq`` that does not (the whole cache), an int8 cache, a batch
-that does not divide by the data extent.  The bf16 serving layout is
-built on the meta device in each rank: its parameter bytes, GQA cache
-bytes and SSM cache bytes are ``dryrun.reckon``'s decode cell's.
+summed over "model"); deepseek holds its MLA latent caches split over the
+sequence and combines the absorbed decode's softmax over "model".  Each
+fall-back takes its branch: KV heads that do not divide by the model
+extent (the gather form), SSM heads that do not (the mixer's gather
+form), a vocabulary that does not (the whole table), a ``max_seq`` that
+does not (the whole cache, GQA and MLA), an int8 cache, a batch that does
+not divide by the data extent.  The bf16 serving layout is built on the
+meta device in each rank: its parameter bytes, GQA, MLA and SSM cache
+bytes are ``dryrun.reckon``'s decode cell's.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -73,6 +75,7 @@ MODELS = {  # (arch, overrides, batch, max_seq, steps)
     "ssm_heads_not_dividing": ("mamba2-2.7b", SSM_3_HEADS, B, PROMPT + 4, 4),
     "vocab_not_dividing": (QWEN, {"vocab_size": 511}, B, PROMPT + 4, 4),
     "seq_not_dividing": (QWEN, None, B, PROMPT + 3, 3),
+    "mla_seq_not_dividing": ("deepseek-v2-236b", None, B, PROMPT + 3, 3),
     "int8": (QWEN, {"kv_cache_dtype": "int8"}, B, PROMPT + 4, 4),
     "batch_not_dividing": ("granite-moe-1b-a400m", None, 3, PROMPT + 4, 4),
 }
@@ -86,6 +89,9 @@ CACHE_SPECS_HELD = ("qwen3", "llava", "granite", "whisper",
                     "seq_not_dividing", "int8", "batch_not_dividing")
 # and the head-sliced SSM caches (zamba2: with its GQA caches)
 SSM_CACHE_HELD = ("mamba2", "zamba2")
+# and the MLA latent caches: split over the sequence, or whole where
+# max_seq does not divide by the model extent
+MLA_CACHE_HELD = ("deepseek", "mla_seq_not_dividing")
 
 
 def _jcfg(arch, overrides=None):
@@ -284,7 +290,9 @@ def _step_collectives(name):
     (the whole cache: one gather of k and v and wo's sum; the gather
     form: its four weights gathered, then the context-parallel softmax),
     per MLP one sum, per MoE its combine and aux's mean over the data
-    rows, per MLA layer wo's sum; per SSM layer the [z | x] exchange, the
+    rows, per MLA layer one gather of q_eff and q_rope, the three
+    all_reduces of the context-parallel softmax and wo's sum (the whole
+    latent cache: wo's sum only); per SSM layer the [z | x] exchange, the
     norm's sum and w_out's sum (the gather form: its four split weights
     gathered, and no mixer weight gathered otherwise); then the logits
     gathered over "model" (a vocabulary that divides) and over "data" (a
@@ -301,7 +309,7 @@ def _step_collectives(name):
     ffn = (0, 2 if rows else 1) if cfg.family == "moe" else (0, 1)
     per = (attn[0] + ffn[0], attn[1] + ffn[1])
     if cfg.use_mla:
-        per = (0, 1 + ffn[1])
+        per = (1, 4 + ffn[1]) if cp else (0, 1 + ffn[1])
     ssm_heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
     ssm = (0, 2, 1) if ssm_heads % 2 == 0 else (4, 0, 0)  # (ag, ar, a2a)
     n_attn, n_ssm = _layer_counts(cfg)
@@ -325,16 +333,19 @@ def test_decode_step_collectives(world, name):
 
 @pytest.mark.parametrize("name", ["qwen3", "int8", "seq_not_dividing",
                                   "kv_heads_not_dividing", "mamba2", "zamba2",
-                                  "ssm_heads_not_dividing"])
+                                  "ssm_heads_not_dividing", "deepseek",
+                                  "mla_seq_not_dividing"])
 def test_prefill_exchanges_heads_for_positions(world, name):
     """One all_to_all a GQA layer into a context-parallel cache; none
     into a whole cache (an all_gather over heads) or in the gather form
     (the K/V already hold every head).  One a head-sliced SSM layer (its
-    [z | x] exchange), none in the mixer's gather form."""
+    [z | x] exchange), none in the mixer's gather form.  None an MLA
+    layer: every rank computes the whole prompt's latents and writes the
+    positions it holds."""
     arch, overrides, _, max_seq, _ = MODELS[name]
     cfg = ranks.lm_config(arch, overrides)
     n_attn, n_ssm = _layer_counts(cfg)
-    sliced = cfg.num_kv_heads % 2 == 0
+    sliced = cfg.num_kv_heads % 2 == 0 and not cfg.use_mla
     want = n_attn if sliced and max_seq % 2 == 0 else 0
     if (cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim) % 2 == 0:
         want += n_ssm
@@ -382,6 +393,27 @@ def test_ssm_cache_bytes_are_reckoned(world, name):
         served = out[f"model/{name}"]
         assert (served["ssm_bytes"], served["ssm_caches"]) == (
             got["ssm_bytes"], got["ssm_caches"])
+
+
+@pytest.mark.parametrize("name", MLA_CACHE_HELD)
+def test_mla_cache_bytes_are_reckoned(world, name):
+    """Each rank's MLA latent caches hold its rows and its slice of the
+    sequence (the whole sequence where ``max_seq`` does not divide by the
+    model extent), as ``cache_specs`` splits them: the bytes of
+    ``dryrun.reckon``'s decode cell, the stacked tree's int32 lengths
+    (one a layer) aside.  The model served holds the same bytes."""
+    arch, _, b, max_seq, _ = MODELS[name]
+    cfg = ranks.lm_config(arch)
+    held = max_seq // 2 if max_seq % 2 == 0 else max_seq
+    for out in world.outs:
+        got = out[f"bytes/{name}"]
+        assert got["mla_caches"] == cfg.num_layers
+        assert got["mla_bytes"] + 4 * got["mla_caches"] == got["reckon_cache"]
+        assert got["mla_bytes"] == (cfg.num_layers * (b // 2) * held * 2
+                                    * (cfg.kv_lora_rank + cfg.qk_rope_head_dim))
+        served = out[f"model/{name}"]
+        assert (served["mla_bytes"], served["mla_caches"]) == (
+            got["mla_bytes"], got["mla_caches"])
 
 
 def test_f32_layout_holds_twice_the_bf16_bytes(world):

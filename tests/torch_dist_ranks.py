@@ -463,6 +463,31 @@ def _lm_cp_decode(mesh, case: dict) -> dict:
             "held_before": held, "positions": cache.k.shape[1]}
 
 
+def _lm_mla_decode(mesh, case: dict) -> dict:
+    """One MLA decode step (``attention.mla_decode``, every head on the
+    rank) against a latent cache filled to ``c_kv.shape[1]`` positions,
+    each rank holding its shard (``attention.kv_layout``); and whether a
+    write past the sequence's end raises on this rank (the rank that
+    holds none of its positions too)."""
+    from repro_torch.models import attention as attn
+
+    cfg = lm_config(case["arch"], case.get("overrides"))
+    b, max_seq = case["x"].shape[0], case["max_seq"]
+    rows, seq, shard = attn.kv_layout(b, max_seq)
+    own, gather = _rows(mesh, b)
+    cache = attn.init_mla_cache(cfg, rows, seq, CPU, shard)
+    attn.mla_cache_update(cache, own(case["c_kv"]), own(case["k_rope"]), 0)
+    start = 0 if shard is None else shard.start
+    held = max(0, min(case["c_kv"].shape[1], start + seq) - start)
+    y, cache = attn.mla_decode(lm_params(case["params"]), cfg,
+                               own(case["x"]), cache)
+    tail = own(case["c_kv"])[:, :3], own(case["k_rope"])[:, :3]
+    past = _raises(lambda: attn.mla_cache_update(cache, *tail, max_seq - 2))
+    return {"out": gather(y), "length": cache.length,
+            "sharded": shard is not None, "held_before": held,
+            "positions": cache.c_kv.shape[1], "write_past_end": past}
+
+
 def _lm_moe(case: dict) -> dict:
     """``moe_ffn`` under the mesh on the global x."""
     from repro_torch.models import moe
@@ -507,6 +532,8 @@ def run_lm_mesh(dev, inputs: dict) -> dict:
     with sharding.set_mesh(mesh):
         for name, case in inputs["attn"].items():
             out[f"attn/{name}"] = _lm_cp_decode(mesh, case)
+        for name, case in inputs["mla"].items():
+            out[f"mla/{name}"] = _lm_mla_decode(mesh, case)
         for name, case in inputs["moe"].items():
             out[f"moe/{name}"] = _lm_moe(case)
         for name, case in inputs["model"].items():
@@ -897,6 +924,16 @@ def _kv_bytes(state) -> tuple[int, int]:
                          if t is not None]), len(caches)
 
 
+def _mla_bytes(state) -> tuple[int, int]:
+    """(bytes, count) of the MLA latent caches of a ``ServeState`` (c_kv
+    and k_rope)."""
+    from repro_torch.models import attention as attn
+
+    caches = [c for c in state.caches if isinstance(c, attn.MLACache)]
+    return _local_bytes([t for c in caches for t in (c.c_kv, c.k_rope)]), len(
+        caches)
+
+
 def _ssm_bytes(state) -> tuple[int, int]:
     """(bytes, count) of the SSM caches of a ``ServeState`` (the state
     and both conv windows)."""
@@ -938,7 +975,7 @@ def _serve_case(mesh, case: dict) -> dict:
     (f32 at rest): whether each rank holds exactly its slice of every
     parameter, a prefill and ``fed``'s decode steps; the logits of each
     call, the collectives of the prefill and of the last step, the
-    rank's parameter, GQA cache and SSM cache bytes, the cross K/V's
+    rank's parameter, GQA, MLA and SSM cache bytes, the cross K/V's
     heads.  With ``case["forced"]`` (per step, per dispatch group, the
     caches a run without a mesh decodes that step from), a second
     prefill and each step decoded from the rank's shards of those
@@ -966,6 +1003,7 @@ def _serve_case(mesh, case: dict) -> dict:
             logits, state = model.decode_step(state, torch.from_numpy(tok))
             seq.append(logits)
         kv_bytes, kv_caches = _kv_bytes(state)
+        mla_bytes, mla_caches = _mla_bytes(state)
         ssm_bytes, ssm_caches = _ssm_bytes(state)
         step_coll = sharding.collective_stats()
         forced = []
@@ -983,6 +1021,7 @@ def _serve_case(mesh, case: dict) -> dict:
             "step_collectives": step_coll,
             "param_bytes": _local_bytes(model.parameters()),
             "kv_bytes": kv_bytes, "kv_caches": kv_caches,
+            "mla_bytes": mla_bytes, "mla_caches": mla_caches,
             "ssm_bytes": ssm_bytes, "ssm_caches": ssm_caches,
             "cross_heads": (None if state.cross_kv is None
                             else state.cross_kv[0][0].shape[2])}
@@ -991,7 +1030,7 @@ def _serve_case(mesh, case: dict) -> dict:
 def _serve_bytes(mesh, case: dict) -> dict:
     """The bf16 serving layout of the case's arch built on the meta device
     (``Model(..., train_mesh=, fsdp=False, dtype=torch.bfloat16)``): the
-    rank's parameter bytes, GQA and SSM cache bytes beside
+    rank's parameter bytes, GQA, MLA and SSM cache bytes beside
     ``dryrun.reckon``'s decode cell of the same batch and context."""
     from repro_torch.launch import dryrun
     from repro_torch.models import sharding
@@ -1004,11 +1043,13 @@ def _serve_bytes(mesh, case: dict) -> dict:
                       dtype=torch.bfloat16)
         state = model.init_caches(b, max_seq)
         kv_bytes, kv_caches = _kv_bytes(state)
+        mla_bytes, mla_caches = _mla_bytes(state)
         ssm_bytes, ssm_caches = _ssm_bytes(state)
         reck = dryrun.reckon(cfg, "decode", b, max_seq, mesh)
     return {"param_bytes": _local_bytes(model.parameters()),
             "dtypes": sorted({str(p.dtype) for p in model.parameters()}),
             "kv_bytes": kv_bytes, "kv_caches": kv_caches,
+            "mla_bytes": mla_bytes, "mla_caches": mla_caches,
             "ssm_bytes": ssm_bytes, "ssm_caches": ssm_caches,
             "reckon_params": reck["params_bytes"],
             "reckon_cache": reck["cache_bytes"]}
@@ -1134,6 +1175,44 @@ def card_cp_decode(dev, tree: dict, tokens, max_seq: int, steps: int):
             seq.append(logits)
     assert state.caches[0].shard is not None
     return torch.stack(seq)
+
+
+def card_mla_decode(dev, tree: dict, tokens, fed: list, max_seq: int):
+    """deepseek's smoke model from ``tree`` in f32 compute, in the serving
+    layout of the (1, world) ("data", "model") mesh of this world, on the
+    card and on the CPU: a prefill of ``tokens`` and a decode step per
+    entry of ``fed``, each MLA latent cache split over the sequence.
+    Returns per device the logits of each call, the rank's MLA cache
+    bytes and positions, and the last step's collectives."""
+    from repro_torch import convert
+    from repro_torch.models import layers, sharding
+    from repro_torch.models.model import shard_model
+
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = parallel.make_mesh((1, dist.get_world_size()), ("data", "model"),
+                              dev)
+    cfg = lm_config("deepseek-v2-236b")
+    out = {}
+    with sharding.set_mesh(mesh):
+        for where in (dev, torch.device(CPU)):
+            model = convert.lm_params_from_numpy(cfg, tree, device=where)
+            shard_model(model, mesh, train=True, fsdp=False,
+                        dtype=torch.float32)
+            logits, state = model.prefill(
+                {"tokens": torch.from_numpy(tokens).to(where)}, max_seq=max_seq)
+            seq = [logits]
+            for tok in fed:
+                sharding.reset_collective_stats()
+                logits, state = model.decode_step(
+                    state, torch.from_numpy(tok).to(where))
+                seq.append(logits)
+            cache_bytes, _ = _mla_bytes(state)
+            out[where.type] = {"logits": torch.stack(seq).cpu(),
+                               "cache_bytes": cache_bytes,
+                               "positions": state.caches[0].c_kv.shape[1],
+                               "split": state.caches[0].shard is not None,
+                               "calls": sharding.collective_stats()}
+    return out
 
 
 def card_train_dp(dev, tree: dict, batches: list, opt_fields: dict):
