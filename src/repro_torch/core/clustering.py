@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import kmeans as km
 from repro_torch.core import laplacian as lap
 from repro_torch.core import metrics, operators, series, solvers, walks
@@ -67,66 +68,73 @@ def build_series(cfg: ClusteringConfig, rho_ub: float) -> series.SpectralSeries:
     raise ValueError(f"unknown transform {cfg.transform!r}")
 
 
+@spans.span("sped.cluster", allocs=True)
 def spectral_cluster(g: lap.EdgeList, cfg: ClusteringConfig,
                      v_star: torch.Tensor | None = None):
     """Run the full pipeline on the graph's device.  Returns
     (labels, info dict)."""
     if cfg.estimation not in ESTIMATIONS:
         raise ValueError(f"unknown estimation mode {cfg.estimation!r}")
-    rho_ub = float(lap.spectral_radius_upper_bound(g))
     k = cfg.num_clusters + cfg.extra_eigvecs + (1 if cfg.drop_trivial else 0)
     plan = None
-    if cfg.transform == "auto" and cfg.estimation != "walks":
-        from repro_torch import spectral  # deferred: spectral builds on core
+    with spans.span("sped.prep"):
+        rho_ub = float(lap.spectral_radius_upper_bound(g))
+        if cfg.transform == "auto" and cfg.estimation != "walks":
+            # deferred: spectral builds on core
+            from repro_torch import spectral
 
-        gen = torch.Generator(device=g.device).manual_seed(cfg.seed + 3)
-        _, plan = spectral.probe_and_plan(g, k=k, generator=gen,
-                                          budget=cfg.degree,
-                                          backend=cfg.backend)
-        s = spectral.series_from_plan(plan)
-        # solver steps are not scale-invariant: renormalize the user's lr
-        # (tuned for a unit-scale series) to the planned operator's scale
-        cfg = dataclasses.replace(
-            cfg, solver=dataclasses.replace(
-                cfg.solver, lr=plan.suggested_lr(cfg.solver.lr)))
-    elif cfg.transform == "auto":
-        # the walks estimator builds its own low-degree operator below, so
-        # a probe's plan would be discarded: s only names info["series"]
-        s = series.with_lambda_star(series.identity_series(), rho_ub * 1.01)
-    else:
-        s = build_series(cfg, rho_ub)
+            gen = torch.Generator(device=g.device).manual_seed(cfg.seed + 3)
+            _, plan = spectral.probe_and_plan(g, k=k, generator=gen,
+                                              budget=cfg.degree,
+                                              backend=cfg.backend)
+            s = spectral.series_from_plan(plan)
+            # solver steps are not scale-invariant: renormalize the user's lr
+            # (tuned for a unit-scale series) to the planned operator's scale
+            cfg = dataclasses.replace(
+                cfg, solver=dataclasses.replace(
+                    cfg.solver, lr=plan.suggested_lr(cfg.solver.lr)))
+        elif cfg.transform == "auto":
+            # the walks estimator builds its own low-degree operator below,
+            # so a probe's plan would be discarded: s only names
+            # info["series"]
+            s = series.with_lambda_star(series.identity_series(),
+                                        rho_ub * 1.01)
+        else:
+            s = build_series(cfg, rho_ub)
+        if cfg.estimation == "exact_edges":
+            op = operators.edge_series_operator(g, s, backend=cfg.backend)
+        elif cfg.estimation == "minibatch":
+            op = operators.minibatch_operator(g, s, cfg.batch_edges,
+                                              backend=cfg.backend)
+        else:
+            # the walk variance grows with the degree: a LOW-degree
+            # power-basis fit of the same spectral map (beyond the paper)
+            deg = min(cfg.degree, 6)
+            tau = cfg.dilation_strength / rho_ub if cfg.auto_scale else 1.0
+            op = walks.walk_polynomial_operator(
+                g, lap.build_edge_incidence(g),
+                walks.lowdeg_negexp_coeffs(deg, rho_ub, tau), lambda_star=0.0,
+                num_walkers=cfg.num_walkers)
+
+        if v_star is None and g.num_nodes <= 4096:
+            _, v_star = metrics.ground_truth_bottom_k(
+                lap.laplacian_dense(g), k)
+
     scfg = dataclasses.replace(cfg.solver, k=k, seed=cfg.seed,
                                backend=cfg.backend)
     stochastic = cfg.estimation != "exact_edges"
-    if cfg.estimation == "exact_edges":
-        op = operators.edge_series_operator(g, s, backend=cfg.backend)
-    elif cfg.estimation == "minibatch":
-        op = operators.minibatch_operator(g, s, cfg.batch_edges,
-                                          backend=cfg.backend)
-    else:
-        # the walk variance grows with the degree: a LOW-degree power-basis
-        # fit of the same spectral map (beyond the paper)
-        deg = min(cfg.degree, 6)
-        tau = cfg.dilation_strength / rho_ub if cfg.auto_scale else 1.0
-        op = walks.walk_polynomial_operator(
-            g, lap.build_edge_incidence(g),
-            walks.lowdeg_negexp_coeffs(deg, rho_ub, tau), lambda_star=0.0,
-            num_walkers=cfg.num_walkers)
-
-    if v_star is None and g.num_nodes <= 4096:
-        _, v_star = metrics.ground_truth_bottom_k(lap.laplacian_dense(g), k)
-
     state, trace = solvers.run_solver(op, g.num_nodes, scfg, v_star=v_star,
                                       stochastic=stochastic, device=g.device)
 
-    start = 1 if cfg.drop_trivial else 0
-    embedding = state.v[:, start: start + cfg.num_clusters]
-    # row-normalize the embedding (standard spectral clustering practice)
-    norms = torch.linalg.vector_norm(embedding, dim=1, keepdim=True)
-    embedding = embedding / torch.clamp(norms, min=1e-12)
-    gen = torch.Generator(device=g.device).manual_seed(cfg.seed + 1)
-    result = km.kmeans(gen, embedding, cfg.num_clusters,
-                       restarts=cfg.kmeans_restarts)
+    with spans.span("sped.post"):
+        start = 1 if cfg.drop_trivial else 0
+        embedding = state.v[:, start: start + cfg.num_clusters]
+        # row-normalize the embedding (standard spectral clustering practice)
+        norms = torch.linalg.vector_norm(embedding, dim=1, keepdim=True)
+        embedding = embedding / torch.clamp(norms, min=1e-12)
+        gen = torch.Generator(device=g.device).manual_seed(cfg.seed + 1)
+        result = km.kmeans(gen, embedding, cfg.num_clusters,
+                           restarts=cfg.kmeans_restarts)
     info = {
         "trace": trace,
         "series": s.name,

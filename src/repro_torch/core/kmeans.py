@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spans
+
 
 class KMeansResult(NamedTuple):
     centroids: torch.Tensor  # (k, d)
@@ -21,6 +23,7 @@ def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.sum((x[:, None, :] - c[None, :, :]) ** 2, dim=-1)
 
 
+@spans.span("sped.kmeans.init")
 def _plusplus_init(generator: torch.Generator, x: torch.Tensor,
                    k: int) -> torch.Tensor:
     """k-means++ seeding, drawn with ``torch.multinomial``."""
@@ -39,6 +42,7 @@ def _plusplus_init(generator: torch.Generator, x: torch.Tensor,
     return centroids
 
 
+@spans.span("sped.kmeans.lloyd")
 def _lloyd(x: torch.Tensor, centroids: torch.Tensor, iters: int) -> KMeansResult:
     k = centroids.shape[0]
     c = centroids

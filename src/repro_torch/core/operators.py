@@ -18,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import kernels
+from repro_torch import kernels, spans
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import laplacian as lap
 from repro_torch.core import metrics
@@ -43,6 +43,7 @@ def side_stream_call(fn: Callable[[], object], device: torch.device):
     return out
 
 
+@spans.span("sped.capture")
 def capture_graph(fn: Callable[[], object]
                   ) -> tuple[torch.cuda.CUDAGraph, object, dict[str, int]]:
     """Capture ``fn()`` as a new CUDA graph: (graph, fn's static output,

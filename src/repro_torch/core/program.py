@@ -49,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import parallel
+from repro_torch import parallel, spans
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import metrics, operators, solvers
 from repro_torch.device import resolve_device
@@ -249,6 +249,7 @@ def run_chunk(opv: MatVec, step_fn, state: solvers.SolverState, lr,
     return state, metrics.operator_residual(opv, state.v)
 
 
+@spans.span("sped.solve")
 def run_program(operator: MatVec | solvers.StochMatVec, n: int,
                 cfg: solvers.SolverConfig,
                 v_star: torch.Tensor | None = None,
@@ -282,9 +283,10 @@ def run_program(operator: MatVec | solvers.StochMatVec, n: int,
         for _ in range(cfg.eval_every):
             av = operator(gen, state.v) if stochastic else operator(state.v)
             state = apply_solver_step(step_fn, state, av, cfg.lr)
-        steps.append(state.step)
-        err.append(metrics.subspace_error(state.v, v_star))
-        streak.append(metrics.eigenvector_streak(state.v, v_star))
+        with spans.span("sped.eval"):
+            steps.append(state.step)
+            err.append(metrics.subspace_error(state.v, v_star))
+            streak.append(metrics.eigenvector_streak(state.v, v_star))
     return state, solvers.Trace(steps=torch.stack(steps),
                                 subspace_error=torch.stack(err),
                                 streak=torch.stack(streak))

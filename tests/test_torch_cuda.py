@@ -382,6 +382,45 @@ def test_spectral_cluster_small_runs_kernels(dev):
     assert float(cluster_agreement(labels, truth, 4)) > 0.95
 
 
+def test_spans_of_an_exact_edges_job_on_the_card(dev):
+    """Under the CUDA profiler a job past K1's node limit records one
+    capture, device times that nest, the allocator's calls, and no span
+    on the device side of the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+
+    n = 2 * backend.ONE_HOT_NODE_LIMIT
+    g, _ = graphs.sparse_sbm_graph(n, 3, 8.0, 0.5, seed=5, device=dev)
+    cfg = ClusteringConfig(num_clusters=3, degree=15, kmeans_restarts=2,
+                           solver=SolverConfig(lr=0.1, steps=4, eval_every=2))
+    spectral_cluster(g, cfg)  # warm: the kernel library is built
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        spectral_cluster(g, cfg)
+        torch.cuda.synchronize()
+    recs = spans.records()
+    names = [r.name for r in recs]
+    assert names.count("sped.capture") == 1
+    assert names.count("sped.eval") == 2 and names.count("sped.cluster") == 1
+    by_index = {r.index: r for r in recs}
+    for r in recs:
+        assert r.device_ms is not None and r.device_ms >= 0.0, r
+        if r.parent is not None:
+            assert r.device_ms <= by_index[r.parent].device_ms, r
+    (job,) = [r for r in recs if r.name == "sped.cluster"]
+    assert set(job.allocs) == {"num_device_alloc", "num_device_free"}
+    assert all(isinstance(v, int) and v >= 0 for v in job.allocs.values())
+    events = prof.profiler.kineto_results.events()
+    on_device = [e.name() for e in events
+                 if not str(e.device_type()).endswith("CPU")]
+    assert on_device and not [m for m in on_device if m.startswith("sped.")]
+    on_host = {e.name() for e in events if e.name().startswith("sped.")}
+    assert on_host == set(names)
+    spans.clear()
+
+
 def _sym(seed: int, n: int, dev) -> torch.Tensor:
     a = _panel(seed, n, n, dev)
     return (a + a.T) / (2.0 * n ** 0.5)
