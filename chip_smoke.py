@@ -8,8 +8,11 @@ outside a checkout.  Phases, one JSON line each:
 
 1. build   - compile csrc/*.cu for sm_90a (all sources in parallel)
 2. check   - hold each kernel (K1 edge_spmm, K2 edge_spmm_nb, K3 gram2k,
-             K4 panel_mix, K5 poly_step, K6 dense_matvec_panel) against
-             its plain PyTorch twin on the card at the main path's shapes,
+             K4 panel_mix, K5 poly_step, K6 dense_matvec_panel, and
+             kmeans_dist at the benchmark's k-means, n = 2^22, m = d = 30,
+             bitwise, with the seeding's one-centre running minimum)
+             against its plain PyTorch twin on the card at the main path's
+             shapes,
              and time kernel, twin and one PyTorch library call that
              computes the same function; for K1 and K2 also 200 calls
              captured in one CUDA graph and replayed (kernel and library
@@ -5287,6 +5290,8 @@ def main() -> int:
     from repro_torch.kernels.edge_spmm import ref as es_ref
     from repro_torch.kernels.eg_update import ops as eg_ops
     from repro_torch.kernels.eg_update import ref as eg_ref
+    from repro_torch.kernels.kmeans_dist import ops as km_ops
+    from repro_torch.kernels.kmeans_dist import ref as km_ref
     from repro_torch.kernels.laplacian_poly import ops as lp_ops
     from repro_torch.kernels.laplacian_poly import ref as lp_ref
 
@@ -5588,6 +5593,52 @@ def main() -> int:
           source="src/repro_torch/csrc/laplacian_poly.cu", graphs=True)
     del ld  # rebuilt in phase 5; phase 4's peak memory leaves it out
 
+    # kmeans_dist at the benchmark's k-means: 2^22 rows of a row-normalised
+    # (n, 30) embedding, 30 centres drawn from it; its 3 n m d operations
+    # are each an FP32 instruction, worth an FMA's two flops of the peak.
+    # It sums in torch.sum's order, so it is held to its twin bit for bit.
+    nk, mk = 1 << 22, 30
+    gen_k = torch.Generator(device=dev).manual_seed(9)
+    xk = torch.nn.functional.normalize(
+        torch.randn((nk, mk), generator=gen_k, device=dev), dim=1)
+    ck = xk[torch.randint(0, nk, (mk,), generator=gen_k, device=dev)]
+    prev_k = km_ref.nearest(xk, ck[1:])[0]
+    check("kmeans_dist",
+          lambda: km_ops.nearest(xk, ck)[0], lambda: km_ref.nearest(xk, ck)[0],
+          lambda: torch.min(torch.cdist(xk, ck), dim=1),
+          nbytes=4 * nk * mk + 12 * nk + 4 * mk * mk, flops=6 * nk * mk * mk,
+          reps=20, replaces="none: repro's k-means is plain jnp",
+          source="src/repro_torch/csrc/kmeans_dist.cu")
+    kb_ms, kb_by = bound(4 * nk * mk + 8 * nk + 4 * mk, 6 * nk * mk)
+    kernels["kmeans_dist"]["running_min"] = {
+        "m": 1, "ms": cuda_ms(lambda: km_ops.running_min(xk, ck[:1], prev_k), 20),
+        "plain_ms": cuda_ms(lambda: km_ref.running_min(xk, ck[:1], prev_k), 20),
+        "bound_ms": kb_ms, "bound_by": kb_by}
+    # and at phase 4's (2^20, 10) panel with 10 centres of its rows
+    xf = panel(n, k, 8)
+    held_k = {}
+    for label, xs, cs, ps in (("benchmark", xk, ck, prev_k),
+                              ("full run", xf, xf[:k], None)):
+        got, want = km_ops.nearest(xs, cs), km_ref.nearest(xs, cs)
+        held_k[label] = {
+            "shape": list(xs.shape) + [cs.shape[0]],
+            "min_bitwise": bool(torch.equal(got[0], want[0])),
+            "argmin_equal": bool(torch.equal(got[1], want[1])),
+            "running_bitwise": bool(torch.equal(
+                km_ops.running_min(xs, cs[:1], ps),
+                km_ref.running_min(xs, cs[:1], ps))),
+            "bitwise_repeatable": bool(
+                torch.equal(got[0], km_ops.nearest(xs, cs)[0])
+                and torch.equal(got[1], km_ops.nearest(xs, cs)[1]))}
+    kernels["kmeans_dist"]["held"] = held_k
+    emit({"phase": "check", "name": "kmeans_dist",
+          "running_min": kernels["kmeans_dist"]["running_min"], "held": held_k})
+    for label, row in held_k.items():
+        if not all(v for v in row.values() if isinstance(v, bool)):
+            raise AssertionError(f"kmeans_dist ({label}) is not its twin "
+                                 f"bit for bit: {row}")
+    del xk, ck, prev_k, xf
+
     # ---- 3. small end-to-end (K1 path) -----------------------------------
     gs, truth_s = graphs.clique_graph(160, 4, seed=3, device=dev)
     cfg_s = ClusteringConfig(
@@ -5624,7 +5675,7 @@ def main() -> int:
     (labels, info), full_s = host_s(lambda: spectral_cluster(g, cfg))
     counts_full = launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    for name in ("edge_spmm_nb", "gram2k", "panel_mix"):
+    for name in ("edge_spmm_nb", "gram2k", "panel_mix", "kmeans_dist"):
         if counts_full[name] <= 0:
             raise AssertionError(f"full-size run launched no {name}")
     eig = info["eigvecs"]

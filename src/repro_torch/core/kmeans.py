@@ -1,8 +1,10 @@
 """k-means (Lloyd's + k-means++ init, best of several restarts): the final
 hard-clustering step of spectral clustering (paper Sec. 1/2.1).
 
-Restarts run one after another, not batched, which keeps the
-(n, k, d) distance tensor of one restart the peak memory at n = 2^20.
+Every nearest-centre search is one pass of ``kernels.kmeans_dist`` (its
+plain twin on the CPU): distances, minimum and argmin, with no (n, k, d)
+tensor.  The seeding keeps a running minimum, so each draw reads x once
+against its one new centre.  Restarts run one after another.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import spans
+from repro_torch.kernels.kmeans_dist import ops as dist_ops
 
 
 class KMeansResult(NamedTuple):
@@ -19,20 +22,18 @@ class KMeansResult(NamedTuple):
     inertia: torch.Tensor  # scalar
 
 
-def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    return torch.sum((x[:, None, :] - c[None, :, :]) ** 2, dim=-1)
-
-
 @spans.span("sped.kmeans.init")
 def _plusplus_init(generator: torch.Generator, x: torch.Tensor,
                    k: int) -> torch.Tensor:
-    """k-means++ seeding, drawn with ``torch.multinomial``."""
+    """k-means++ seeding, drawn with ``torch.multinomial``; d2 is the
+    running minimum over the centres drawn so far."""
     n = x.shape[0]
     first = torch.randint(0, n, (1,), generator=generator, device=x.device)
     centroids = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
     centroids[0] = x[first[0]]
+    d2 = None
     for i in range(1, k):
-        d2 = torch.min(_sq_dists(x, centroids[:i]), dim=1).values
+        d2 = dist_ops.running_min(x, centroids[i - 1:i], d2)
         total = torch.sum(d2)
         # all points on chosen centroids: draw uniformly instead
         probs = torch.where(total > 0, d2 / torch.clamp(total, min=1e-30),
@@ -47,15 +48,14 @@ def _lloyd(x: torch.Tensor, centroids: torch.Tensor, iters: int) -> KMeansResult
     k = centroids.shape[0]
     c = centroids
     for _ in range(iters):
-        labels = torch.argmin(_sq_dists(x, c), dim=1)
+        _, labels = dist_ops.nearest(x, c)
         onehot = torch.nn.functional.one_hot(labels, k).to(x.dtype)  # (n, k)
         counts = torch.sum(onehot, dim=0)
         sums = onehot.T @ x
         c = torch.where(counts[:, None] > 0,
                         sums / torch.clamp(counts, min=1)[:, None], c)
-    d2 = _sq_dists(x, c)
-    labels = torch.argmin(d2, dim=1)
-    inertia = torch.sum(torch.min(d2, dim=1).values)
+    d2, labels = dist_ops.nearest(x, c)
+    inertia = torch.sum(d2)
     return KMeansResult(centroids=c, labels=labels, inertia=inertia)
 
 

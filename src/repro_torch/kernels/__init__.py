@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.edge_spmm import kernel as _es
 from repro_torch.kernels.eg_update import kernel as _eg
+from repro_torch.kernels.kmeans_dist import kernel as _km
 from repro_torch.kernels.laplacian_poly import kernel as _lp
 
 KERNELS = {
@@ -17,6 +18,7 @@ KERNELS = {
     "panel_mix": _eg.panel_mix,
     "poly_step": _lp.poly_step,
     "dense_matvec_panel": _lp.dense_matvec_panel,
+    "kmeans_dist": _km.kmeans_dist,
 }
 
 

@@ -46,6 +46,8 @@ SIGNATURES = {
     "poly_step_launch": [P, P, P, F, I, I, P],
     # l, u, out, n, k, stream
     "dense_matvec_panel_launch": [P, P, P, I, I, P],
+    # x, c, prev, out_min, out_arg, n, m, d, stream
+    "kmeans_dist_launch": [P, P, P, P, P, I, I, I, P],
 }
 
 

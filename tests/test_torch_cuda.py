@@ -28,6 +28,8 @@ from repro_torch.kernels.edge_spmm import ops as es_ops
 from repro_torch.kernels.edge_spmm import ref as es_ref
 from repro_torch.kernels.eg_update import ops as eg_ops
 from repro_torch.kernels.eg_update import ref as eg_ref
+from repro_torch.kernels.kmeans_dist import ops as km_ops
+from repro_torch.kernels.kmeans_dist import ref as km_ref
 from repro_torch.kernels.laplacian_poly import ops as lp_ops
 from repro_torch.kernels.laplacian_poly import ref as lp_ref
 
@@ -604,6 +606,100 @@ def test_walks_spectral_cluster_on_the_card(dev):
     assert info["plan"] is None and counts["edge_spmm"] == 0
     assert counts["gram2k"] == counts["panel_mix"] == 600
     assert float(cluster_agreement(labels, truth, 4)) > 0.9
+
+
+# ---------------------------------------------------------------------------
+# k-means' nearest-centre search (kernels/kmeans_dist)
+# ---------------------------------------------------------------------------
+
+def _km_same(got, want) -> None:
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# (n, m, d): the benchmark's 30 x 30; ragged n, m and d; every lane width
+# of the compile-time bodies (d = 1, 3, 4-5, 11, 16-30, 32-64); one centre
+# at the widest body (shared memory past 48 KB); m past one shared chunk
+# of centres; d past the compile-time bodies.  offset 1 starts x one row
+# into a larger matrix, off a 16-byte boundary unless 4 divides d.
+# The kernel sums each distance in the order torch.sum takes on the card
+# (read from torch 2.11.0+cu128; a failure after a torch upgrade may mean
+# that order moved), so its minima and argmins are the broadcast twin's,
+# bit for bit.
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,m,d", [(100003, 30, 30), (4097, 37, 5),
+                                   (1000, 3, 4), (513, 1, 64), (3001, 200, 30),
+                                   (777, 7, 1), (600, 5, 65), (2049, 16, 49),
+                                   (1500, 8, 100), (1024, 33, 32),
+                                   (2500, 6, 3), (1200, 10, 11), (999, 12, 16)])
+def test_kmeans_dist_is_the_twin_bitwise(dev, n, m, d, offset):
+    x = _panel(80, n + offset, d, dev)[offset:]
+    c = _panel(81, m, d, dev)
+    reset_launch_counts()
+    got_min, got_arg = km_ops.nearest(x, c)
+    assert launch_counts()["kmeans_dist"] == 1
+    want_min, want_arg = km_ref.nearest(x, c)
+    _km_same(got_min, want_min)
+    _km_same(got_arg, want_arg)
+
+
+@pytest.mark.parametrize("m,d", [(30, 30), (9, 5)])
+def test_kmeans_dist_running_min_is_the_min_over_every_centre(dev, m, d):
+    x = _panel(82, 50001, d, dev)
+    c = _panel(83, m, d, dev)
+    run = None
+    for j in range(m):
+        run = km_ops.running_min(x, c[j:j + 1], run)
+    _km_same(run, km_ops.nearest(x, c)[0])
+    _km_same(run, km_ref.nearest(x, c)[0])
+    _km_same(km_ops.running_min(x, c[m // 2:], km_ops.running_min(
+        x, c[: m // 2], None)), run)
+
+
+def test_kmeans_dist_repeats_bitwise(dev):
+    x = _panel(84, 100003, 30, dev)
+    c = _panel(85, 30, 30, dev)
+    a_min, a_arg = km_ops.nearest(x, c)
+    b_min, b_arg = km_ops.nearest(x, c)
+    _km_same(a_min, b_min)
+    _km_same(a_arg, b_arg)
+    prev = _panel(86, 100003, 1, dev)[:, 0].abs() * 60.0
+    _km_same(km_ops.running_min(x, c[:1], prev),
+             km_ops.running_min(x, c[:1], prev))
+
+
+def test_kmeans_dist_refuses_what_no_caller_passes(dev):
+    x = _panel(87, 64, 4, dev)
+    with pytest.raises(TypeError, match="float32"):
+        km_ops.nearest(x.double(), x[:3].double())
+    with pytest.raises(ValueError, match="m = 0"):
+        km_ops.nearest(x, x[:0])
+
+
+def test_kmeans_on_the_card_is_the_twin_route(dev, monkeypatch):
+    """km.kmeans through the kernel against the same k-means through the
+    plain twin on the card, from the same CUDA generator seed, on
+    separated blobs: the same labels, centres and inertia, bit for bit."""
+    from repro_torch.core import kmeans as km
+
+    k, d, restarts = 8, 8, 3
+    rng = np.random.default_rng(88)
+    means = 5.0 * rng.normal(size=(k, d))
+    x = torch.from_numpy((means[rng.integers(0, k, 40000)]
+                          + 0.3 * rng.normal(size=(40000, d))
+                          ).astype(np.float32)).to(dev)
+    reset_launch_counts()
+    got = km.kmeans(torch.Generator(device=dev).manual_seed(5), x, k,
+                    restarts=restarts)
+    assert launch_counts()["kmeans_dist"] == restarts * ((k - 1) + 25 + 1)
+    monkeypatch.setattr(km.dist_ops, "nearest", km_ref.nearest)
+    monkeypatch.setattr(km.dist_ops, "running_min", km_ref.running_min)
+    want = km.kmeans(torch.Generator(device=dev).manual_seed(5), x, k,
+                     restarts=restarts)
+    _km_same(got.labels, want.labels)
+    _km_same(got.centroids, want.centroids)
+    _km_same(got.inertia, want.inertia)
 
 
 # ---------------------------------------------------------------------------
