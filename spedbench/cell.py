@@ -7,6 +7,8 @@
 * ``limits/<cell>.json``: the limit of each number that decides
   ``correct``;
 * ``graphs/<generator>.py``: ``generate(params, seed, device)``;
+* the config's ``reference``, a module under ``spedbench/``: the plain
+  reference's ``solve`` and ``labels``;
 * ``layers/<metric>.py``: ``read(ctx)``, one per per-layer metric.
 """
 from __future__ import annotations
@@ -87,3 +89,14 @@ def reader(metric: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def reference(cell: Cell):
+    """The module the config's ``reference`` names (a path such as
+    ``spedbench/reference/pipeline.py``), imported by its dotted name."""
+    path = Path(cell.config["reference"])
+    if (path.suffix != ".py" or path.is_absolute() or ".." in path.parts
+            or path.parts[0] != HERE.name):
+        raise ValueError(f"{cell.name}: the reference {str(path)!r} is not "
+                         f"a module under {HERE.name}/")
+    return importlib.import_module(".".join(path.with_suffix("").parts))

@@ -57,8 +57,9 @@ def readings(cell, seed: int, device, control: bool = True) -> dict:
     from repro_torch.core import laplacian as lap
     from repro_torch.core.clustering import spectral_cluster
     from spedbench import cell as cells
-    from spedbench.reference import compare, pipeline
+    from spedbench.reference import compare
 
+    pipeline = cells.reference(cell)
     n = int(cell.config["num_nodes"])
     k = int(cell.config["num_clusters"])
     edges = cells.generator(cell)(cell.config, seed, device)

@@ -10,7 +10,9 @@ panel, then each step's (degree + 1, B) edge draw) and the k-means seeds
 from seed + 1, and computes in float32 with TF32 off.  ``tf32=True``
 computes every matrix product on TF32 inputs (10 mantissa bits, as the
 tensor cores round them): the benchmark's control, one precision below
-the configuration's float32.
+the configuration's float32.  k-means takes its distances a block of
+rows at a time, in the sums the whole (n, k, d) broadcast would take,
+so its memory does not grow with n k d.
 """
 from __future__ import annotations
 
@@ -20,6 +22,9 @@ import warnings
 import torch
 
 KMEANS_ITERS = 25
+# the most bytes that k-means' distances hold at a time, whatever n, k
+# and d: one row block's (rows, m, d) differences and their squares
+BLOCK_BYTES = 1 << 30
 
 
 @dataclasses.dataclass
@@ -93,34 +98,80 @@ def kmeans(generator: torch.Generator, x: torch.Tensor, k: int,
     """Best of ``restarts`` Lloyd runs from k-means++ seeds (first centre
     uniform, then D^2-weighted), ``KMEANS_ITERS`` iterations each; the
     labels of the run with the least inertia."""
-    n = x.shape[0]
     best_labels, best_inertia = None, None
     for _ in range(restarts):
-        first = torch.randint(0, n, (1,), generator=generator, device=x.device)
-        c = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
-        c[0] = x[first[0]]
-        for i in range(1, k):
-            d2 = torch.min(_sq_dists(x, c[:i]), dim=1).values
-            total = torch.sum(d2)
-            probs = torch.where(total > 0, d2 / torch.clamp(total, min=1e-30),
-                                torch.full_like(d2, 1.0 / n))
-            c[i] = x[torch.multinomial(probs, 1, generator=generator)[0]]
-        for _ in range(KMEANS_ITERS):
-            labels = torch.argmin(_sq_dists(x, c), dim=1)
-            onehot = torch.nn.functional.one_hot(labels, k).to(x.dtype)
-            counts = torch.sum(onehot, dim=0)
-            sums = matmul(onehot.T, x, tf32)
-            c = torch.where(counts[:, None] > 0,
-                            sums / torch.clamp(counts, min=1)[:, None], c)
-        d2 = _sq_dists(x, c)
-        labels = torch.argmin(d2, dim=1)
-        inertia = torch.sum(torch.min(d2, dim=1).values)
+        _, labels, inertia = lloyd(x, plusplus(generator, x, k), tf32)
         if best_inertia is None or bool(inertia < best_inertia):
             best_labels, best_inertia = labels, inertia
     return best_labels
 
 
+def plusplus(generator: torch.Generator, x: torch.Tensor,
+             k: int) -> torch.Tensor:
+    """k-means++ seeds (k, d): the first centre uniform, each next one drawn
+    with probability d2 / sum(d2), d2 each row's least squared distance to
+    the centres drawn so far.  d2 is kept as a running minimum that takes
+    the one new centre's distances a draw: a minimum is exact, so it is
+    the minimum over every centre drawn, bit for bit."""
+    n = x.shape[0]
+    first = torch.randint(0, n, (1,), generator=generator, device=x.device)
+    c = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
+    c[0] = x[first[0]]
+    d2 = None
+    for i in range(1, k):
+        new = nearest(x, c[i - 1:i])[0]
+        d2 = new if d2 is None else torch.minimum(d2, new)
+        total = torch.sum(d2)
+        probs = torch.where(total > 0, d2 / torch.clamp(total, min=1e-30),
+                            torch.full_like(d2, 1.0 / n))
+        c[i] = x[torch.multinomial(probs, 1, generator=generator)[0]]
+    return c
+
+
+def lloyd(x: torch.Tensor, c: torch.Tensor, tf32: bool):
+    """``KMEANS_ITERS`` Lloyd passes from the centres ``c``: the last
+    centres, each row's label under them, and the inertia."""
+    k = c.shape[0]
+    for _ in range(KMEANS_ITERS):
+        labels = nearest(x, c)[1]
+        onehot = torch.nn.functional.one_hot(labels, k).to(x.dtype)
+        counts = torch.sum(onehot, dim=0)
+        sums = matmul(onehot.T, x, tf32)
+        c = torch.where(counts[:, None] > 0,
+                        sums / torch.clamp(counts, min=1)[:, None], c)
+    d2, labels = nearest(x, c)
+    return c, labels, torch.sum(d2)
+
+
+def nearest(x: torch.Tensor, c: torch.Tensor):
+    """Each row's least squared distance to the centres ``c`` (n,) and the
+    lowest index that takes it (n,), a block of rows at a time."""
+    n = x.shape[0]
+    d2 = torch.empty(n, dtype=x.dtype, device=x.device)
+    labels = torch.empty(n, dtype=torch.long, device=x.device)
+    for rows in row_blocks(n, c.shape[0] * x.shape[1] * x.element_size()):
+        block = _sq_dists(x[rows], c)
+        d2[rows] = torch.min(block, dim=1).values
+        labels[rows] = torch.argmin(block, dim=1)
+    return d2, labels
+
+
+def row_blocks(n: int, row_bytes: int) -> list[slice]:
+    """Slices that cover n rows in blocks of at most ``BLOCK_BYTES`` of
+    temporaries, a row taking ``2 * row_bytes`` (its (m, d) differences
+    and their squares).  The blocks differ by one row at most: none is
+    left small, since on the card torch sums a reduction of fewer than
+    16 outputs with wider lanes, in another order."""
+    rows = max(1, BLOCK_BYTES // (2 * row_bytes))
+    count = max(1, -(-n // rows))
+    return [slice(n * i // count, n * (i + 1) // count) for i in range(count)]
+
+
 def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(rows, m) squared distances, each summed over the last axis of the
+    (rows, m, d) squares.  From 16 outputs on, the order torch sums in
+    does not depend on their number, so a block gives the whole
+    broadcast's bits."""
     return torch.sum((x[:, None, :] - c[None, :, :]) ** 2, dim=-1)
 
 

@@ -9,7 +9,7 @@ at the cell's shapes, then runs whole ``spectral_cluster`` jobs back to
 back: the first always, and each next one only where, at the pace of
 the last, it ends within ``--seconds`` of the window's start.  After the
 window it checks one job, drawn from the seed, against
-the plain reference (``spedbench/reference``), and prints one JSON line
+the plain reference that the config names, and prints one JSON line
 last: the cell's end-to-end metrics (``--trace 0``) or its per-layer
 metrics from a ``torch.profiler`` trace of the window's first job
 (``--trace 1``; the window runs on untraced, so a traced run takes as
@@ -127,8 +127,9 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
     from repro_torch.kernels.edge_spmm.ops import HUB_THRESHOLD
     from spedbench import cell as cells
     from spedbench import roofline, trace
-    from spedbench.reference import compare, pipeline
+    from spedbench.reference import compare
 
+    pipeline = cells.reference(cell)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
 
@@ -244,12 +245,14 @@ def run(cell, seed: int, seconds: float, traced: bool, device,
     if cuda:
         torch.cuda.empty_cache()
     k = int(cell.config["num_clusters"])
+    t_ref = time.perf_counter()
     ref = pipeline.solve(edges, n, cell.clustering, cell.solver, k,
                          job_seed(seed, job))
     ref_labels = pipeline.labels(v, cell.clustering, k, job_seed(seed, job))
     values = compare.numbers(v, labels, ref, ref_labels)
     ok, checks = compare.judge(values, cell.limits)
-    log(checked_job=job, plan=plan)
+    log(checked_job=job, plan=plan,
+        reference_s=time.perf_counter() - t_ref)
     found = loaded_forbidden()
     if found:
         print(f"loaded forbidden modules: {', '.join(found)}", file=sys.stderr)

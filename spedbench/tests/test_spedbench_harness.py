@@ -3,6 +3,7 @@ cell loaded from its files by name, the per-layer readers on a made-up
 trace, the import check, and the runs that must print no result."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -82,6 +83,57 @@ def test_cell_loads_from_its_files(name):
                                                  "setup_s"]
     for m in c.per_layer:
         assert callable(cells.reader(m["name"]))
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_committed_configs_name_the_pipeline_reference(name):
+    from spedbench.reference import pipeline
+
+    assert cells.reference(cells.load(name)) is pipeline
+
+
+def _naming(cell, reference):
+    return dataclasses.replace(cell, config={**cell.config,
+                                             "reference": reference})
+
+
+@pytest.mark.parametrize("path", [
+    "src/repro_torch/core/kmeans.py", "/spedbench/reference/pipeline.py",
+    "spedbench/../src/ref.py", "spedbench/reference/pipeline.json"])
+def test_a_reference_outside_the_benchmark_is_refused(path):
+    with pytest.raises(ValueError):
+        cells.reference(_naming(cells.load("sbm4m.limit251"), path))
+
+
+@pytest.mark.parametrize("entry", ["run", "control"])
+def test_a_config_gets_the_reference_it_names(entry, tiny_cell, monkeypatch):
+    """A config that names another module has the run and the control
+    call that module's ``solve`` and ``labels``."""
+    from spedbench import control
+    from spedbench.reference import compare, pipeline
+
+    calls = []
+    other = types.ModuleType("spedbench.reference.other")
+
+    def solve(*args, **kwargs):
+        calls.append("solve")
+        return pipeline.solve(*args, **kwargs)
+
+    def labels(*args, **kwargs):
+        calls.append("labels")
+        return pipeline.labels(*args, **kwargs)
+
+    other.solve, other.labels = solve, labels
+    monkeypatch.setitem(sys.modules, other.__name__, other)
+    cell = _naming(tiny_cell("sbm4m.limit251"), "spedbench/reference/other.py")
+    assert cells.reference(cell) is other
+    if entry == "run":
+        assert bench.run(cell, 13, 0.01, False, "cpu", time.time())["correct"]
+        assert calls == ["solve", "labels"]
+    else:
+        out = control.readings(cell, 13, "cpu")
+        assert compare.judge(out["program"], cell.limits)[0]
+        assert calls == ["solve", "labels"] * 2
 
 
 def test_unknown_cell_is_refused():
